@@ -1,0 +1,102 @@
+"""Port parity: the plain versions of sweep kernels 1 and 2.
+
+Kernel 1's plain version (``linearized_warps`` + ``value_grad_precond_planes``
+behind ``kernels.sweep.sweep_grad``) and kernel 2's (``total_energy_planes``
+behind ``sweep_energy``) against the JAX reference's oracles, on warps
+linearized around ``v_lin != v`` with non-zero UI and TC maps.
+Tolerances: energy relative error <= 1e-5; grad and precond max abs
+<= 1e-5 * max|ref|. The CUDA kernels themselves are held to these plain
+versions on the card by ``chip_smoke.py``.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from videomorphing_tpu.config import MorphParams as JaxMorphParams
+from videomorphing_tpu.solver import descent as jd
+from videomorphing_tpu.solver.energy import make_level_data
+from videomorphing_tpu_torch.config import MorphParams
+from videomorphing_tpu_torch.interop import level_data_from_numpy
+from videomorphing_tpu_torch.kernels import sweep as ks
+from videomorphing_tpu_torch.kernels import warp as kw
+
+torch.set_num_threads(2)
+
+
+def _case(h, w, seed, c=3):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    v_lin = np.stack([2.0 * np.sin(yy / 9.0), 1.5 * np.cos(xx / 11.0)], -1).astype(np.float32)
+    v = (v_lin + 0.3 * rng.standard_normal((h, w, 2))).astype(np.float32)
+    # constraint targets near v, so the four energy terms are of one order
+    # and the energy comparison sees the SSIM term too
+    arrs = dict(
+        i0=rng.random((h, w, c), dtype=np.float32),
+        i1=rng.random((h, w, c), dtype=np.float32),
+        ui_w=rng.random((h, w, 1), dtype=np.float32),
+        ui_v=(v + 0.1 * rng.standard_normal((h, w, 2))).astype(np.float32),
+        tc_w=rng.random((h, w, 1), dtype=np.float32),
+        tc_v=(v + 0.5 * rng.standard_normal((h, w, 2))).astype(np.float32),
+    )
+    return arrs, v_lin, v
+
+
+def _reference(arrs, v_lin, v, p):
+    data = make_level_data(*(jnp.asarray(arrs[k]) for k in ("i0", "i1", "ui_w", "ui_v", "tc_w", "tc_v")))
+    wb = jd.warp_bundle(jnp.asarray(v_lin), data)
+    w0e, w1e = jd.linearized_warps(wb, jnp.asarray(v))
+    e, g, pc = jd.value_grad_precond_planes(w0e, wb.dw0, w1e, wb.dw1, jnp.asarray(v), data, p)
+    et = jd.total_energy_planes(w0e, w1e, jnp.asarray(v), data, p)
+    return float(e), np.asarray(g), np.asarray(pc), float(et)
+
+
+def _port(arrs, v_lin, v, p, device="cpu"):
+    data = level_data_from_numpy(**arrs, device=device)
+    t = lambda x: torch.from_numpy(x).to(device)
+    planes = kw.halfway_warp(data.i0, data.i1, t(v_lin))
+    e, g, pc = ks.sweep_grad(planes, t(v_lin), t(v), data, p)
+    et = ks.sweep_energy(planes, t(v_lin), t(v), data, p)
+    return float(e), g.cpu().numpy(), pc.cpu().numpy(), float(et)
+
+
+def _assert_close(ref, got):
+    e_r, g_r, p_r, et_r = ref
+    e_g, g_g, p_g, et_g = got
+    assert abs(e_g - e_r) <= 1e-5 * abs(e_r)
+    assert abs(et_g - et_r) <= 1e-5 * abs(et_r)
+    assert g_g.shape == g_r.shape and p_g.shape == p_r.shape
+    assert np.max(np.abs(g_g - g_r)) <= 1e-5 * np.max(np.abs(g_r))
+    assert np.max(np.abs(p_g - p_r)) <= 1e-5 * np.max(np.abs(p_r))
+
+
+PARAMS = [
+    JaxMorphParams(),
+    JaxMorphParams(ssim_use_luminance=False, lambda_tps=0.05, gamma_ui=5.0),
+    JaxMorphParams(ssim_window=7, ssim_sigma=1.5),
+]
+
+
+@pytest.mark.parametrize("hw", [(37, 53), (64, 300)])
+@pytest.mark.parametrize("pi", range(len(PARAMS)))
+def test_sweep_plain_matches_reference(hw, pi):
+    jp = PARAMS[pi]
+    p = MorphParams(**dataclasses.asdict(jp))
+    arrs, v_lin, v = _case(*hw, seed=pi)
+    _assert_close(_reference(arrs, v_lin, v, jp), _port(arrs, v_lin, v, p))
+    assert ks.sweep_grad.launches == 0 and ks.sweep_energy.launches == 0
+
+
+def test_sweep_exact_at_linearization_point():
+    """At v == v_lin the linearized energy is the exact energy."""
+    from videomorphing_tpu_torch.solver.energy import total_energy
+
+    arrs, v_lin, _ = _case(30, 41, seed=9)
+    data = level_data_from_numpy(**arrs)
+    v = torch.from_numpy(v_lin)
+    planes = kw.halfway_warp(data.i0, data.i1, v)
+    e = float(ks.sweep_energy(planes, v, v, data, MorphParams()))
+    assert abs(e - float(total_energy(v, data, MorphParams()))) <= 1e-6 * abs(e)

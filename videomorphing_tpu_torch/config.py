@@ -1,0 +1,102 @@
+"""Frozen configuration of the image-pair morph, field for field the JAX
+package's ``videomorphing_tpu.config`` dataclasses.
+
+The port carries its own copy so that importing it loads nothing of the JAX
+package; ``tests/test_torch_isolation.py`` holds every field name and
+default to the reference, so the two cannot drift apart. The rationale of
+each default is documented in ``videomorphing_tpu/config.py``.
+
+Knobs that only steer TPU machinery are kept for signature parity and are
+ignored by the port (the kernel runs whenever the tensors lie on the card):
+``backend``, ``pallas_min_pixels``, ``fused_warp``, ``warp_into_pack``,
+``warp_prescreen`` and ``SynthParams.fused_sampling``. ``pack_dtype`` other
+than ``"float32"`` changes the output and raises in the level solver.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class MorphParams:
+    """Parameters of the halfway-domain correspondence optimization."""
+
+    # energy weights
+    lambda_tps: float = 0.005
+    gamma_ui: float = 50.0
+    beta_tc: float = 0.5
+    ui_sigma: float = 4.0
+
+    # SSIM data term
+    ssim_window: int = 5
+    ssim_sigma: float = 1.0
+    ssim_c1: float = 1e-4
+    ssim_c2: float = 9e-4
+    ssim_use_luminance: bool = True
+
+    # coarse-to-fine pyramid
+    n_levels: int = 0
+    min_level_size: int = 16
+    iters_coarse: int = 200
+    iters_fine: int = 30
+    tol: float = 1e-7
+
+    # descent / line search
+    n_colors: int = 2
+    init_step: float = 1.0
+    step_grow: float = 1.25
+    step_shrink: float = 0.5
+    max_backtracks: int = 10
+    armijo_c: float = 1e-4
+    min_step: float = 1e-8
+
+    # constraints
+    fold_margin: float = 0.45
+    boundary_lock: bool = True
+
+    # numerics
+    dtype: str = "float32"
+    precond_eps: float = 1e-3
+
+    # execution
+    backend: str = "auto"
+    relin_every: int = 8
+    pallas_min_pixels: int = 16384
+    fused_warp: bool = True
+    pack_dtype: str = "float32"
+    warp_into_pack: bool = False
+    warp_prescreen: bool = False
+    relin_median: bool = True
+
+    def iters_for_level(self, level: int, n_levels: int) -> int:
+        """Iteration budget per level; geometric from coarse to fine.
+
+        ``level`` counts 0 = finest .. n_levels-1 = coarsest.
+        """
+        if n_levels <= 1:
+            return self.iters_coarse
+        frac = level / (n_levels - 1)
+        it = self.iters_fine * (self.iters_coarse / self.iters_fine) ** frac
+        return max(1, int(round(it)))
+
+
+@dataclasses.dataclass(frozen=True)
+class SynthParams:
+    """Parameters of morph synthesis (paths, warps, blending)."""
+
+    quadratic_paths: bool = True
+    path_smooth_mu: float = 25.0
+    max_bulge: float = 32.0
+
+    invert_iters: int = 6
+    invert_multiscale: bool = True
+    fused_sampling: bool = True
+    sampling: str = "bilinear"
+
+    blend_mode: str = "poisson"
+    blend_screen_lambda: float = 0.1
+    extend_levels: int = 0
+    occlusion_weighting: bool = True
+
+    dtype: str = "float32"

@@ -1,0 +1,122 @@
+// Bilinear gathers for Hopper (sm_90a): the halfway warp and the sampler.
+//
+// Replaces the Pallas builders videomorphing_tpu/pallas/warp.py:206
+// (_build_warp_call) and :311 (_build_sample_call). On the TPU those
+// kernels enumerate per-tile residual offsets over row-phase copies because
+// the TPU has no gather unit; on Hopper a warp is a per-pixel gather, so
+// both kernels are one thread per output pixel with no fit test and no
+// fallback. Both are bound by memory: 4 taps x C reads per image and the
+// output writes, with neighbouring threads on neighbouring pixels so the
+// taps of a warp coalesce through L1/L2 for smooth fields.
+//
+// Semantics are those of ops/resample.py bilinear_sample_with_grad: clamp to
+// [0, n-1] before floor, y1 = min(y0 + 1, h - 1), derivative masks from the
+// strict raw-coordinate tests 0 < y < h - 1. The lerps use __fadd_rn /
+// __fmul_rn so no multiply-add is contracted and each step rounds as the
+// plain PyTorch version's separate operations do.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+struct Taps {
+  int i00, i01, i10, i11;  // flat (y * w + x) indices of the 4 corners
+  float fy, fx;
+};
+
+__device__ __forceinline__ Taps corner_taps(float y, float x, int h, int w) {
+  y = fminf(fmaxf(y, 0.0f), (float)(h - 1));
+  x = fminf(fmaxf(x, 0.0f), (float)(w - 1));
+  float y0 = floorf(y), x0 = floorf(x);
+  int y0i = (int)y0, x0i = (int)x0;
+  int y1i = min(y0i + 1, h - 1), x1i = min(x0i + 1, w - 1);
+  Taps t;
+  t.i00 = y0i * w + x0i;
+  t.i01 = y0i * w + x1i;
+  t.i10 = y1i * w + x0i;
+  t.i11 = y1i * w + x1i;
+  t.fy = __fsub_rn(y, y0);
+  t.fx = __fsub_rn(x, x0);
+  return t;
+}
+
+// a + (b - a) * f, rounded step by step
+__device__ __forceinline__ float lerp_rn(float a, float b, float f) {
+  return __fadd_rn(a, __fmul_rn(__fsub_rn(b, a), f));
+}
+
+// One halfway image: sample img at p -/+ v and write C value planes and
+// 2C derivative planes (y, x per channel) of the (6C, H, W) stack.
+__device__ __forceinline__ void warp_one(const float* __restrict__ img, float yr, float xr,
+                                         int h, int w, int C, int pix, int hw,
+                                         float* __restrict__ out_val,
+                                         float* __restrict__ out_d) {
+  Taps t = corner_taps(yr, xr, h, w);
+  float oky = (yr > 0.0f && yr < (float)(h - 1)) ? 1.0f : 0.0f;
+  float okx = (xr > 0.0f && xr < (float)(w - 1)) ? 1.0f : 0.0f;
+  float gy = __fsub_rn(1.0f, t.fy);
+  for (int c = 0; c < C; ++c) {
+    float v00 = img[t.i00 * C + c], v01 = img[t.i01 * C + c];
+    float v10 = img[t.i10 * C + c], v11 = img[t.i11 * C + c];
+    float top = lerp_rn(v00, v01, t.fx);
+    float bot = lerp_rn(v10, v11, t.fx);
+    out_val[c * hw + pix] = lerp_rn(top, bot, t.fy);
+    out_d[(2 * c) * hw + pix] = __fmul_rn(__fsub_rn(bot, top), oky);
+    float dx = __fadd_rn(__fmul_rn(__fsub_rn(v01, v00), gy),
+                         __fmul_rn(__fsub_rn(v11, v10), t.fy));
+    out_d[(2 * c + 1) * hw + pix] = __fmul_rn(dx, okx);
+  }
+}
+
+__global__ void halfway_warp_kernel(const float* __restrict__ i0, const float* __restrict__ i1,
+                                    const float* __restrict__ v, float* __restrict__ out,
+                                    int h, int w, int C) {
+  int x = blockIdx.x * blockDim.x + threadIdx.x;
+  int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  int pix = y * w + x;
+  int hw = h * w;
+  float vy = v[2 * pix], vx = v[2 * pix + 1];
+  // plane order: w0 (C), w1 (C), dw0 (y, x per channel), dw1
+  warp_one(i0, __fsub_rn((float)y, vy), __fsub_rn((float)x, vx), h, w, C, pix, hw,
+           out, out + (size_t)2 * C * hw);
+  warp_one(i1, __fadd_rn((float)y, vy), __fadd_rn((float)x, vx), h, w, C, pix, hw,
+           out + (size_t)C * hw, out + (size_t)4 * C * hw);
+}
+
+__global__ void bilinear_sample_kernel(const float* __restrict__ img,
+                                       const float* __restrict__ coords,
+                                       float* __restrict__ out, int h, int w, int C,
+                                       int ho, int wo) {
+  int x = blockIdx.x * blockDim.x + threadIdx.x;
+  int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= wo || y >= ho) return;
+  int pix = y * wo + x;
+  Taps t = corner_taps(coords[2 * pix], coords[2 * pix + 1], h, w);
+  for (int c = 0; c < C; ++c) {
+    float top = lerp_rn(img[t.i00 * C + c], img[t.i01 * C + c], t.fx);
+    float bot = lerp_rn(img[t.i10 * C + c], img[t.i11 * C + c], t.fx);
+    out[pix * C + c] = lerp_rn(top, bot, t.fy);
+  }
+}
+
+constexpr int BX = 32, BY = 8;
+
+}  // namespace
+
+extern "C" int vm_halfway_warp(const float* i0, const float* i1, const float* v, float* out,
+                               int h, int w, int C, void* stream) {
+  dim3 block(BX, BY);
+  dim3 grid((w + BX - 1) / BX, (h + BY - 1) / BY);
+  halfway_warp_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(i0, i1, v, out, h, w, C);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vm_bilinear_sample(const float* img, const float* coords, float* out, int h,
+                                  int w, int C, int ho, int wo, void* stream) {
+  dim3 block(BX, BY);
+  dim3 grid((wo + BX - 1) / BX, (ho + BY - 1) / BY);
+  bilinear_sample_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(img, coords, out, h, w, C,
+                                                                  ho, wo);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,37 @@
+"""State carried across from the JAX package, read out as numpy arrays.
+
+The parity tests use these to render from one field solved by the
+reference in both packages, and to run one level solve from identical
+inputs, so render parity is separated from solver drift. The configuration
+needs no conversion: ``config.py`` mirrors the reference's dataclasses
+field for field.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from videomorphing_tpu_torch.device import as_device
+from videomorphing_tpu_torch.models.image_morph import MorphArtifacts
+from videomorphing_tpu_torch.solver.energy import LevelData, make_level_data
+
+
+def _t(x, device) -> Optional[torch.Tensor]:
+    if x is None:
+        return None
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(as_device(device)).contiguous()
+
+
+def artifacts_from_numpy(v, b=None, device=None) -> MorphArtifacts:
+    """A reference ``MorphArtifacts`` (field ``v``, bulge ``b`` or None) as
+    the port's, on ``device``; ``result`` stays None."""
+    return MorphArtifacts(v=_t(v, device), b=_t(b, device), result=None)
+
+
+def level_data_from_numpy(i0, i1, ui_w=None, ui_v=None, tc_w=None, tc_v=None, device=None) -> LevelData:
+    """A reference ``LevelData`` (each field a numpy array or None) as the
+    port's, on ``device``."""
+    return make_level_data(*(_t(x, device) for x in (i0, i1, ui_w, ui_v, tc_w, tc_v)))
