@@ -8,18 +8,26 @@ Phases:
   0. the card: ``require_cuda()`` and its name and power limit from nvidia-smi;
   1. build the CUDA kernels of ``videomorphing_tpu_torch/csrc`` with nvcc;
   2. each kernel against its plain PyTorch version on the card, at the
-     slice's shapes (1024 x 1024 and a ragged 135 x 241, C = 3; the sampler
-     also at C = 4 on the stacked [disp, v] planes), with the median time of
-     kernel and plain version (CUDA events);
-  3. the main path: ``api.morph_pair`` on a 1024 x 1024 pair with 4 point
+     slices' shapes (1024 x 1024 and a ragged 135 x 241, C = 3; the sampler
+     also at C = 4 on the stacked [disp, v] planes, on a grey 540 x 960
+     image, at 4 points, and batched: 29 and 58 grey 540 x 960 images as
+     the flow warps take them, 29 two-channel 540 x 960 and 1080 x 1920
+     flows as the occlusion round trip takes them), with the median time
+     of kernel and plain version (CUDA events);
+  3. the pair path: ``api.morph_pair`` on a 1024 x 1024 pair with 4 point
      constraints and 16 frames, with every kernel's launch count;
   4. the golden translation at 256 x 256: the midpoint frame against its
-     analytic truth (SSIM >= 0.99).
+     analytic truth (SSIM >= 0.99);
+  5. the video path: ``api.morph_clips`` on the JAX bench's 30-frame
+     1080 x 1920 clip pair with 4 points and default parameters, with every
+     kernel's launch count, each stage's wall and frames/s;
+  6. determinism: ``solve_clip_fields`` twice on a 6-frame 270 x 480 clip
+     gives bitwise equal fields.
 
 Any failure raises and exits non-zero. The second-to-last line is one JSON
-object with a record per kernel; the last line is
-``{"ok": true, "device": {...}}``. With no CUDA device it exits 1 and prints
-no result.
+object with a record per kernel (launches summed over phases 3 and 5); the
+last line is ``{"ok": true, "device": {...}}``. With no CUDA device it exits
+1 and prints no result.
 """
 
 from __future__ import annotations
@@ -31,9 +39,12 @@ import time
 
 import numpy as np
 
+# the kernel numbering of PERF.md and ROADMAP.md: 1 sweep_grad, 2 sweep_energy,
+# 3 halfway_warp, 4 bilinear_sample (and its batched form)
 KERNELS = {
     "halfway_warp": ("videomorphing_tpu_torch/csrc/warp.cu", "videomorphing_tpu/pallas/warp.py:206"),
     "bilinear_sample": ("videomorphing_tpu_torch/csrc/warp.cu", "videomorphing_tpu/pallas/warp.py:311"),
+    "bilinear_sample_batched": ("videomorphing_tpu_torch/csrc/warp.cu", "videomorphing_tpu/pallas/warp.py:311"),
     "sweep_grad": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:293"),
     "sweep_energy": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:502"),
 }
@@ -184,13 +195,55 @@ def check_kernels(dev) -> dict:
                                  lambda: ks.sweep_energy_plain(planes, v_lin, v, data, p)),
             }
             for name, (kern, plain) in timings.items():
-                # plain, kernel, kernel, plain; the medians of each pair
-                pl1, k1, k2, pl2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-                rec[name]["ms"] = float(np.median([k1, k2]))
-                rec[name]["plain_ms"] = float(np.median([pl1, pl2]))
+                rec[name]["ms"], rec[name]["plain_ms"], (k1, k2, pl1, pl2) = timed_pair(kern, plain)
                 log(f"  {name} 1024x1024 time: kernel {k1:.4f}/{k2:.4f} ms, "
                     f"plain {pl1:.4f}/{pl2:.4f} ms")
+    check_sampler_forms(dev, compare, rec, t)
     return rec
+
+
+def timed_pair(kern, plain, reps: int = 20):
+    """Median ms of kernel and plain version, run plain, kernel, kernel,
+    plain; returns (kernel ms, plain ms, the four readings)."""
+    pl1, k1, k2, pl2 = cuda_ms(plain, reps), cuda_ms(kern, reps), cuda_ms(kern, reps), cuda_ms(plain, reps)
+    return float(np.median([k1, k2])), float(np.median([pl1, pl2])), (k1, k2, pl1, pl2)
+
+
+def check_sampler_forms(dev, compare, rec, t) -> None:
+    """Phase 2, kernel 4 at the video path's shapes: the single form on a
+    grey image and at 4 points, the batched form as the flow warps (n = 29
+    and the 2(T-1) = 58 of one clip's batch, grey 540 x 960) and the
+    occlusion round trip (n = 29 two-channel flows at 540 x 960 and at
+    1080 x 1920) call it, each with kernel and plain times (10 calls per
+    reading). Tolerance 1e-6 of max|ref| (bitwise expected: the lerps
+    round as the plain version's separate operations). The flow warps'
+    58-image case gives the batched form's record."""
+    import torch
+
+    from videomorphing_tpu_torch.kernels import warp as kw
+
+    rng = np.random.default_rng(5)
+    h, w = 540, 960
+    grey = t(255.0 * rng.random((h, w), dtype=np.float32))
+    co = (t(np.stack(np.mgrid[0:h, 0:w], -1)) + t(smooth_field(h, w, 3.0, 3))).contiguous()
+    flow = t(smooth_field(1080, 1920, 4.0, 4))
+    pts = t(np.stack([rng.uniform(-3, 1083, 4), rng.uniform(-3, 1923, 4)], -1))
+    cases = [("bilinear_sample", "540x960 grey", grey, co), ("bilinear_sample", "4 points on 1080x1920x2", flow, pts)]
+    for n, (hh, ww), c in ((29, (h, w), 1), (58, (h, w), 1), (29, (h, w), 2), (29, (1080, 1920), 2)):
+        gg = t(np.stack(np.mgrid[0:hh, 0:ww], -1))
+        imgs = torch.stack([t(255.0 * rng.random((hh, ww, c), dtype=np.float32)) for _ in range(n)])
+        coords = torch.stack([gg + t(smooth_field(hh, ww, 3.0, 10 + k)) for k in range(n)])
+        cases.append(("bilinear_sample_batched", f"{n}x{hh}x{ww}x{c}", imgs, coords))
+    for name, shape, img, coords in cases:
+        kern = getattr(kw, name)
+        plain = getattr(kw, name + "_plain")
+        compare(name, plain(img, coords), kern(img, coords), shape, 1e-6, True)
+        ms, plain_ms, (k1, k2, pl1, pl2) = timed_pair(lambda: kern(img, coords), lambda: plain(img, coords), 10)
+        log(f"  {name} {shape} time: kernel {k1:.4f}/{k2:.4f} ms, plain {pl1:.4f}/{pl2:.4f} ms")
+        if shape == f"58x{h}x{w}x1":
+            rec[name]["ms"], rec[name]["plain_ms"] = ms, plain_ms
+    del cases
+    torch.cuda.empty_cache()
 
 
 def make_pair(n: int):
@@ -199,11 +252,7 @@ def make_pair(n: int):
     import bench
 
     clip_a, clip_b = bench._make_clips(1, n, n, seed=0)
-    ys = np.linspace(n * 0.3, n * 0.7, 4)
-    pts = np.stack(
-        [np.stack([ys, np.full(4, n * 0.45)], -1), np.stack([ys, np.full(4, n * 0.55)], -1)], 1
-    ).astype(np.float32)
-    return clip_a[0], clip_b[0], pts
+    return clip_a[0], clip_b[0], bench_points(n, n)
 
 
 def centroids_x(frames) -> np.ndarray:
@@ -227,7 +276,7 @@ def main_path(dev, card: str) -> dict:
 
     n, n_frames = 1024, 16
     i0, i1, pts = make_pair(n)
-    counters = (kw.halfway_warp, kw.bilinear_sample, ks.sweep_grad, ks.sweep_energy)
+    counters = (kw.halfway_warp, kw.bilinear_sample, kw.bilinear_sample_batched, ks.sweep_grad, ks.sweep_energy)
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
@@ -236,7 +285,7 @@ def main_path(dev, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
-    log(f"  launches in the main path: {launches}")
+    log(f"  launches in the pair path: {launches}")
 
     require(tuple(frames.shape) == (n_frames, n, n, 3), f"frames have shape {tuple(frames.shape)}")
     require(frames.device.type == "cuda", "frames are not on the card")
@@ -298,6 +347,112 @@ def golden_translation(dev) -> float:
     return ssim
 
 
+def bench_points(h: int, w: int) -> np.ndarray:
+    """The JAX bench's 4 point pairs for an h x w frame (``bench.py``
+    ``_bench_pair``): one column of clip A's blob, one of clip B's."""
+    ys = np.linspace(h * 0.3, h * 0.7, 4)
+    return np.stack(
+        [np.stack([ys, np.full(4, w * 0.45)], -1), np.stack([ys, np.full(4, w * 0.55)], -1)], 1
+    ).astype(np.float32)
+
+
+def blob_centroids_x(frames) -> np.ndarray:
+    """Blob centroid x per frame of the bench clips (a static textured
+    background with a horizontal gradient, and a Gaussian blob on the
+    middle rows): luminance more than 0.1 above its column's mean over the
+    top and bottom fifths of the frame. The background gradient dominates
+    ``centroids_x``, and the render's screened-Poisson blend shifts that
+    measure by a fraction of a percent of the width, more than the blob's
+    2 px per frame at 1080p; subtracting each column's background leaves
+    the blob."""
+    import torch
+
+    lum = frames.mean(-1)
+    band = lum.shape[1] // 5
+    bg = torch.cat([lum[:, :band], lum[:, -band:]], 1).mean(1, keepdim=True)
+    m = torch.clamp(lum - bg - 0.1, min=0.0).sum(1)
+    xx = torch.arange(lum.shape[2], device=frames.device, dtype=frames.dtype)
+    return ((m * xx).sum(1) / m.sum(1)).cpu().numpy()
+
+
+def video_path(dev, card: str) -> dict:
+    """Phase 5: the 30-frame 1080 x 1920 clip morph through
+    ``api.morph_clips`` with default parameters and 4 points."""
+    import torch
+
+    import bench
+    from videomorphing_tpu_torch import api
+    from videomorphing_tpu_torch.config import VideoParams
+    from videomorphing_tpu_torch.kernels import sweep as ks
+    from videomorphing_tpu_torch.kernels import warp as kw
+    from videomorphing_tpu_torch.utils import profiling
+
+    t_len, h, w = 30, 1080, 1920
+    clip_a, clip_b = bench._make_clips(t_len, h, w, seed=0)
+    pts = bench_points(h, w)
+    ca = torch.from_numpy(clip_a).to(dev)
+    cb = torch.from_numpy(clip_b).to(dev)
+    del clip_a, clip_b
+    counters = (kw.halfway_warp, kw.bilinear_sample, kw.bilinear_sample_batched, ks.sweep_grad, ks.sweep_energy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with profiling.record_phases() as rec:
+        res = api.morph_clips(ca, cb, pts, device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  launches in the video path: {launches}")
+
+    frames = res.frames
+    require(tuple(frames.shape) == (t_len, h, w, 3), f"frames have shape {tuple(frames.shape)}")
+    require(frames.device.type == "cuda", "frames are not on the card")
+    require(bool(torch.isfinite(frames).all()), "non-finite frames")
+    require(float(frames.min()) >= 0.0 and float(frames.max()) <= 1.0, "frames leave [0, 1]")
+    require(bool(torch.isfinite(res.fields).all()), "non-finite fields")
+    warm = rec["warm_iters"]
+    log(f"  warm iterations per frame: {warm}; cold + warm total {res.solve_iters}")
+    fine = VideoParams().warm_iters_fine
+    require(len(warm) == t_len - 1 and all(1 <= k <= fine for k in warm),
+            f"warm frames ran outside [1, {fine}] iterations")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the video path")
+    stages = ("flows", "tracking", "cold_solve", "warm_loop", "bulges", "confidences", "render")
+    log("  stage walls (s): " + ", ".join(f"{k} {rec[k]:.3f}" for k in stages)
+        + f"; total {wall:.3f}")
+    log(f"  video_1080p: wall {wall:.3f} s for {t_len} frames, {t_len / wall:.3f} frames/s, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    cx = np.concatenate([blob_centroids_x(frames[k:k + 10]) for k in range(0, t_len, 10)])
+    ca0 = blob_centroids_x(ca[:1])[0]
+    cb_end = blob_centroids_x(cb[-1:])[0]
+    log(f"  blob centroid x per frame: {np.round(cx, 2).tolist()} "
+        f"(A[0] {ca0:.2f}, B[{t_len - 1}] {cb_end:.2f})")
+    require(np.all(np.diff(cx) > 0.0), "blob centroid does not rise monotonically")
+    require(abs(cx[0] - ca0) < 0.01 * w and abs(cx[-1] - cb_end) < 0.01 * w,
+            "blob centroid misses clip A's first or clip B's last frame")
+    return launches
+
+
+def determinism(dev) -> None:
+    """Phase 6: two solves of one 6-frame 270 x 480 clip pair are bitwise
+    equal (the reference's ``tests/test_determinism.py`` contract)."""
+    import torch
+
+    import bench
+    from videomorphing_tpu_torch.video.pipeline import solve_clip_fields
+
+    clip_a, clip_b = bench._make_clips(6, 270, 480, seed=1)
+    ca = torch.from_numpy(clip_a).to(dev)
+    cb = torch.from_numpy(clip_b).to(dev)
+    pts = torch.from_numpy(bench_points(270, 480)).to(dev)
+    a = solve_clip_fields(ca, cb, pts)[0]
+    b = solve_clip_fields(ca, cb, pts)[0]
+    require(torch.equal(a, b), f"reruns differ by {float((a - b).abs().max())} px")
+    log(f"  solve_clip_fields 6x270x480 twice: bitwise equal (max |v| {float(a.abs().max()):.3f} px)")
+
+
 def main(argv) -> int:
     import torch
 
@@ -327,17 +482,21 @@ def main(argv) -> int:
     if kernels_only:
         log(json.dumps(rec))
         return 0
-    log("phase 3: main path (api.morph_pair, 1024x1024, 4 points, 16 frames)")
+    log("phase 3: pair path (api.morph_pair, 1024x1024, 4 points, 16 frames)")
     launches = main_path(dev, card)
     log("phase 4: golden translation")
     golden_translation(dev)
+    log("phase 5: video path (api.morph_clips, 30 frames of 1080x1920, 4 points)")
+    video_launches = video_path(dev, card)
+    log("phase 6: determinism")
+    determinism(dev)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": launches[name] + video_launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
         })
     log(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 - importing ``videomorphing_tpu_torch.api`` loads neither ``jax`` nor the
   JAX package (checked in a fresh interpreter);
 - the configuration mirrors the reference's dataclasses field for field;
-- on CPU tensors the four kernel wrappers run their plain versions and
-  leave their launch counters at 0;
+- on CPU tensors the kernel wrappers (the sampler's batched form too) run
+  their plain versions and leave their launch counters at 0;
+- a ``mesh`` (the multi-device video paths, not ported yet) raises;
 - ``pack_dtype="bfloat16"`` raises, and ``build.py`` raises without nvcc.
 """
 
@@ -35,6 +36,9 @@ def test_import_loads_no_jax():
     code = (
         "import sys\n"
         "import videomorphing_tpu_torch.api, videomorphing_tpu_torch.interop\n"
+        "import videomorphing_tpu_torch.video.pipeline, videomorphing_tpu_torch.video.flow\n"
+        "import videomorphing_tpu_torch.video.temporal, videomorphing_tpu_torch.video.occlusion\n"
+        "import videomorphing_tpu_torch.models.video_morph, videomorphing_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'videomorphing_tpu' or m.startswith('videomorphing_tpu.'))\n"
         "print(bad)\n"
@@ -55,7 +59,7 @@ def test_sources_never_import_jax():
                 assert mod.split(".")[0] not in ("jax", "videomorphing_tpu"), f"{path}: {s}"
 
 
-@pytest.mark.parametrize("cls", ["MorphParams", "SynthParams"])
+@pytest.mark.parametrize("cls", ["MorphParams", "SynthParams", "VideoParams"])
 def test_config_mirrors_reference(cls):
     ref = getattr(jax_config, cls)
     port = getattr(port_config, cls)
@@ -90,6 +94,30 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(s, kw.bilinear_sample_plain(data.i0, v + 3.0))
     for fn in (kw.halfway_warp, kw.bilinear_sample, ks.sweep_grad, ks.sweep_energy):
         assert fn.launches == 0, fn.__name__
+
+
+def test_batched_sampler_on_cpu_tensors_counts_nothing():
+    data, v = _small()
+    imgs = torch.stack([data.i0, data.i1])
+    coords = torch.stack([v + 3.0, v - 2.0])
+    out = kw.bilinear_sample_batched(imgs, coords)
+    assert torch.equal(out, kw.bilinear_sample_batched_plain(imgs, coords))
+    assert kw.bilinear_sample_batched.launches == 0
+
+
+def test_mesh_raises():
+    from videomorphing_tpu_torch.models.video_morph import VideoMorpher
+    from videomorphing_tpu_torch.video import pipeline
+
+    clip = torch.zeros((2, 16, 16, 3))
+    for call in (
+        lambda: pipeline.solve_clip_fields(clip, clip, mesh=object()),
+        lambda: pipeline.render_video(clip, clip, torch.zeros((2, 16, 16, 2)), mesh=object()),
+        lambda: pipeline.morph_video(clip, clip, mesh=object()),
+        lambda: VideoMorpher()(clip, clip, mesh=object()),
+    ):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            call()
 
 
 def test_mixed_devices_raise():

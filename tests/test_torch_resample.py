@@ -135,3 +135,62 @@ def test_sampler_plain_matches_reference(c):
     got = kw.bilinear_sample(_t(img), _t(co))
     assert _maxabs(ref, got) <= ATOL
     assert kw.bilinear_sample.launches == 0
+
+
+@pytest.mark.parametrize(
+    "img_shape,co_shape",
+    [((12, 9), (5, 6)), ((12, 9, 3), (4,)), ((12, 9), (0,)), ((12, 9, 2), (7, 5)), ((12, 9, 3), (2, 3, 4))],
+    ids=["2d-image", "points-n4", "points-n0", "map", "3d-coords"],
+)
+def test_sampler_shape_contract(img_shape, co_shape):
+    """Kernel 4's wrapper takes what ``resample.bilinear_sample`` takes: an
+    (H, W) or (H, W, C) image and (..., 2) coordinates, reshaped to the
+    kernel's (H, W, C) x (1, M, 2) contract and back before the dispatch.
+    Bitwise against the plain version and the reference."""
+    rng = np.random.default_rng(len(img_shape) + sum(co_shape))
+    img = rng.random(img_shape, dtype=np.float32)
+    h, w = img_shape[0], img_shape[1]
+    if int(np.prod(co_shape)) >= 6:
+        co = _coords(rng, h, w, co_shape)
+    else:  # a few points, off the frame too
+        co = np.stack([rng.uniform(-2.0, h + 1.0, co_shape), rng.uniform(-2.0, w + 1.0, co_shape)], -1)
+        co = co.astype(np.float32)
+    got = kw.bilinear_sample(_t(img), _t(co))
+    ref = jr.bilinear_sample(jnp.asarray(img), jnp.asarray(co))
+    assert got.shape == tuple(ref.shape) == co_shape + img_shape[2:]
+    assert torch.equal(got, tr.bilinear_sample(_t(img), _t(co)))
+    if got.numel():
+        assert _maxabs(ref, got) <= ATOL
+    assert kw.bilinear_sample.launches == 0
+
+
+def test_sampler_rejects_bad_shapes():
+    img = torch.zeros((6, 7, 3))
+    for bad_img, bad_co in (
+        (torch.zeros((2, 6, 7, 3)), torch.zeros((4, 2))),
+        (img, torch.zeros((4, 3))),
+        (torch.zeros(6), torch.zeros((4, 2))),
+    ):
+        with pytest.raises(ValueError):
+            kw.bilinear_sample(bad_img, bad_co)
+    with pytest.raises(ValueError):
+        kw.bilinear_sample_batched(torch.zeros((2, 6, 7)), torch.zeros((2, 3, 3, 2)))
+    with pytest.raises(ValueError):
+        kw.bilinear_sample_batched(torch.zeros((2, 6, 7, 3)), torch.zeros((3, 3, 3, 2)))
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 5])
+def test_batched_sampler_plain_matches_per_image(c):
+    """Kernel 4's batched form: n images of one shape, each at its own map,
+    bitwise equal to a loop of single samples, and within 1e-6 of the
+    reference's per-image ``bilinear_sample``."""
+    rng = np.random.default_rng(30 + c)
+    n, h, w = 5, 19, 26
+    imgs = rng.random((n, h, w, c), dtype=np.float32)
+    co = _coords(rng, h, w, (n, 11, 13))
+    got = kw.bilinear_sample_batched(_t(imgs), _t(co))
+    assert got.shape == (n, 11, 13, c)
+    for k in range(n):
+        assert torch.equal(got[k], kw.bilinear_sample(_t(imgs[k]), _t(co[k])))
+        assert _maxabs(jr.bilinear_sample(jnp.asarray(imgs[k]), jnp.asarray(co[k])), got[k]) <= ATOL
+    assert kw.bilinear_sample_batched.launches == 0

@@ -1,12 +1,15 @@
-"""Public library API: the image-pair morph.
+"""Public library API: the image-pair and clip-pair morphs.
 
-Port of ``videomorphing_tpu/api.py`` (``morph_pair`` and ``solve_pair``).
+Port of ``videomorphing_tpu/api.py`` (``morph_pair``, ``solve_pair`` and
+``morph_clips``; the multi-device ``mesh`` of ``morph_clips`` waits for the
+parallel port).
 Inputs may be numpy arrays or tensors; ``device`` says where the work runs
 (default: the input tensor's device, or the CPU for numpy input). On a
 CUDA device every kernel of the path is a hand-written CUDA kernel.
 
     from videomorphing_tpu_torch import api
     frames = api.morph_pair(i0, i1, points, n_frames=16, device="cuda")
+    result = api.morph_clips(clip_a, clip_b, points, device="cuda")
 """
 
 from __future__ import annotations
@@ -14,9 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from videomorphing_tpu_torch.config import MorphParams, SynthParams
+from videomorphing_tpu_torch.config import MorphParams, SynthParams, VideoParams
 from videomorphing_tpu_torch.device import as_device
 from videomorphing_tpu_torch.models.image_morph import ImageMorpher, MorphArtifacts
+from videomorphing_tpu_torch.models.video_morph import VideoMorpher
+from videomorphing_tpu_torch.video.pipeline import VideoResult
 
 
 def morph_pair(
@@ -39,6 +44,26 @@ def solve_pair(i0, i1, points=None, mp=MorphParams(), sp=SynthParams(), device=N
     return ImageMorpher(mp, sp, str(dev)).solve(_dev(i0, dev), _dev(i1, dev), _pts(points, dev))
 
 
+def morph_clips(
+    clip_a,
+    clip_b,
+    points=None,
+    times=None,
+    mp: MorphParams = MorphParams(),
+    sp: SynthParams = SynthParams(),
+    vp: VideoParams = VideoParams(),
+    render: bool = True,
+    device=None,
+) -> VideoResult:
+    """Morph a clip pair: (T, H, W, C) x2 -> ``VideoResult`` with frames
+    (T, H, W, C) on ``device``. ``points``: (N, 2, 2) on frame 0, or a
+    keyframe mapping ``{frame_idx: (N, 2, 2)}``."""
+    dev = _pick_device(clip_a, device)
+    return VideoMorpher(mp, sp, vp, str(dev))(
+        _dev(clip_a, dev), _dev(clip_b, dev), _pts(points, dev), times=times, render=render
+    )
+
+
 def _pick_device(x, device) -> torch.device:
     if device is None and isinstance(x, torch.Tensor):
         return x.device
@@ -54,9 +79,16 @@ def _dev(x, device) -> torch.Tensor:
 
 
 def _pts(points, device):
-    """Correspondences as an (N, 2, 2) float32 tensor of [[y0, x0], [y1, x1]]."""
+    """Correspondences as an (N, 2, 2) float32 tensor of [[y0, x0], [y1, x1]],
+    or a keyframe mapping ``{frame_idx: (N, 2, 2)}`` (video only; the same N
+    point identities on every keyframe)."""
     if points is None:
         return None
+    if isinstance(points, dict):
+        out = {int(k): _pts(v, device) for k, v in points.items()}
+        if len({p.shape[0] for p in out.values()}) > 1:
+            raise ValueError("all keyframes must carry the same N point identities")
+        return out
     t = points if isinstance(points, torch.Tensor) else torch.from_numpy(np.asarray(points, np.float32))
     t = t.to(device=device, dtype=torch.float32)
     if t.dim() != 3 or tuple(t.shape[1:]) != (2, 2):

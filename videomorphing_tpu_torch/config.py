@@ -1,5 +1,5 @@
-"""Frozen configuration of the image-pair morph, field for field the JAX
-package's ``videomorphing_tpu.config`` dataclasses.
+"""Frozen configuration of the pair and video morphs, field for field the
+JAX package's ``videomorphing_tpu.config`` dataclasses.
 
 The port carries its own copy so that importing it loads nothing of the JAX
 package; ``tests/test_torch_isolation.py`` holds every field name and
@@ -9,7 +9,8 @@ each default is documented in ``videomorphing_tpu/config.py``.
 Knobs that only steer TPU machinery are kept for signature parity and are
 ignored by the port (the kernel runs whenever the tensors lie on the card):
 ``backend``, ``pallas_min_pixels``, ``fused_warp``, ``warp_into_pack``,
-``warp_prescreen`` and ``SynthParams.fused_sampling``. ``pack_dtype`` other
+``warp_prescreen``, ``SynthParams.fused_sampling``, and ``VideoParams``'s
+``fused_occlusion``, ``fused_advect`` and ``fused_flow``. ``pack_dtype`` other
 than ``"float32"`` changes the output and raises in the level solver.
 """
 
@@ -98,5 +99,49 @@ class SynthParams:
     blend_screen_lambda: float = 0.1
     extend_levels: int = 0
     occlusion_weighting: bool = True
+
+    dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoParams:
+    """Parameters of the video pipeline [EGSR14]: flow, occlusion, temporal
+    propagation and the warm-solve schedule. ``fused_occlusion``,
+    ``fused_advect`` and ``fused_flow`` only steer the reference's TPU
+    sampler; the port keeps them for signature parity and ignores them
+    (every sample on the card runs through kernel 4)."""
+
+    # optical flow (pyramid Horn-Schunck, or the robust Brox-class solve)
+    flow_alpha: float = 12.0
+    flow_iters: int = 40
+    flow_levels: int = 0
+    flow_warps: int = 2
+    flow_clamp: float = 1.0
+    flow_robust: bool = False
+    flow_alpha_robust: float = 6.0
+    flow_irls: int = 5
+    flow_gamma: float = 10.0
+    flow_eps: float = 3.0
+    flow_eps_s: float = 0.5
+    flow_hp_sigma: float = 6.0
+    flow_scale: float = 0.5
+
+    # occlusion detection
+    occlusion_thresh: float = 1.0
+    occlusion_soft: float = 0.5
+    fused_occlusion: bool = True
+    fused_advect: bool = True
+    fused_flow: bool = True
+
+    # temporal propagation and the warm solve
+    propagate: bool = True
+    tc_fill_thresh: float = 0.25
+    advect_invert_iters: int = 3
+    advect_residual: float = 0.75
+    advect_scale: float = 0.5
+    warm_iters_mid: int = 20
+    warm_iters_fine: int = 12
+    warm_levels: int = 0
+    warm_relin_every: int = 12
 
     dtype: str = "float32"

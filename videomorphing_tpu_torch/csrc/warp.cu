@@ -1,7 +1,8 @@
 // Bilinear gathers for Hopper (sm_90a): the halfway warp and the sampler.
 //
 // Replaces the Pallas builders videomorphing_tpu/pallas/warp.py:206
-// (_build_warp_call) and :311 (_build_sample_call). On the TPU those
+// (_build_warp_call) and :311 (_build_sample_call, which samples n images
+// of one shape, each at its own coordinate map). On the TPU those
 // kernels enumerate per-tile residual offsets over row-phase copies because
 // the TPU has no gather unit; on Hopper a warp is a per-pixel gather, so
 // both kernels are one thread per output pixel with no fit test and no
@@ -84,23 +85,30 @@ __global__ void halfway_warp_kernel(const float* __restrict__ i0, const float* _
            out + (size_t)C * hw, out + (size_t)4 * C * hw);
 }
 
+// n images of one shape (h, w, C), each sampled at its own m coordinate
+// pairs: one thread per output pixel over a (ceil(m / 256), n) grid, so
+// neighbouring threads read neighbouring coordinates and write neighbouring
+// outputs. Offsets are size_t: a batched clip can pass more than 2^31
+// values. The single-image form is n = 1.
 __global__ void bilinear_sample_kernel(const float* __restrict__ img,
                                        const float* __restrict__ coords,
                                        float* __restrict__ out, int h, int w, int C,
-                                       int ho, int wo) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= wo || y >= ho) return;
-  int pix = y * wo + x;
+                                       long long m) {
+  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  size_t k = blockIdx.y;
+  const float* im = img + k * (size_t)h * w * C;
+  size_t pix = k * (size_t)m + (size_t)j;
   Taps t = corner_taps(coords[2 * pix], coords[2 * pix + 1], h, w);
   for (int c = 0; c < C; ++c) {
-    float top = lerp_rn(img[t.i00 * C + c], img[t.i01 * C + c], t.fx);
-    float bot = lerp_rn(img[t.i10 * C + c], img[t.i11 * C + c], t.fx);
+    float top = lerp_rn(im[(size_t)t.i00 * C + c], im[(size_t)t.i01 * C + c], t.fx);
+    float bot = lerp_rn(im[(size_t)t.i10 * C + c], im[(size_t)t.i11 * C + c], t.fx);
     out[pix * C + c] = lerp_rn(top, bot, t.fy);
   }
 }
 
 constexpr int BX = 32, BY = 8;
+constexpr int SAMPLE_THREADS = 256;
 
 }  // namespace
 
@@ -112,11 +120,12 @@ extern "C" int vm_halfway_warp(const float* i0, const float* i1, const float* v,
   return (int)cudaGetLastError();
 }
 
-extern "C" int vm_bilinear_sample(const float* img, const float* coords, float* out, int h,
-                                  int w, int C, int ho, int wo, void* stream) {
-  dim3 block(BX, BY);
-  dim3 grid((wo + BX - 1) / BX, (ho + BY - 1) / BY);
-  bilinear_sample_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(img, coords, out, h, w, C,
-                                                                  ho, wo);
+// img (n, h, w, C), coords (n, m, 2) in (y, x), out (n, m, C); n <= 65535
+// (the grid's y extent) and m >= 1, both checked by the wrapper.
+extern "C" int vm_bilinear_sample(const float* img, const float* coords, float* out, int n,
+                                  int h, int w, int C, long long m, void* stream) {
+  dim3 grid((unsigned)((m + SAMPLE_THREADS - 1) / SAMPLE_THREADS), (unsigned)n);
+  bilinear_sample_kernel<<<grid, SAMPLE_THREADS, 0, (cudaStream_t)stream>>>(img, coords, out,
+                                                                          h, w, C, m);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
 """State carried across from the JAX package, read out as numpy arrays.
 
 The parity tests use these to render from one field solved by the
-reference in both packages, and to run one level solve from identical
-inputs, so render parity is separated from solver drift. The configuration
+reference in both packages, to run one level solve from identical inputs,
+and to run the warm frame loop and the video render from the reference's
+flows and fields, so that each part's parity is separated from drift
+upstream of it (solver and flow). The configuration
 needs no conversion: ``config.py`` mirrors the reference's dataclasses
 field for field.
 """
@@ -35,3 +37,15 @@ def level_data_from_numpy(i0, i1, ui_w=None, ui_v=None, tc_w=None, tc_v=None, de
     """A reference ``LevelData`` (each field a numpy array or None) as the
     port's, on ``device``."""
     return make_level_data(*(_t(x, device) for x in (i0, i1, ui_w, ui_v, tc_w, tc_v)))
+
+
+def flows_from_numpy(flows, device=None) -> dict:
+    """The reference's flow dict (``fa_fwd``, ``fa_bwd``, ``fb_fwd``,
+    ``fb_bwd``, each (T-1, H, W, 2)) as the port's, on ``device``."""
+    return {k: _t(v, device) for k, v in flows.items()}
+
+
+def fields_from_numpy(fields, device=None) -> torch.Tensor:
+    """Reference fields (T, H, W, 2) (or one (H, W, 2)) as a tensor on
+    ``device``."""
+    return _t(fields, device)

@@ -86,10 +86,10 @@ def build() -> Path:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
         "vm_halfway_warp": [P, P, P, P, I, I, I, P],
-        "vm_bilinear_sample": [P, P, P, I, I, I, I, I, P],
+        "vm_bilinear_sample": [P, P, P, I, I, I, I, L, P],
         "vm_sweep_grad": [P] * 13,
         "vm_sweep_energy": [P] * 11,
     }

@@ -4,8 +4,9 @@ Source: ``csrc/warp.cu`` (``vm_halfway_warp``, ``vm_bilinear_sample``).
 
 - ``halfway_warp`` replaces ``videomorphing_tpu/pallas/warp.py:206``
   (``_build_warp_call``, driven by ``fused_warp_planes``);
-- ``bilinear_sample`` replaces ``videomorphing_tpu/pallas/warp.py:311``
-  (``_build_sample_call``, driven by ``fused_sample``).
+- ``bilinear_sample`` and ``bilinear_sample_batched`` replace
+  ``videomorphing_tpu/pallas/warp.py:311`` (``_build_sample_call``, driven
+  by ``fused_sample``); both launch one kernel, the first with n = 1.
 
 Both are bound by memory on the H100 (4 taps x C reads per image, one write
 per output value). The TPU kernels enumerate per-tile residual offsets over
@@ -15,7 +16,8 @@ output pixel with no fit test and no fallback.
 
 Dispatch: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in a plain
-integer attribute (``halfway_warp.launches``, ``bilinear_sample.launches``).
+integer attribute (``halfway_warp.launches``, ``bilinear_sample.launches``,
+``bilinear_sample_batched.launches``).
 """
 
 from __future__ import annotations
@@ -111,31 +113,93 @@ def halfway_warp(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor) -> torch.T
 halfway_warp.launches = 0
 
 
+MAX_BATCH = 65535  # the launch grid's y extent: one grid row per image
+
+
+def _launch_sample(imgs: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Kernel 4 on ``imgs`` (n, H, W, C) and ``coords`` (n, M, 2), M >= 1."""
+    n, h, w, c = imgs.shape
+    m = coords.shape[1]
+    if n > MAX_BATCH:
+        raise ValueError(f"at most {MAX_BATCH} images per launch, got {n}")
+    check_cuda_input(imgs, "img")
+    check_cuda_input(coords, "coords")
+    out = torch.empty((n, m, c), dtype=torch.float32, device=imgs.device)
+    lib = build.load()
+    with torch.cuda.device(imgs.device):
+        err = lib.vm_bilinear_sample(
+            imgs.data_ptr(), coords.data_ptr(), out.data_ptr(), n, h, w, c, m, stream_of(imgs)
+        )
+    build.check(err, "vm_bilinear_sample")
+    return out
+
+
 def bilinear_sample_plain(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel 4."""
     return resample.bilinear_sample(img, coords)
 
 
 def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Bilinear edge-clamp values of ``img`` (H, W, C) at ``coords``
-    (Ho, Wo, 2) in (y, x) -> (Ho, Wo, C)."""
-    if not on_cuda(img, coords):
-        return bilinear_sample_plain(img, coords)
-    if img.dim() != 3 or coords.dim() != 3 or coords.shape[-1] != 2:
-        raise ValueError(f"expected (H, W, C) and (Ho, Wo, 2), got {tuple(img.shape)}, {tuple(coords.shape)}")
-    h, w, c = img.shape
-    ho, wo = coords.shape[0], coords.shape[1]
-    check_cuda_input(img, "img")
-    check_cuda_input(coords, "coords")
-    out = torch.empty((ho, wo, c), dtype=torch.float32, device=img.device)
-    lib = build.load()
-    with torch.cuda.device(img.device):
-        err = lib.vm_bilinear_sample(
-            img.data_ptr(), coords.data_ptr(), out.data_ptr(), h, w, c, ho, wo, stream_of(img)
+    """Bilinear edge-clamp values of ``img`` (H, W, C) or (H, W) at
+    ``coords`` (..., 2) in (y, x) -> (..., C) or (...), as
+    ``ops.resample.bilinear_sample``.
+
+    The shapes are brought to the kernel's (H, W, C) x (1, M, 2) contract
+    before the device dispatch, so the CPU path runs the same reshaping; an
+    empty coordinate set returns an empty result without a launch.
+    """
+    if img.dim() not in (2, 3) or coords.dim() < 1 or coords.shape[-1] != 2:
+        raise ValueError(
+            f"expected (H, W[, C]) and (..., 2), got {tuple(img.shape)}, {tuple(coords.shape)}"
         )
-    build.check(err, "vm_bilinear_sample")
-    bilinear_sample.launches += 1
-    return out
+    squeeze = img.dim() == 2
+    img3 = img[..., None] if squeeze else img
+    lead = tuple(coords.shape[:-1])
+    flat = coords.reshape(1, -1, 2)
+    if not on_cuda(img3, flat):
+        out = bilinear_sample_plain(img3, flat)
+    elif flat.shape[1] == 0:
+        out = flat.new_empty((1, 0, img3.shape[-1]))
+    else:
+        out = _launch_sample(img3.contiguous()[None], flat.contiguous())
+        bilinear_sample.launches += 1
+    out = out.reshape(lead + (img3.shape[-1],))
+    return out[..., 0] if squeeze else out
 
 
 bilinear_sample.launches = 0
+
+
+def bilinear_sample_batched_plain(imgs: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 4's batched form."""
+    return resample.bilinear_sample_batched(imgs, coords)
+
+
+def bilinear_sample_batched(imgs: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Kernel 4 on n images of one shape in one launch, each at its own
+    coordinate map: ``imgs`` (n, H, W, C), ``coords`` (n, Ho, Wo, 2) ->
+    (n, Ho, Wo, C), equal to ``[bilinear_sample(imgs[k], coords[k])]``.
+
+    The contract of the reference's ``fused_sample(srcs, coords)``, whose
+    C <= 4 limit comes from the TPU's channel blocking; this kernel loops
+    over any C. It serves the flow warps batched over frame pairs, the
+    occlusion confidences batched over frames and the render's two colour
+    samples.
+    """
+    if (imgs.dim() != 4 or coords.dim() != 4 or coords.shape[0] != imgs.shape[0]
+            or coords.shape[-1] != 2 or imgs.shape[-1] < 1):
+        raise ValueError(
+            f"expected (n, H, W, C) and (n, Ho, Wo, 2), got "
+            f"{tuple(imgs.shape)}, {tuple(coords.shape)}"
+        )
+    if not on_cuda(imgs, coords):
+        return bilinear_sample_batched_plain(imgs, coords)
+    n, ho, wo = coords.shape[0], coords.shape[1], coords.shape[2]
+    if n * ho * wo == 0:
+        return coords.new_empty((n, ho, wo, imgs.shape[-1]))
+    out = _launch_sample(imgs.contiguous(), coords.contiguous().reshape(n, ho * wo, 2))
+    bilinear_sample_batched.launches += 1
+    return out.reshape(n, ho, wo, imgs.shape[-1])
+
+
+bilinear_sample_batched.launches = 0

@@ -1,0 +1,48 @@
+"""Video morphing model [EGSR14]: flows + warm frame loop + synthesis.
+
+Port of ``videomorphing_tpu/models/video_morph.py``; tensors are moved to
+``device``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from videomorphing_tpu_torch.config import MorphParams, SynthParams, VideoParams
+from videomorphing_tpu_torch.video.pipeline import VideoResult, morph_video, solve_clip_fields
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoMorpher:
+    """Configured video morpher.
+
+    >>> morpher = VideoMorpher(device="cuda")
+    >>> out = morpher(clip_a, clip_b, keyframe_points)
+    >>> out.frames  # (T, H, W, C) morph transition
+    """
+
+    mp: MorphParams = MorphParams()
+    sp: SynthParams = SynthParams()
+    vp: VideoParams = VideoParams()
+    device: str = "cpu"
+
+    def _put(self, x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: self._put(v) for k, v in x.items()}
+        return x.to(torch.device(self.device)).contiguous()
+
+    def solve(self, clip_a, clip_b, points=None):
+        """``(fields, tracked, flows)`` of :func:`solve_clip_fields`."""
+        clip_a, clip_b, points = (self._put(x) for x in (clip_a, clip_b, points))
+        return solve_clip_fields(clip_a, clip_b, points, self.mp, self.vp)
+
+    def __call__(self, clip_a, clip_b, points=None, times=None, render: bool = True, mesh=None) -> VideoResult:
+        clip_a, clip_b, points = (self._put(x) for x in (clip_a, clip_b, points))
+        return morph_video(
+            clip_a, clip_b, points=points, times=times,
+            mp=self.mp, sp=self.sp, vp=self.vp, render=render, mesh=mesh,
+        )

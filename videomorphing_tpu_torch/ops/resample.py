@@ -30,9 +30,11 @@ def inside_mask(coords: torch.Tensor, h: int, w: int, margin: float = 0.0) -> to
     return ok.to(coords.dtype)
 
 
-def _corners(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor):
-    """Clamped-coordinate corner taps and fractions of a bilinear sample."""
-    h, w, c = img.shape
+def _corners(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor, base=0):
+    """Clamped-coordinate corner taps and fractions of a bilinear sample of
+    ``img`` (..., H, W, C); ``base`` offsets each flat index to its image
+    (0 for one image)."""
+    h, w, c = img.shape[-3:]
     y0 = torch.floor(y)
     x0 = torch.floor(x)
     fy = (y - y0)[..., None]
@@ -41,10 +43,10 @@ def _corners(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor):
     x0i = x0.long()
     y1i = torch.clamp(y0i + 1, max=h - 1)
     x1i = torch.clamp(x0i + 1, max=w - 1)
-    flat = img.reshape(h * w, c)
+    flat = img.reshape(-1, c)
 
     def take(yi, xi):
-        return flat[yi * w + xi]
+        return flat[base + yi * w + xi]
 
     return take(y0i, x0i), take(y0i, x1i), take(y1i, x0i), take(y1i, x1i), fy, fx
 
@@ -65,6 +67,22 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     bot = v10 + (v11 - v10) * fx
     out = top + (bot - top) * fy
     return out[..., 0] if squeeze else out
+
+
+def bilinear_sample_batched(imgs: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """``bilinear_sample(imgs[k], coords[k])`` for every k in one pass:
+    ``imgs`` (n, H, W, C), ``coords`` (n, ..., 2) -> (n, ..., C). The same
+    operations per value as :func:`bilinear_sample`, so the results are
+    bitwise equal to a loop over k."""
+    n, h, w = imgs.shape[0], imgs.shape[1], imgs.shape[2]
+    y = torch.clamp(coords[..., 0], 0.0, h - 1.0)
+    x = torch.clamp(coords[..., 1], 0.0, w - 1.0)
+    base = torch.arange(n, device=imgs.device) * (h * w)
+    base = base.reshape((n,) + (1,) * (coords.dim() - 2))
+    v00, v01, v10, v11, fy, fx = _corners(imgs, y, x, base)
+    top = v00 + (v01 - v00) * fx
+    bot = v10 + (v11 - v10) * fx
+    return top + (bot - top) * fy
 
 
 def bilinear_sample_with_grad(img: torch.Tensor, coords: torch.Tensor):

@@ -5,11 +5,11 @@ halfway point p with x_t(p) = q by a short fixed-point iteration (coarse to
 fine), then both sources are sampled backward at p -/+ v(p) and blended.
 
 Every bilinear sample here goes through kernel 4 (``kernels.warp.
-bilinear_sample``), which launches the CUDA sampler for tensors on the card
-and runs its plain version on the CPU. The reference's
-``SynthParams.fused_sampling`` and its TPU-only dispatch are ignored: both
-paths compute the same numbers. ``sampling="bicubic"`` stays plain PyTorch,
-as in the reference, which has no bicubic kernel.
+bilinear_sample`` and its batched form), which launches the CUDA sampler
+for tensors on the card and runs its plain version on the CPU. The
+reference's ``SynthParams.fused_sampling`` and its TPU-only dispatch are
+ignored: both paths compute the same numbers. ``sampling="bicubic"`` stays
+plain PyTorch, as in the reference, which has no bicubic kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import SynthParams
-from videomorphing_tpu_torch.kernels.warp import bilinear_sample
+from videomorphing_tpu_torch.kernels.warp import bilinear_sample, bilinear_sample_batched
 from videomorphing_tpu_torch.ops.pyramid import downsample_2x, resize_bilinear
 from videomorphing_tpu_torch.ops.resample import bicubic_sample, grid_coords, inside_mask
 from videomorphing_tpu_torch.synth.blend import blend_extended
@@ -110,21 +110,39 @@ def render_frame(
     b: Optional[torch.Tensor],
     t,
     sp: SynthParams = SynthParams(),
+    conf0: Optional[torch.Tensor] = None,
+    conf1: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Synthesize the morph frame at time ``t`` in [0, 1]:
-    c_t(q) = (1-t) I0(phi0(p(q))) + t I1(phi1(p(q))), Poisson-extended."""
+    c_t(q) = (1-t) I0(phi0(p(q))) + t I1(phi1(p(q))), Poisson-extended and,
+    with the per-source visibility maps ``conf0``/``conf1`` (H, W) of the
+    video pipeline, occlusion-aware.
+
+    Each confidence rides along as a 4th image channel through the colour
+    samples and is clipped to [0, 1] after sampling (the bicubic
+    interpolant can overshoot). The two bilinear colour samples are one
+    launch of the batched sampler.
+    """
     h, w = i0.shape[0], i0.shape[1]
     t = f32(t)
     p, v_at_p = invert_path_with_field(v, b, t, sp.invert_iters, multiscale=sp.invert_multiscale)
     phi0 = p - v_at_p
     phi1 = p + v_at_p
+    with_conf = conf0 is not None and conf1 is not None
+    if with_conf:
+        i0 = torch.cat([i0, conf0[..., None]], -1)
+        i1 = torch.cat([i1, conf1[..., None]], -1)
     if sp.sampling == "bicubic":
         s0, s1 = bicubic_sample(i0, phi0), bicubic_sample(i1, phi1)
     else:
-        s0, s1 = bilinear_sample(i0, phi0), bilinear_sample(i1, phi1)
+        s0, s1 = bilinear_sample_batched(torch.stack([i0, i1]), torch.stack([phi0, phi1]))
+    c0 = c1 = None
+    if with_conf:
+        s0, c0 = s0[..., :-1], torch.clamp(s0[..., -1], 0.0, 1.0)
+        s1, c1 = s1[..., :-1], torch.clamp(s1[..., -1], 0.0, 1.0)
     m0 = inside_mask(phi0, h, w)
     m1 = inside_mask(phi1, h, w)
-    return blend_extended(s0, s1, m0, m1, float(t), sp)
+    return blend_extended(s0, s1, m0, m1, float(t), sp, c0, c1)
 
 
 def render_clip(
