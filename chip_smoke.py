@@ -22,22 +22,37 @@ Phases:
      1080 x 1920 clip pair with 4 points and default parameters, with every
      kernel's launch count, each stage's wall and frames/s;
   6. determinism: ``solve_clip_fields`` twice on a 6-frame 270 x 480 clip
-     gives bitwise equal fields.
+     gives bitwise equal fields;
+  7. the layered pair path: ``api.morph_pair_layered`` on phase 3's inputs
+     with one layer on the blob's disc, 16 frames;
+  8. the layered video path: ``api.morph_clips_layered`` on phase 5's clip
+     pair and points with one layer whose per-frame masks follow the blob,
+     with every kernel's launch count, each stage's wall and frames/s; then
+     kernel 4 against its plain version at the layer warp's shape;
+  9. the command line, in child processes: ``cli video`` on a 6-frame
+     270 x 480 ``.vmc`` pair with a field store, twice (the second run
+     resumes and writes the same bytes), and ``cli project`` on a layered
+     clip project.
 
 Any failure raises and exits non-zero. The second-to-last line is one JSON
-object with a record per kernel (launches summed over phases 3 and 5); the
-last line is ``{"ok": true, "device": {...}}``. With no CUDA device it exits
-1 and prints no result.
+object with a record per kernel (launches summed over phases 3, 5, 7 and
+8); the last line is ``{"ok": true, "device": {...}}``. With no CUDA device
+it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
+
+ROOT = Path(__file__).resolve().parent
 
 # the kernel numbering of PERF.md and ROADMAP.md: 1 sweep_grad, 2 sweep_energy,
 # 3 halfway_warp, 4 bilinear_sample (and its batched form)
@@ -453,6 +468,206 @@ def determinism(dev) -> None:
     log(f"  solve_clip_fields 6x270x480 twice: bitwise equal (max |v| {float(a.abs().max()):.3f} px)")
 
 
+def blob_discs(t_len: int, h: int, w: int, x0: float, dev):
+    """Masks (T, H, W) of the bench blob's disc in each frame: radius 3
+    sigma (sigma = 0.08 h) around (h / 2, x0 + 2 k) in frame k."""
+    import torch
+
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
+    cx = x0 + 2.0 * torch.arange(t_len, device=dev, dtype=torch.float32)[:, None, None]
+    return (torch.hypot(yy - 0.5 * h, xx - cx) < 3.0 * 0.08 * h).to(torch.float32)
+
+
+def kernel_counters():
+    from videomorphing_tpu_torch.kernels import sweep as ks
+    from videomorphing_tpu_torch.kernels import warp as kw
+
+    return (kw.halfway_warp, kw.bilinear_sample, kw.bilinear_sample_batched, ks.sweep_grad, ks.sweep_energy)
+
+
+def check_frames(frames, shape) -> None:
+    import torch
+
+    require(tuple(frames.shape) == shape, f"frames have shape {tuple(frames.shape)}")
+    require(frames.device.type == "cuda", "frames are not on the card")
+    require(bool(torch.isfinite(frames).all()), "non-finite frames")
+    require(float(frames.min()) >= 0.0 and float(frames.max()) <= 1.0, "frames leave [0, 1]")
+
+
+def layered_pair_path(dev, card: str) -> dict:
+    """Phase 7: ``api.morph_pair_layered`` on the pair_1k inputs with one
+    layer, the blob's disc in each image, 16 frames, default parameters."""
+    import torch
+
+    from videomorphing_tpu_torch import api
+
+    n, n_frames = 1024, 16
+    i0, i1, pts = make_pair(n)
+    layer = dict(mask0=blob_discs(1, n, n, 0.45 * n, dev)[0], mask1=blob_discs(1, n, n, 0.55 * n, dev)[0])
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    frames = api.morph_pair_layered(i0, i1, [layer], pts, n_frames=n_frames, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  launches in the layered pair path: {launches}")
+    check_frames(frames, (n_frames, n, n, 3))
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the layered pair path")
+    cx = blob_centroids_x(frames)
+    ca, cb = blob_centroids_x(torch.from_numpy(np.stack([i0, i1])).to(dev))
+    log(f"  blob centroid x per frame: {np.round(cx, 2).tolist()} (A {ca:.2f}, B {cb:.2f})")
+    require(np.all(np.diff(cx) > 0.0), "blob centroid does not rise monotonically")
+    require(abs(cx[0] - ca) < 0.01 * n and abs(cx[-1] - cb) < 0.01 * n, "blob centroid misses A or B")
+    sl = (slice(2, -2), slice(2, -2))
+    e0 = float((frames[0][sl] - torch.from_numpy(i0).to(dev)[sl]).abs().mean())
+    e1 = float((frames[-1][sl] - torch.from_numpy(i1).to(dev)[sl]).abs().mean())
+    log(f"  endpoints: mean |frame 0 - A| {e0:.5f}, mean |frame {n_frames - 1} - B| {e1:.5f} (limit 0.02)")
+    require(e0 < 0.02 and e1 < 0.02, "the endpoint frames do not reproduce the inputs")
+    log(f"  layered pair_1k: wall {wall:.3f} s for 2 solves + {n_frames} frames, "
+        f"{n_frames / wall:.3f} frames/s on {card}")
+    return launches
+
+
+def layered_video_path(dev, card: str) -> dict:
+    """Phase 8: ``api.morph_clips_layered`` on the 30-frame 1080 x 1920 clip
+    pair with 4 points and one layer whose masks follow the blob."""
+    import torch
+
+    import bench
+    from videomorphing_tpu_torch import api
+    from videomorphing_tpu_torch.utils import profiling
+
+    t_len, h, w = 30, 1080, 1920
+    clip_a, clip_b = bench._make_clips(t_len, h, w, seed=0)
+    ca = torch.from_numpy(clip_a).to(dev)
+    cb = torch.from_numpy(clip_b).to(dev)
+    del clip_a, clip_b
+    layer = dict(mask0=blob_discs(t_len, h, w, 0.45 * w, dev), mask1=blob_discs(t_len, h, w, 0.55 * w, dev))
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with profiling.record_phases() as rec:
+        res = api.morph_clips_layered(ca, cb, [layer], bench_points(h, w), device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  launches in the layered video path: {launches}")
+    check_frames(res.frames, (t_len, h, w, 3))
+    for f in (res.fields_bg,) + tuple(res.fields_layers):
+        require(tuple(f.shape) == (t_len, h, w, 2) and bool(torch.isfinite(f).all()), "bad fields")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the layered video path")
+    stages = ("flows", "tracking", "cold_solve", "warm_loop", "layer_solve", "bulges", "confidences", "render")
+    log("  stage walls (s): " + ", ".join(f"{k} {rec[k]:.3f}" for k in stages)
+        + f"; total {wall:.3f} (flows, tracking, cold_solve and warm_loop include the layer's; "
+        "layer_solve is the layer's whole solve)")
+    log(f"  layered video_1080p: wall {wall:.3f} s for {t_len} frames, {t_len / wall:.3f} frames/s, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    cx = np.concatenate([blob_centroids_x(res.frames[k:k + 10]) for k in range(0, t_len, 10)])
+    ca0 = blob_centroids_x(ca[:1])[0]
+    cb_end = blob_centroids_x(cb[-1:])[0]
+    log(f"  blob centroid x per frame: {np.round(cx, 2).tolist()} "
+        f"(A[0] {ca0:.2f}, B[{t_len - 1}] {cb_end:.2f})")
+    require(np.all(np.diff(cx) > 0.0), "blob centroid does not rise monotonically")
+    require(abs(cx[0] - ca0) < 0.01 * w and abs(cx[-1] - cb_end) < 0.01 * w,
+            "blob centroid misses clip A's first or clip B's last frame")
+    layer_warp_sample(ca, cb, layer, res.fields_layers[0], dev)
+    del res, ca, cb, layer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def layer_warp_sample(ca, cb, layer, fields, dev) -> None:
+    """Kernel 4 at the shape the layer warp gives it, against its plain
+    version: both mask-carrying frames (C = 4) of frame 15 at p -/+ v of the
+    layer's field, one batched launch; tolerance 1e-6 of max|ref|
+    (bitwise expected), with kernel and plain times."""
+    import torch
+
+    from videomorphing_tpu_torch.kernels import warp as kw
+    from videomorphing_tpu_torch.ops.resample import grid_coords
+
+    k = 15
+    imgs = torch.stack([torch.cat([ca[k], layer["mask0"][k, ..., None]], -1),
+                        torch.cat([cb[k], layer["mask1"][k, ..., None]], -1)])
+    g = grid_coords(ca.shape[1], ca.shape[2], device=dev)
+    coords = torch.stack([g - fields[k], g + fields[k]])
+    ref = kw.bilinear_sample_batched_plain(imgs, coords)
+    got = kw.bilinear_sample_batched(imgs, coords)
+    err = float((ref.double() - got.double()).abs().max())
+    limit = 1e-6 * float(ref.abs().max())
+    shape = "x".join(map(str, imgs.shape))
+    log(f"  bilinear_sample_batched {shape} (the layer warp): max_abs_err={err:.3e} (limit {limit:.3e})")
+    require(bool(torch.isfinite(got).all()) and err <= limit, f"bilinear_sample_batched {shape}: err {err}")
+    _, _, (k1, k2, pl1, pl2) = timed_pair(lambda: kw.bilinear_sample_batched(imgs, coords),
+                                          lambda: kw.bilinear_sample_batched_plain(imgs, coords), 10)
+    log(f"  bilinear_sample_batched {shape} time: kernel {k1:.4f}/{k2:.4f} ms, plain {pl1:.4f}/{pl2:.4f} ms")
+
+
+def run_cli(args):
+    """``python -m videomorphing_tpu_torch.cli <args>`` in a child process
+    from the checkout's root; returns its JSON lines (from ``-v``)."""
+    cmd = [sys.executable, "-m", "videomorphing_tpu_torch.cli", *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    require(out.returncode == 0, f"cli {args[0]} exited {out.returncode}:\n{out.stdout}\n{out.stderr[-4000:]}")
+    log(f"  cli {args[0]} ({wall:.2f} s with process start): {out.stdout.strip().splitlines()[-1]}")
+    return [json.loads(line) for line in out.stderr.splitlines() if line.startswith("{")]
+
+
+def command_line() -> None:
+    """Phase 9: the command line on a 6-frame 270 x 480 clip pair as .vmc
+    files (no PIL needed): ``video`` with a field store, again to resume
+    from it, and ``project`` on a layered clip project."""
+    import bench
+    from videomorphing_tpu_torch.io.clips import read_vmc, read_vmc_header, save_clip
+
+    t_len, h, w = 6, 270, 480
+    clip_a, clip_b = bench._make_clips(t_len, h, w, seed=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        f = lambda name: os.path.join(tmp, name)
+        save_clip(f("a.vmc"), clip_a)
+        save_clip(f("b.vmc"), clip_b)
+        with open(f("p.json"), "w") as fh:
+            json.dump({"points": bench_points(h, w).tolist()}, fh)
+        args = ["video", f("a.vmc"), f("b.vmc"), "--points", f("p.json"), "--fields", f("store.npz"),
+                "-v", "--out", f("out.vmc")]
+        events = run_cli(args)
+        metrics = [e for e in events if e.get("event") == "metrics"]
+        require(len(metrics) == 1, "cli video emitted no metrics line")
+        keys = ("ssim_t0_vs_a", "ssim_t1_vs_b", "ssim_halfway_agreement")
+        require(all(k in metrics[0] for k in keys), f"metrics lack {keys}: {metrics[0]}")
+        log("  cli video metrics: " + json.dumps({k: metrics[0][k] for k in keys + ("frames_per_sec",)}))
+        first = Path(f("out.vmc")).read_bytes()
+        require(read_vmc_header(f("out.vmc")) == (t_len, h, w, 3), "cli video wrote a wrong shape")
+        events = run_cli(args)
+        resumed = [e for e in events if e.get("event") == "resume"]
+        require(len(resumed) == 1 and resumed[0]["skipped_frames"] == t_len,
+                f"the second run did not resume all {t_len} frames: {resumed}")
+        require(Path(f("out.vmc")).read_bytes() == first, "the resumed run wrote other frames")
+        log(f"  cli video resumed {t_len} stored frames and wrote the same {len(first)} bytes")
+
+        for name, x0 in (("m0.npy", 0.45 * w), ("m1.npy", 0.55 * w)):
+            np.save(f(name), blob_discs(t_len, h, w, x0, "cpu").numpy())
+        proj = {"source_a": f("a.vmc"), "source_b": f("b.vmc"), "points": bench_points(h, w).tolist(),
+                "layers": [{"mask_a": f("m0.npy"), "mask_b": f("m1.npy")}], "output": f("layered.vmc")}
+        with open(f("job.json"), "w") as fh:
+            json.dump(proj, fh)
+        run_cli(["project", f("job.json")])
+        frames = read_vmc(f("layered.vmc"))
+        require(frames.shape == (t_len, h, w, 3) and np.isfinite(frames).all(),
+                f"cli project wrote {frames.shape}")
+
+
 def main(argv) -> int:
     import torch
 
@@ -490,13 +705,20 @@ def main(argv) -> int:
     video_launches = video_path(dev, card)
     log("phase 6: determinism")
     determinism(dev)
+    log("phase 7: layered pair path (api.morph_pair_layered, 1024x1024, 1 layer, 4 points, 16 frames)")
+    layered_launches = layered_pair_path(dev, card)
+    log("phase 8: layered video path (api.morph_clips_layered, 30 frames of 1080x1920, 1 layer, 4 points)")
+    layered_video_launches = layered_video_path(dev, card)
+    log("phase 9: command line (cli video with a field store, twice; cli project, layered)")
+    command_line()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]
+        total = sum(ph[name] for ph in (launches, video_launches, layered_launches, layered_video_launches))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name] + video_launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": total, "max_abs_err": r["max_abs_err"],
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
         })
     log(json.dumps({"kernels": kernels}))

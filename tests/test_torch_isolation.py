@@ -1,7 +1,8 @@
 """The port's boundaries: no jax, device dispatch, no silent fallback.
 
-- importing ``videomorphing_tpu_torch.api`` loads neither ``jax`` nor the
-  JAX package (checked in a fresh interpreter);
+- importing the port's modules (the API, the layered morphs, the command
+  line, io, metrics and the field store among them) loads neither ``jax``
+  nor the JAX package (checked in a fresh interpreter);
 - the configuration mirrors the reference's dataclasses field for field;
 - on CPU tensors the kernel wrappers (the sampler's batched form too) run
   their plain versions and leave their launch counters at 0;
@@ -39,6 +40,10 @@ def test_import_loads_no_jax():
         "import videomorphing_tpu_torch.video.pipeline, videomorphing_tpu_torch.video.flow\n"
         "import videomorphing_tpu_torch.video.temporal, videomorphing_tpu_torch.video.occlusion\n"
         "import videomorphing_tpu_torch.models.video_morph, videomorphing_tpu_torch.utils.profiling\n"
+        "import videomorphing_tpu_torch.models.layered, videomorphing_tpu_torch.video.layered\n"
+        "import videomorphing_tpu_torch.cli, videomorphing_tpu_torch.io, videomorphing_tpu_torch.io.y4m\n"
+        "import videomorphing_tpu_torch.io.project_xml, videomorphing_tpu_torch.utils.logging\n"
+        "import videomorphing_tpu_torch.utils.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'videomorphing_tpu' or m.startswith('videomorphing_tpu.'))\n"
         "print(bad)\n"
@@ -106,15 +111,20 @@ def test_batched_sampler_on_cpu_tensors_counts_nothing():
 
 
 def test_mesh_raises():
+    from videomorphing_tpu_torch import api
     from videomorphing_tpu_torch.models.video_morph import VideoMorpher
-    from videomorphing_tpu_torch.video import pipeline
+    from videomorphing_tpu_torch.video import layered, pipeline
 
     clip = torch.zeros((2, 16, 16, 3))
+    layers = [dict(mask0=torch.ones(16, 16), mask1=torch.ones(16, 16))]
     for call in (
         lambda: pipeline.solve_clip_fields(clip, clip, mesh=object()),
         lambda: pipeline.render_video(clip, clip, torch.zeros((2, 16, 16, 2)), mesh=object()),
         lambda: pipeline.morph_video(clip, clip, mesh=object()),
         lambda: VideoMorpher()(clip, clip, mesh=object()),
+        lambda: api.morph_clips(clip, clip, mesh=object()),
+        lambda: api.morph_clips_layered(clip, clip, layers, mesh=object()),
+        lambda: layered.solve_clip_fields_layered(clip, clip, [], mesh=object()),
     ):
         with pytest.raises(NotImplementedError, match="item 16"):
             call()

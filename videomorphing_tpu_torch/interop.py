@@ -2,11 +2,11 @@
 
 The parity tests use these to render from one field solved by the
 reference in both packages, to run one level solve from identical inputs,
-and to run the warm frame loop and the video render from the reference's
-flows and fields, so that each part's parity is separated from drift
-upstream of it (solver and flow). The configuration
-needs no conversion: ``config.py`` mirrors the reference's dataclasses
-field for field.
+to run the warm frame loop and the video render from the reference's flows
+and fields, and to render the layered morphs from its layered fields, so
+that each part's parity is separated from drift upstream of it (solver and
+flow). The configuration needs no conversion: ``config.py`` mirrors the
+reference's dataclasses field for field.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from videomorphing_tpu_torch.device import as_device
 from videomorphing_tpu_torch.models.image_morph import MorphArtifacts
+from videomorphing_tpu_torch.models.layered import LayeredArtifacts
 from videomorphing_tpu_torch.solver.energy import LevelData, make_level_data
 
 
@@ -49,3 +50,20 @@ def fields_from_numpy(fields, device=None) -> torch.Tensor:
     """Reference fields (T, H, W, 2) (or one (H, W, 2)) as a tensor on
     ``device``."""
     return _t(fields, device)
+
+
+def layered_artifacts_from_numpy(v_bg, b_bg, v_layers, b_layers, device=None) -> LayeredArtifacts:
+    """A reference ``LayeredArtifacts`` (background field and bulge, the
+    per-layer fields and bulges; a bulge may be None) as the port's."""
+    return LayeredArtifacts(
+        v_bg=_t(v_bg, device),
+        b_bg=_t(b_bg, device),
+        v_layers=tuple(_t(v, device) for v in v_layers),
+        b_layers=tuple(_t(b, device) for b in b_layers),
+    )
+
+
+def layered_fields_from_numpy(fields_bg, fields_layers, device=None):
+    """The reference's layered clip fields, ``fields_bg`` (T, H, W, 2) and
+    one (T, H, W, 2) per layer, as ``(tensor, tuple of tensors)``."""
+    return _t(fields_bg, device), tuple(_t(f, device) for f in fields_layers)

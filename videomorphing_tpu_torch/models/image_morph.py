@@ -41,10 +41,12 @@ class ImageMorpher:
     def _put(self, x):
         return None if x is None else x.to(torch.device(self.device)).contiguous()
 
-    def solve(self, i0, i1, points=None) -> MorphArtifacts:
-        """Optimize the halfway field and the quadratic-path bulge."""
-        i0, i1, points = (self._put(x) for x in (i0, i1, points))
-        res = optimize_pair(i0, i1, points=points, params=self.mp)
+    def solve(self, i0, i1, points=None, v0=None) -> MorphArtifacts:
+        """Optimize the halfway field and the quadratic-path bulge;
+        ``v0``: an optional full-resolution warm start (the solve then
+        begins at the middle pyramid level)."""
+        i0, i1, points, v0 = (self._put(x) for x in (i0, i1, points, v0))
+        res = optimize_pair(i0, i1, points=points, params=self.mp, v0=v0)
         b = bulge_field(res.v, self.sp) if self.sp.quadratic_paths else None
         return MorphArtifacts(v=res.v, b=b, result=res)
 

@@ -1,4 +1,4 @@
-"""Gaussian pyramids and field upsampling.
+"""Gaussian pyramids and field up/downsampling.
 
 Port of ``videomorphing_tpu/ops/pyramid.py``. ``pyr[0]`` is the finest
 (full-resolution) level, ``pyr[-1]`` the coarsest.
@@ -113,3 +113,16 @@ def gaussian_pyramid(img: torch.Tensor, n_levels: int, sigma: float = 0.85) -> L
     for _ in range(n_levels - 1):
         pyr.append(downsample_2x(pyr[-1], sigma=sigma))
     return pyr
+
+
+def downsample_to(img: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """Anti-aliased resize of (H, W, ...) to a smaller (H, W): 2x Gaussian
+    decimations while both sides stay above twice the target (at most 17),
+    then one bilinear resize."""
+    steps = 0
+    while img.shape[0] > 2 * hw[0] and img.shape[1] > 2 * hw[1]:
+        img = downsample_2x(img)
+        steps += 1
+        if steps > 16:
+            break
+    return resize_bilinear(img, hw)

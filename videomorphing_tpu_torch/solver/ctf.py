@@ -14,6 +14,7 @@ import torch
 from videomorphing_tpu_torch.config import MorphParams
 from videomorphing_tpu_torch.ops.pyramid import (
     auto_n_levels,
+    downsample_to,
     gaussian_pyramid,
     pyramid_shapes,
     resize_bilinear,
@@ -42,32 +43,49 @@ def optimize_pair(
     i1: torch.Tensor,
     points: Optional[torch.Tensor] = None,
     params: MorphParams = MorphParams(),
+    v0: Optional[torch.Tensor] = None,
+    tc_w: Optional[torch.Tensor] = None,
+    tc_v: Optional[torch.Tensor] = None,
+    start_level: Optional[int] = None,
 ) -> OptimizeResult:
-    """Solve for the halfway field between ``i0`` and ``i1`` (H, W, C), cold
-    from the coarsest level, on their device.
+    """Solve for the halfway field between ``i0`` and ``i1`` (H, W, C) on
+    their device.
 
     ``points``: optional (N, 2, 2) full-resolution pairs ((y, x) in image 0,
-    (y, x) in image 1). The reference's warm start (``v0``,
-    ``start_level``) and temporal-coherence inputs (``tc_w``, ``tc_v``)
-    serve the video pipeline and come with it.
+    (y, x) in image 1). ``v0``: optional full-resolution warm start.
+    ``tc_w``/``tc_v``: optional full-resolution temporal-coherence weight
+    ((H, W) or (H, W, 1)) and target field, used only together.
+    ``start_level``: the coarsest level solved (default: the coarsest when
+    cold, the middle level ``(n_levels - 1) // 2`` when warm-started).
     """
     h, w = i0.shape[0], i0.shape[1]
     dtype, device = i0.dtype, i0.device
     n_levels = params.n_levels or auto_n_levels(h, w, params.min_level_size)
     if points is None:
         points = torch.zeros((0, 2, 2), dtype=dtype, device=device)
+    if start_level is None:
+        start_level = (n_levels - 1) if v0 is None else max((n_levels - 1) // 2, 0)
+    start_level = min(start_level, n_levels - 1)
+    with_tc = tc_w is not None and tc_v is not None
+    if with_tc and tc_w.dim() == 2:
+        tc_w = tc_w[..., None]
 
     shapes = pyramid_shapes(h, w, n_levels)
     pyr0 = gaussian_pyramid(i0, n_levels)
     pyr1 = gaussian_pyramid(i1, n_levels)
-    v = torch.zeros(shapes[-1] + (2,), dtype=dtype, device=device)
+    if v0 is not None:
+        v = resample_field(v0.to(dtype), shapes[start_level])
+    else:
+        v = torch.zeros(shapes[start_level] + (2,), dtype=dtype, device=device)
 
     stats = []
-    for level in range(n_levels - 1, -1, -1):
+    for level in range(start_level, -1, -1):
         lh, lw = shapes[level]
         lpts = scale_points(points, (h, w), (lh, lw))
         ui_w, ui_v = rasterize_point_constraints(lpts, (lh, lw), params.ui_sigma, dtype, device)
-        data = make_level_data(pyr0[level], pyr1[level], ui_w, ui_v)
+        ltc_w = downsample_to(tc_w, (lh, lw)) if with_tc else None
+        ltc_v = resample_field(tc_v.to(dtype), (lh, lw)) if with_tc else None
+        data = make_level_data(pyr0[level], pyr1[level], ui_w, ui_v, ltc_w, ltc_v)
         solve = make_level_solver(params, params.iters_for_level(level, n_levels))
         v, st = solve(v, data)
         stats.append(st)

@@ -1,6 +1,6 @@
-"""Named phases of the pipeline, and their walls when asked for.
+"""Named phases of the pipeline, their walls when asked for, and traces.
 
-Port of ``videomorphing_tpu/utils/profiling.py``'s ``phase_scope``: each
+Port of ``videomorphing_tpu/utils/profiling.py``. ``phase_scope``: each
 phase is a ``torch.profiler.record_function`` range, so a profiler trace
 segments by phase. Inside :func:`record_phases` every phase also
 synchronizes the card on entry and exit and adds its host wall (seconds) to
@@ -10,11 +10,14 @@ a phase costs one ``record_function`` and no synchronization.
     with profiling.record_phases() as rec:
         api.morph_clips(clip_a, clip_b, device="cuda")
     rec["flows"], rec["warm_loop"], rec["warm_iters"]
+
+:func:`trace_to` writes a ``torch.profiler`` Chrome trace of a block.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -59,3 +62,19 @@ def record_phases():
         yield _recording
     finally:
         _recording = prev
+
+
+@contextlib.contextmanager
+def trace_to(logdir: Optional[str]):
+    """Profile the block (host, and the card when there is one) and write
+    a Chrome trace, ``trace.json``, into ``logdir``; no-op when None."""
+    if logdir is None:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -207,6 +207,15 @@ def _clip_confidences(fwd: torch.Tensor, bwd: torch.Tensor, t_len: int, vp: Vide
     return torch.cat([conf_mid, conf_last], 0)
 
 
+def clip_bulges(fields: torch.Tensor, sp: SynthParams) -> torch.Tensor:
+    """The bulge of every frame's field (T, H, W, 2), one frame at a time
+    into one preallocated output."""
+    bulges = torch.empty_like(fields)
+    for t in range(fields.shape[0]):
+        bulges[t] = bulge_field(fields[t], sp)
+    return bulges
+
+
 def _default_times(t_len: int, device) -> torch.Tensor:
     """The reference's ``jnp.linspace(0, 1, T, dtype=float32)`` bit for bit:
     XLA computes k / (T-1) as k * float32(1 / (T-1)), and ends on an exact
@@ -240,9 +249,7 @@ def render_video(
     t_len = clip_a.shape[0]
     if bulges is None and sp.quadratic_paths:
         with phase_scope("bulges"):
-            bulges = torch.empty_like(fields)
-            for t in range(t_len):
-                bulges[t] = bulge_field(fields[t], sp)
+            bulges = clip_bulges(fields, sp)
 
     frames = None
     if render:
