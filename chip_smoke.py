@@ -13,7 +13,13 @@ Phases:
      image, at 4 points, and batched: 29 and 58 grey 540 x 960 images as
      the flow warps take them, 29 two-channel 540 x 960 and 1080 x 1920
      flows as the occlusion round trip takes them), with the median time
-     of kernel and plain version (CUDA events);
+     of kernel and plain version (CUDA events), each kernel's bound (the
+     larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s)
+     and, for the sampler, the time of ``F.grid_sample`` on the same image
+     and map as a yardstick; then the row-shard forms (the shard sweeps and
+     the row-offset warp) on 4 row blocks of a 2160 x 3840, C = 3 level
+     against the whole-frame kernels' rows, and against their plain
+     versions on a ragged 132 x 241 split 4 ways;
   3. the pair path: ``api.morph_pair`` on a 1024 x 1024 pair with 4 point
      constraints and 16 frames, with every kernel's launch count;
   4. the golden translation at 256 x 256: the midpoint frame against its
@@ -32,12 +38,23 @@ Phases:
   9. the command line, in child processes: ``cli video`` on a 6-frame
      270 x 480 ``.vmc`` pair with a field store, twice (the second run
      resumes and writes the same bytes), and ``cli project`` on a layered
-     clip project.
+     clip project;
+ 10. the spatial pair at 4K: frame 0 of the bench's 2160 x 3840 clip pair
+     and its 4 points through ``parallel.spatial.optimize_pair_spatial`` on
+     4 row blocks of one card, then 16 rendered frames; the same pair
+     through the single-device ``api.solve_pair``; one 1080 x 1920 level,
+     6 iterations, sharded against single-device;
+ 11. the mesh video path: ``api.morph_clips`` on phase 5's clip pair with a
+     3-device mesh of the one card (blocks of 10 frames), its sharded flows
+     against ``clip_flows`` and its render against the sequential render
+     of the same fields.
 
-Any failure raises and exits non-zero. The second-to-last line is one JSON
-object with a record per kernel (launches summed over phases 3, 5, 7 and
-8); the last line is ``{"ok": true, "device": {...}}``. With no CUDA device
-it exits 1 and prints no result.
+A repeated-device mesh runs its blocks one after another on the card: a
+correctness path, not a speed-up. Any failure raises and exits non-zero.
+The card's name and power limit, then one JSON object with a record per
+kernel (launches summed over the paths of phases 3, 5, 7, 8, 10 and 11),
+are the lines before the last; the last line is ``{"ok": true, "device":
+{...}}``. With no CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -54,15 +71,72 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# the kernel numbering of PERF.md and ROADMAP.md: 1 sweep_grad, 2 sweep_energy,
-# 3 halfway_warp, 4 bilinear_sample (and its batched form)
+# the kernel numbering of PERF.md and ROADMAP.md: 1 sweep_grad (shard form
+# sweep_grad_shard), 2 sweep_energy (sweep_energy_shard), 3 halfway_warp (its
+# row-offset form halfway_warp_rows), 4 bilinear_sample (and its batched form)
 KERNELS = {
     "halfway_warp": ("videomorphing_tpu_torch/csrc/warp.cu", "videomorphing_tpu/pallas/warp.py:206"),
+    "halfway_warp_rows": ("videomorphing_tpu_torch/csrc/warp.cu", "videomorphing_tpu/pallas/warp.py:206"),
     "bilinear_sample": ("videomorphing_tpu_torch/csrc/warp.cu", "videomorphing_tpu/pallas/warp.py:311"),
     "bilinear_sample_batched": ("videomorphing_tpu_torch/csrc/warp.cu", "videomorphing_tpu/pallas/warp.py:311"),
     "sweep_grad": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:293"),
     "sweep_energy": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:502"),
+    "sweep_grad_shard": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:936"),
+    "sweep_energy_shard": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:959"),
 }
+# the shapes of the phases that this slice adds (phase 2's shard forms,
+# phases 10 and 11); module constants so a rehearsal can shrink them
+SHARD_SHAPES = ((2160, 3840), (132, 241))
+SPATIAL_HW = (2160, 3840)
+MESH_VIDEO_THW = (30, 1080, 1920)
+BASE = ("halfway_warp", "bilinear_sample", "bilinear_sample_batched", "sweep_grad", "sweep_energy")
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+
+
+def bound(n_bytes: float, n_ops: float):
+    """The least time (ms) the card could take, and what bounds it."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def sweep_ops_per_pixel(c: int, k: int, with_grad: bool) -> int:
+    """Arithmetic of sweep_kernel per owned pixel, counted from
+    csrc/sweep.cu: per channel the linearized warps (8), two passes of 5
+    window sums of k taps (20 k) and 3 products, the SSIM map (~20); with
+    the gradient also the coefficient maps (~20), two passes of 4
+    transposed sums (16 k), the chain through dw (10) and the curvature
+    (8); then the curvature's window sum (4 k), the TPS maps and adjoint
+    (~150) and the quadratic terms (~20). Halo recomputation not counted."""
+    per_c = 8 + 20 * k + 3 + 20 + ((20 + 16 * k + 10 + 8) if with_grad else 0)
+    rest = (4 * k + 150 + 20) if with_grad else (40 + 20)
+    return c * per_c + rest
+
+
+def warp_ops_per_pixel(c: int) -> int:
+    """halfway_warp: per image the coordinates, clamp and floor (~10) and
+    per channel 3 lerps of 3 operations and 2 derivatives of ~3."""
+    return 2 * (10 + 15 * c)
+
+
+def sample_ops_per_pixel(c: int) -> int:
+    """bilinear_sample: coordinates (~10) and 3 lerps of 3 per channel."""
+    return 10 + 9 * c
+
+
+def grid_sample_ms(imgs, coords) -> float:
+    """Yardstick for kernel 4 (never called by the port):
+    ``F.grid_sample`` on the same n images (n, H, W, C) at the same maps
+    (n, Ho, Wo, 2) in (y, x), normalized for ``align_corners=True``. It
+    rounds differently, so it is a time, not a twin."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w = imgs.shape[1], imgs.shape[2]
+    x = imgs.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([coords[..., 1] * (2.0 / (w - 1)) - 1.0, coords[..., 0] * (2.0 / (h - 1)) - 1.0], -1)
+    grid = grid.contiguous()
+    return cuda_ms(lambda: F.grid_sample(x, grid, mode="bilinear", padding_mode="border", align_corners=True), 10)
 
 
 def log(msg: str) -> None:
@@ -127,7 +201,7 @@ def check_kernels(dev) -> dict:
     from videomorphing_tpu_torch.solver.energy import make_level_data
 
     p = MorphParams()
-    rec = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0} for name in KERNELS}
+    rec = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None} for name in KERNELS}
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
 
     def compare(name, ref, got, shape, tol, rel_to_max):
@@ -213,7 +287,21 @@ def check_kernels(dev) -> dict:
                 rec[name]["ms"], rec[name]["plain_ms"], (k1, k2, pl1, pl2) = timed_pair(kern, plain)
                 log(f"  {name} 1024x1024 time: kernel {k1:.4f}/{k2:.4f} ms, "
                     f"plain {pl1:.4f}/{pl2:.4f} ms")
+            # bounds at the timed shapes: each input read once, each output
+            # written once (float32), and the kernels' arithmetic
+            c, k = 3, int(p.ssim_window)
+            npx = h * w
+            rec["halfway_warp"]["bound"] = bound(4 * npx * (2 * c + 2 + 6 * c), npx * warp_ops_per_pixel(c))
+            rec["bilinear_sample"]["bound"] = bound(4 * npx * (4 + 2 + 4), npx * sample_ops_per_pixel(4))
+            rec["sweep_grad"]["bound"] = bound(4 * npx * (6 * c + 10 + 4), npx * sweep_ops_per_pixel(c, k, True))
+            rec["sweep_energy"]["bound"] = bound(4 * npx * (6 * c + 10), npx * sweep_ops_per_pixel(c, k, False))
+            rec["bilinear_sample"]["library_ms"] = grid_sample_ms(stacked[None], p_co[None])
+            for name in ("halfway_warp", "bilinear_sample", "sweep_grad", "sweep_energy"):
+                b_ms, b_by = rec[name]["bound"]
+                log(f"  {name} 1024x1024 bound: {b_ms:.4f} ms ({b_by})"
+                    + (f"; F.grid_sample {rec[name]['library_ms']:.4f} ms" if rec[name]["library_ms"] else ""))
     check_sampler_forms(dev, compare, rec, t)
+    check_shard_forms(dev, compare, rec, t, p)
     return rec
 
 
@@ -257,8 +345,148 @@ def check_sampler_forms(dev, compare, rec, t) -> None:
         log(f"  {name} {shape} time: kernel {k1:.4f}/{k2:.4f} ms, plain {pl1:.4f}/{pl2:.4f} ms")
         if shape == f"58x{h}x{w}x1":
             rec[name]["ms"], rec[name]["plain_ms"] = ms, plain_ms
+            n, c = img.shape[0], img.shape[-1]
+            npx = n * coords.shape[1] * coords.shape[2]
+            rec[name]["bound"] = bound(4 * (img.numel() + coords.numel() + npx * c), npx * sample_ops_per_pixel(c))
+            rec[name]["library_ms"] = grid_sample_ms(img, coords)
+            log(f"  {name} {shape} bound: {rec[name]['bound'][0]:.4f} ms ({rec[name]['bound'][1]}); "
+                f"F.grid_sample {rec[name]['library_ms']:.4f} ms")
     del cases
     torch.cuda.empty_cache()
+
+
+def _blocks(h: int, n: int, halo: int):
+    """(k, row0, rows) of n row blocks of h rows extended by ``halo``."""
+    bh = h // n
+    return [(k, k * bh - halo, slice(k * bh, (k + 1) * bh)) for k in range(n)]
+
+
+def _ext(a, row0: int, rows: int):
+    """Rows [row0, row0 + rows) of ``a`` (H, ...), zero rows beyond it (the
+    halo exchange's contract)."""
+    out = a.new_zeros((rows,) + tuple(a.shape[1:]))
+    lo, hi = max(row0, 0), min(row0 + rows, a.shape[0])
+    out[lo - row0:hi - row0] = a[lo:hi]
+    return out
+
+
+def check_shard_forms(dev, compare, rec, t, p) -> None:
+    """Phase 2, the row-shard forms, on 4 row blocks with real 6-row halos
+    of a 2160 x 3840, C = 3 level and of a ragged 132 x 241 one: each
+    block's row-offset warp, (partials, grad, precond) and energy partials
+    against their plain versions on the same inputs (the warp 1e-6
+    absolute; grad and precond kernel 1's gate, 1e-5 of max|ref|; each raw
+    partial 1e-5 of its own size). At 4K also: the row-offset warp equals
+    the whole-frame warp's rows bitwise (zero planes outside the frame),
+    each block's grad and precond equal the whole-frame kernel's rows
+    (bitwise expected, else within 1e-6 of max|ref|), and the shard-summed
+    energies are within 1e-6 relative of the whole-frame energy. Then the
+    times, bounds and plain times of the forms at the 4K block shape."""
+    import torch
+
+    from videomorphing_tpu_torch.kernels import sweep as ks
+    from videomorphing_tpu_torch.kernels import warp as kw
+    from videomorphing_tpu_torch.parallel.spatial import exchange_halo
+    from videomorphing_tpu_torch.solver.energy import LevelData, make_level_data
+
+    def compare_parts(name, ref, got, blk):
+        """Each raw partial (sim, tps, ui, tc) within 1e-5 of its own size."""
+        for i, part in enumerate(("sim", "tps", "ui", "tc")):
+            compare(name, ref[i:i + 1], got[i:i + 1], f"{blk} {part} partial", 1e-5, True)
+
+    halo = exchange_halo(p)
+    n = 4
+    for h, w in SHARD_SHAPES:
+        big = (h, w) == SHARD_SHAPES[0]
+        rng = np.random.default_rng(h + w + 1)
+        i0 = t(rng.random((h, w, 3), dtype=np.float32))
+        i1 = t(rng.random((h, w, 3), dtype=np.float32))
+        v_lin = t(smooth_field(h, w, 20.0, 5))
+        v = v_lin + t(smooth_field(h, w, 0.5, 6))
+        data = make_level_data(
+            i0, i1, t(rng.random((h, w, 1), dtype=np.float32)),
+            v + t(0.1 * rng.standard_normal((h, w, 2)).astype(np.float32)),
+            t(rng.random((h, w, 1), dtype=np.float32)),
+            v + t(0.5 * rng.standard_normal((h, w, 2)).astype(np.float32)),
+        )
+        shape = f"{h}x{w} / {n}"
+        if big:
+            planes = kw.halfway_warp(i0, i1, v_lin)
+            e_whole, g_whole, p_whole = ks.sweep_grad(planes, v_lin, v, data, p)
+            e2_whole = ks.sweep_energy(planes, v_lin, v, data, p)
+        parts_g, parts_e, bitwise = [], [], True
+        for k, row0, rows in _blocks(h, n, halo):
+            he = rows.stop - rows.start + 2 * halo
+            vl_e, v_e = _ext(v_lin, row0, he), _ext(v, row0, he)
+            data_k = LevelData(i0, i1, *(m[rows].contiguous() for m in (data.ui_w, data.ui_v, data.tc_w, data.tc_v)))
+            pl_k = kw.halfway_warp_rows(i0, i1, vl_e, row0)
+            pk, gk, pck = ks.sweep_grad_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo)
+            pe = ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo)
+            blk = f"block {k} of {shape}"
+            compare("halfway_warp_rows", kw.halfway_warp_rows_plain(i0, i1, vl_e, row0), pl_k, blk, 1e-6, False)
+            rp, rg, rpc = ks.sweep_grad_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo)
+            compare_parts("sweep_grad_shard", rp, pk, blk)
+            compare("sweep_grad_shard", rg, gk, blk + " grad", 1e-5, True)
+            compare("sweep_grad_shard", rpc, pck, blk + " precond", 1e-5, True)
+            compare_parts("sweep_energy_shard", ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                          pe, blk)
+            del rp, rg, rpc
+            if big:
+                lo, hi = max(row0, 0), min(row0 + he, h)
+                require(torch.equal(pl_k[:, lo - row0:hi - row0], planes[:, lo:hi]),
+                        f"halfway_warp_rows block {k}: rows differ from the whole-frame warp")
+                outside = torch.ones(he, dtype=torch.bool, device=dev)
+                outside[lo - row0:hi - row0] = False
+                require(int(torch.count_nonzero(pl_k[:, outside])) == 0,
+                        f"halfway_warp_rows block {k}: non-zero planes outside the frame")
+                for name, ref, got in (("sweep_grad_shard", g_whole[rows], gk),
+                                       ("sweep_grad_shard", p_whole[rows], pck)):
+                    if not torch.equal(ref, got):
+                        bitwise = False
+                        compare(name, ref, got, f"{blk} vs whole frame", 1e-6, True)
+                parts_g.append(pk)
+                parts_e.append(pe)
+        if not big:
+            continue
+        log(f"  shard forms on {shape}: row-offset warp rows bitwise equal, zero planes outside; "
+            f"grad and precond {'bitwise equal to' if bitwise else 'within 1e-6 of'} the whole frame's rows")
+        for name, parts, e_ref in (("sweep_grad_shard", parts_g, e_whole), ("sweep_energy_shard", parts_e, e2_whole)):
+            tot = torch.stack(parts).cpu().numpy()
+            acc = tot[0].copy()
+            for row in tot[1:]:
+                acc = acc + row
+            e_sh = float(ks.combine_parts(acc, p, h * w, 3))
+            rel = abs(e_sh - float(e_ref)) / abs(float(e_ref))
+            log(f"  {name}: shard-summed energy {e_sh:.9g}, whole frame {float(e_ref):.9g}, rel {rel:.3e} (limit 1e-6)")
+            require(rel <= 1e-6, f"{name}: shard-summed energy off by {rel}")
+        # times at block 1's shape (an interior block with both halos)
+        k, row0, rows = _blocks(h, n, halo)[1]
+        he = rows.stop - rows.start + 2 * halo
+        bh = rows.stop - rows.start
+        vl_e, v_e = _ext(v_lin, row0, he), _ext(v, row0, he)
+        data_k = LevelData(i0, i1, *(m[rows].contiguous() for m in (data.ui_w, data.ui_v, data.tc_w, data.tc_v)))
+        pl_k = kw.halfway_warp_rows(i0, i1, vl_e, row0)
+        c, kt = 3, int(p.ssim_window)
+        forms = {
+            "halfway_warp_rows": (lambda: kw.halfway_warp_rows(i0, i1, vl_e, row0),
+                                  lambda: kw.halfway_warp_rows_plain(i0, i1, vl_e, row0),
+                                  bound(4 * he * w * (2 * c + 2 + 6 * c), he * w * warp_ops_per_pixel(c))),
+            "sweep_grad_shard": (lambda: ks.sweep_grad_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                                 lambda: ks.sweep_grad_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                                 bound(4 * (he * w * (6 * c + 4) + bh * w * (6 + 4)),
+                                       bh * w * sweep_ops_per_pixel(c, kt, True))),
+            "sweep_energy_shard": (lambda: ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                                   lambda: ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                                   bound(4 * (he * w * (6 * c + 4) + bh * w * 6),
+                                         bh * w * sweep_ops_per_pixel(c, kt, False))),
+        }
+        for name, (kern, plain, bnd) in forms.items():
+            rec[name]["ms"], rec[name]["plain_ms"], (k1, k2, pl1, pl2) = timed_pair(kern, plain, 10)
+            rec[name]["bound"] = bnd
+            log(f"  {name} {he}x{w} block time: kernel {k1:.4f}/{k2:.4f} ms, plain {pl1:.4f}/{pl2:.4f} ms; "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        del planes, g_whole, p_whole, pl_k, data, data_k, i0, i1
+        torch.cuda.empty_cache()
 
 
 def make_pair(n: int):
@@ -286,12 +514,10 @@ def main_path(dev, card: str) -> dict:
     import torch
 
     from videomorphing_tpu_torch import api
-    from videomorphing_tpu_torch.kernels import sweep as ks
-    from videomorphing_tpu_torch.kernels import warp as kw
 
     n, n_frames = 1024, 16
     i0, i1, pts = make_pair(n)
-    counters = (kw.halfway_warp, kw.bilinear_sample, kw.bilinear_sample_batched, ks.sweep_grad, ks.sweep_energy)
+    counters = kernel_counters()
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
@@ -306,8 +532,8 @@ def main_path(dev, card: str) -> dict:
     require(frames.device.type == "cuda", "frames are not on the card")
     require(bool(torch.isfinite(frames).all()), "non-finite frames")
     require(float(frames.min()) >= 0.0 and float(frames.max()) <= 1.0, "frames leave [0, 1]")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
+    for name in BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched on the main path")
     cx = centroids_x(frames)
     ca, cb = centroids_x(torch.from_numpy(np.stack([i0, i1])).to(dev))
     log(f"  centroid x per frame: {np.round(cx, 2).tolist()} (A {ca:.2f}, B {cb:.2f})")
@@ -398,8 +624,6 @@ def video_path(dev, card: str) -> dict:
     import bench
     from videomorphing_tpu_torch import api
     from videomorphing_tpu_torch.config import VideoParams
-    from videomorphing_tpu_torch.kernels import sweep as ks
-    from videomorphing_tpu_torch.kernels import warp as kw
     from videomorphing_tpu_torch.utils import profiling
 
     t_len, h, w = 30, 1080, 1920
@@ -408,7 +632,7 @@ def video_path(dev, card: str) -> dict:
     ca = torch.from_numpy(clip_a).to(dev)
     cb = torch.from_numpy(clip_b).to(dev)
     del clip_a, clip_b
-    counters = (kw.halfway_warp, kw.bilinear_sample, kw.bilinear_sample_batched, ks.sweep_grad, ks.sweep_energy)
+    counters = kernel_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
@@ -432,8 +656,8 @@ def video_path(dev, card: str) -> dict:
     fine = VideoParams().warm_iters_fine
     require(len(warm) == t_len - 1 and all(1 <= k <= fine for k in warm),
             f"warm frames ran outside [1, {fine}] iterations")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the video path")
+    for name in BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched on the video path")
     stages = ("flows", "tracking", "cold_solve", "warm_loop", "bulges", "confidences", "render")
     log("  stage walls (s): " + ", ".join(f"{k} {rec[k]:.3f}" for k in stages)
         + f"; total {wall:.3f}")
@@ -480,10 +704,12 @@ def blob_discs(t_len: int, h: int, w: int, x0: float, dev):
 
 
 def kernel_counters():
+    """Every kernel wrapper's launch counter, in ``KERNELS`` order."""
     from videomorphing_tpu_torch.kernels import sweep as ks
     from videomorphing_tpu_torch.kernels import warp as kw
 
-    return (kw.halfway_warp, kw.bilinear_sample, kw.bilinear_sample_batched, ks.sweep_grad, ks.sweep_energy)
+    mods = (kw, ks)
+    return tuple(next(getattr(m, name) for m in mods if hasattr(m, name)) for name in KERNELS)
 
 
 def check_frames(frames, shape) -> None:
@@ -516,8 +742,8 @@ def layered_pair_path(dev, card: str) -> dict:
     launches = {fn.__name__: fn.launches for fn in counters}
     log(f"  launches in the layered pair path: {launches}")
     check_frames(frames, (n_frames, n, n, 3))
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the layered pair path")
+    for name in BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched on the layered pair path")
     cx = blob_centroids_x(frames)
     ca, cb = blob_centroids_x(torch.from_numpy(np.stack([i0, i1])).to(dev))
     log(f"  blob centroid x per frame: {np.round(cx, 2).tolist()} (A {ca:.2f}, B {cb:.2f})")
@@ -563,8 +789,8 @@ def layered_video_path(dev, card: str) -> dict:
     check_frames(res.frames, (t_len, h, w, 3))
     for f in (res.fields_bg,) + tuple(res.fields_layers):
         require(tuple(f.shape) == (t_len, h, w, 2) and bool(torch.isfinite(f).all()), "bad fields")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the layered video path")
+    for name in BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched on the layered video path")
     stages = ("flows", "tracking", "cold_solve", "warm_loop", "layer_solve", "bulges", "confidences", "render")
     log("  stage walls (s): " + ", ".join(f"{k} {rec[k]:.3f}" for k in stages)
         + f"; total {wall:.3f} (flows, tracking, cold_solve and warm_loop include the layer's; "
@@ -610,6 +836,185 @@ def layer_warp_sample(ca, cb, layer, fields, dev) -> None:
     _, _, (k1, k2, pl1, pl2) = timed_pair(lambda: kw.bilinear_sample_batched(imgs, coords),
                                           lambda: kw.bilinear_sample_batched_plain(imgs, coords), 10)
     log(f"  bilinear_sample_batched {shape} time: kernel {k1:.4f}/{k2:.4f} ms, plain {pl1:.4f}/{pl2:.4f} ms")
+
+
+def spatial_path(dev, card: str) -> dict:
+    """Phase 10: the 4K pair (frame 0 of the bench's 2160 x 3840 clips, its
+    4 points, default parameters) through ``optimize_pair_spatial`` on a
+    mesh of 4 row blocks of the card, then 16 frames through
+    ``ImageMorpher.render``; then the single-device ``api.solve_pair`` of
+    the same pair and one 1080 x 1920 level, 6 iterations, both ways."""
+    import torch
+
+    import bench
+    from videomorphing_tpu_torch import api
+    from videomorphing_tpu_torch.config import MorphParams, SynthParams
+    from videomorphing_tpu_torch.models.image_morph import ImageMorpher, MorphArtifacts
+    from videomorphing_tpu_torch.ops.pyramid import gaussian_pyramid, pyramid_shapes
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+    from videomorphing_tpu_torch.parallel.spatial import (
+        level_is_sharded,
+        make_spatial_level_solver,
+        optimize_pair_spatial,
+    )
+    from videomorphing_tpu_torch.solver.constraints import rasterize_point_constraints, scale_points
+    from videomorphing_tpu_torch.solver.descent import make_level_solver
+    from videomorphing_tpu_torch.solver.energy import make_level_data
+    from videomorphing_tpu_torch.synth.paths import bulge_field
+    from videomorphing_tpu_torch.video.pipeline import _default_times
+
+    (h, w), n_frames, n_blocks = SPATIAL_HW, 16, 4
+    clip_a, clip_b = bench._make_clips(1, h, w, seed=0)
+    i0 = torch.from_numpy(clip_a[0]).to(dev)
+    i1 = torch.from_numpy(clip_b[0]).to(dev)
+    del clip_a, clip_b
+    pts = bench_points(h, w)
+    mp = MorphParams()
+    mesh = make_mesh((n_blocks,), ("y",), devices=[dev] * n_blocks)
+
+    def single_solve():
+        t0 = time.perf_counter()
+        art = api.solve_pair(i0, i1, pts, mp, device=dev)
+        torch.cuda.synchronize()
+        return art, time.perf_counter() - t0
+
+    # the single-device solve of the same pair before and after the sharded
+    # one, so that neither side carries the first use of the 4K shapes alone
+    single, t_single0 = single_solve()
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = optimize_pair_spatial(i0, i1, pts, mp, mesh)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    art = MorphArtifacts(v=res.v, b=bulge_field(res.v, SynthParams()), result=res)
+    frames = ImageMorpher(mp, device=str(dev)).render(i0, i1, art, _default_times(n_frames, "cpu"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  launches in the spatial path: {launches}")
+    check_frames(frames, (n_frames, h, w, 3))
+    for name in ("sweep_grad_shard", "sweep_energy_shard", "halfway_warp_rows") + BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched on the spatial path")
+    shapes = pyramid_shapes(h, w, res.n_levels)
+    for li, s in enumerate(res.level_stats):
+        lh, lw = shapes[res.n_levels - 1 - li]
+        kind = "sharded" if level_is_sharded(lh, n_blocks, mp) else "local"
+        log(f"  level {lh}x{lw} {kind}: iters={s.iters} e0={s.e0:.6f} e_final={s.e_final:.6f}")
+        require(s.e_final < s.e0, f"level {lh}x{lw}: energy did not decrease")
+    cx = blob_centroids_x(frames)
+    ca, cb = blob_centroids_x(torch.stack([i0, i1]))
+    log(f"  blob centroid x per frame: {np.round(cx, 2).tolist()} (A {ca:.2f}, B {cb:.2f})")
+    require(np.all(np.diff(cx) > 0.0), "blob centroid does not rise monotonically")
+    require(abs(cx[0] - ca) < 0.01 * w and abs(cx[-1] - cb) < 0.01 * w, "blob centroid misses A or B")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  spatial_4k: wall {wall:.3f} s (solve {t_solve:.3f} s + {n_frames} frames), "
+        f"peak device memory {peak:.2f} GiB, {n_blocks} row blocks on one card (in turn) on {card}")
+    del frames
+    torch.cuda.empty_cache()
+
+    single2, t_single = single_solve()
+    require(torch.equal(single.v, single2.v), "the single-device 4K solve is not bitwise repeatable")
+    dv = (single.v - res.v).abs().flatten().sort().values
+    at = lambda q: float(dv[int(q * (dv.numel() - 1))])
+    log(f"  single-device api.solve_pair of the same pair: {t_single0:.3f} s before, {t_single:.3f} s after "
+        f"the sharded solve ({t_solve:.3f} s); |dv| against the sharded solve p50 {at(0.5):.3e}, "
+        f"p99 {at(0.99):.3e}, max {at(1.0):.3e} px")
+
+    # one 1080 x 1920 level, 6 iterations, from zero: sharded vs single device
+    pyr0 = gaussian_pyramid(i0, 2)
+    pyr1 = gaussian_pyramid(i1, 2)
+    lh, lw = pyr0[1].shape[0], pyr0[1].shape[1]
+    lpts = scale_points(torch.from_numpy(pts).to(dev), (h, w), (lh, lw))
+    ui_w, ui_v = rasterize_point_constraints(lpts, (lh, lw), mp.ui_sigma, torch.float32, dev)
+    data = make_level_data(pyr0[1], pyr1[1], ui_w, ui_v)
+    v0 = torch.zeros((lh, lw, 2), device=dev)
+    v_ref, st_ref = make_level_solver(mp, 6)(v0, data)
+    v_sh, st_sh = make_spatial_level_solver(mp, 6, mesh)(v0, data)
+    err = float((v_ref - v_sh).abs().max())
+    e0_rel = abs(st_sh.e0 - st_ref.e0) / abs(st_ref.e0)
+    ef_rel = abs(st_sh.e_final - st_ref.e_final) / abs(st_ref.e_final)
+    log(f"  {lh}x{lw} level, 6 iterations: sharded vs single device max |dv| {err:.3e} (limit 2e-3), "
+        f"e0 rel {e0_rel:.3e} (limit 1e-5), e_final rel {ef_rel:.3e}; iters {st_sh.iters}/{st_ref.iters}")
+    require(err <= 2e-3 and e0_rel <= 1e-5, "the sharded 1080p level disagrees with the single-device solve")
+    del pyr0, pyr1, data, single, single2, res, i0, i1
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_video_path(dev, card: str) -> dict:
+    """Phase 11: ``api.morph_clips`` on phase 5's clip pair and points with
+    a 3-device mesh of the card (blocks of 10 frames); the sharded flows
+    against ``clip_flows`` (1e-5) and the mesh render against the
+    sequential render of the same fields and flows (2e-5)."""
+    import torch
+
+    import bench
+    from videomorphing_tpu_torch import api
+    from videomorphing_tpu_torch.config import VideoParams
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+    from videomorphing_tpu_torch.utils import profiling
+    from videomorphing_tpu_torch.video.flow import clip_flows, clip_flows_sharded
+    from videomorphing_tpu_torch.video.pipeline import render_video
+
+    t_len, h, w = MESH_VIDEO_THW
+    clip_a, clip_b = bench._make_clips(t_len, h, w, seed=0)
+    ca = torch.from_numpy(clip_a).to(dev)
+    cb = torch.from_numpy(clip_b).to(dev)
+    del clip_a, clip_b
+    mesh = make_mesh((3,), devices=[dev] * 3)
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with profiling.record_phases() as rec:
+        res = api.morph_clips(ca, cb, bench_points(h, w), mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  launches in the mesh video path: {launches}")
+    check_frames(res.frames, (t_len, h, w, 3))
+    require(bool(torch.isfinite(res.fields).all()), "non-finite fields")
+    for name in BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched on the mesh video path")
+    warm = rec["warm_iters"]
+    fine = VideoParams().warm_iters_fine
+    require(len(warm) == t_len - 3 and all(1 <= k <= fine for k in warm),
+            f"warm frames ran outside [1, {fine}] iterations: {warm}")
+    stages = ("flows", "tracking", "cold_solve", "warm_loop", "bulges", "confidences", "render")
+    log("  stage walls (s): " + ", ".join(f"{k} {rec[k]:.3f}" for k in stages)
+        + f"; total {wall:.3f}; 3 cold heads, warm iterations {warm}")
+    log(f"  mesh video_1080p: wall {wall:.3f} s for {t_len} frames, {t_len / wall:.3f} frames/s, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, 3 blocks on one card "
+        f"(in turn) on {card}")
+    cx = np.concatenate([blob_centroids_x(res.frames[k:k + 10]) for k in range(0, t_len, 10)])
+    ca0 = blob_centroids_x(ca[:1])[0]
+    cb_end = blob_centroids_x(cb[-1:])[0]
+    log(f"  blob centroid x per frame: {np.round(cx, 2).tolist()} (A[0] {ca0:.2f}, B[{t_len - 1}] {cb_end:.2f})")
+    require(np.all(np.diff(cx) > 0.0), "blob centroid does not rise monotonically")
+
+    vp = VideoParams()
+    flows = {}
+    for name, clip in (("fa", ca), ("fb", cb)):
+        f_seq, b_seq = clip_flows(clip, vp)
+        f_sh, b_sh = clip_flows_sharded(clip, vp, mesh)
+        err = max(float((f_seq - f_sh).abs().max()), float((b_seq - b_sh).abs().max()))
+        log(f"  clip_flows_sharded {name}: max |d| against clip_flows {err:.3e} px (limit 1e-5)")
+        require(err <= 1e-5, f"sharded flows of clip {name} differ by {err}")
+        flows[name + "_fwd"], flows[name + "_bwd"] = f_sh, b_sh
+        del f_seq, b_seq
+    seq = render_video(ca, cb, res.fields, flows=flows)
+    err = float((seq.frames - res.frames).abs().max())
+    log(f"  mesh render against the sequential render of the same fields: max |d| {err:.3e} (limit 2e-5)")
+    require(err <= 2e-5, f"the mesh render differs by {err}")
+    del res, seq, ca, cb, flows
+    torch.cuda.empty_cache()
+    return launches
 
 
 def run_cli(args):
@@ -711,15 +1116,21 @@ def main(argv) -> int:
     layered_video_launches = layered_video_path(dev, card)
     log("phase 9: command line (cli video with a field store, twice; cli project, layered)")
     command_line()
+    log("phase 10: spatial pair (optimize_pair_spatial, 2160x3840, 4 row blocks of one card, 16 frames)")
+    spatial_launches = spatial_path(dev, card)
+    log("phase 11: mesh video path (api.morph_clips, 30 frames of 1080x1920, a 3-device mesh of one card)")
+    mesh_launches = mesh_video_path(dev, card)
 
+    paths = (launches, video_launches, layered_launches, layered_video_launches, spatial_launches, mesh_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]
-        total = sum(ph[name] for ph in (launches, video_launches, layered_launches, layered_video_launches))
+        bound_ms, bound_by = r["bound"]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": total, "max_abs_err": r["max_abs_err"],
-            "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+            "launches": sum(ph[name] for ph in paths), "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": r["library_ms"],
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

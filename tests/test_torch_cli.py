@@ -11,8 +11,9 @@
   file;
 - ``endpoint_ssim`` and ``midpoint_agreement_ssim`` match the reference
   within 1e-5, one unit of the 5th decimal they are rounded to;
-- ``pair``, ``project`` (a layered clip project and a layered image
-  project) and ``import`` write what the library gives;
+- ``pair`` (also with ``--spatial-shards``, clamped to one device on the
+  CPU), ``project`` (a layered clip project and a layered image project)
+  and ``import`` write what the library gives;
 - the default device, ``cuda``, raises without a card (no fallback).
 """
 
@@ -148,10 +149,18 @@ def test_pair_writes_the_library_frames(tmp_path, capsys):
     i0 = to_uint8(clip_a[0]) / np.float32(255.0)
     i1 = to_uint8(clip_b[0]) / np.float32(255.0)
     art = api.solve_pair(i0, i1, mp=FAST_MP, device="cpu")
-    frames = ImageMorpher(FAST_MP).render(torch.from_numpy(i0), torch.from_numpy(i1), art, _default_times(3, "cpu"))
+    frames = ImageMorpher(FAST_MP, device="cpu").render(
+        torch.from_numpy(i0), torch.from_numpy(i1), art, _default_times(3, "cpu")
+    )
     np.testing.assert_array_equal(load_clip(out), to_uint8(frames.numpy()) / np.float32(255.0))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        cli.main(["pair", "a.png", "b.png", "--spatial-shards", "2", "--device", "cpu"])
+    # --spatial-shards clamps to the devices of --device (one for the CPU),
+    # emits the spatial record and, with every level local, the same frames
+    out2 = str(tmp_path / "m2.vmc")
+    assert cli.main(["pair", str(tmp_path / "a.png"), str(tmp_path / "b.png"), "--frames", "3",
+                     "--out", out2, "-v", "--device", "cpu", "--iters", "8", "--spatial-shards", "2"]) == 0
+    spatial = [e for e in _events(capsys.readouterr().err) if e["event"] == "spatial"]
+    assert len(spatial) == 1 and spatial[0]["shards"] == 1
+    np.testing.assert_array_equal(load_clip(out2), load_clip(out))
 
 
 def test_layered_clip_project(clip_files, tmp_path):

@@ -6,7 +6,8 @@
 - the configuration mirrors the reference's dataclasses field for field;
 - on CPU tensors the kernel wrappers (the sampler's batched form too) run
   their plain versions and leave their launch counters at 0;
-- a ``mesh`` (the multi-device video paths, not ported yet) raises;
+- the seven mesh entry points (the multi-device video paths) run with a
+  CPU mesh;
 - ``pack_dtype="bfloat16"`` raises, and ``build.py`` raises without nvcc.
 """
 
@@ -43,7 +44,8 @@ def test_import_loads_no_jax():
         "import videomorphing_tpu_torch.models.layered, videomorphing_tpu_torch.video.layered\n"
         "import videomorphing_tpu_torch.cli, videomorphing_tpu_torch.io, videomorphing_tpu_torch.io.y4m\n"
         "import videomorphing_tpu_torch.io.project_xml, videomorphing_tpu_torch.utils.logging\n"
-        "import videomorphing_tpu_torch.utils.checkpoint\n"
+        "import videomorphing_tpu_torch.utils.checkpoint, videomorphing_tpu_torch.parallel.spatial\n"
+        "import videomorphing_tpu_torch.parallel.frames, videomorphing_tpu_torch.parallel.video_blocks\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'videomorphing_tpu' or m.startswith('videomorphing_tpu.'))\n"
         "print(bad)\n"
@@ -97,7 +99,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert float(ks.sweep_energy(planes, v, v, data, p)) == float(ks.sweep_energy_plain(planes, v, v, data, p))
     s = kw.bilinear_sample(data.i0, v + 3.0)
     assert torch.equal(s, kw.bilinear_sample_plain(data.i0, v + 3.0))
-    for fn in (kw.halfway_warp, kw.bilinear_sample, ks.sweep_grad, ks.sweep_energy):
+    for fn in (kw.halfway_warp, kw.bilinear_sample, ks.sweep_grad, ks.sweep_energy,
+               kw.halfway_warp_rows, ks.sweep_grad_shard, ks.sweep_energy_shard):
         assert fn.launches == 0, fn.__name__
 
 
@@ -111,23 +114,32 @@ def test_batched_sampler_on_cpu_tensors_counts_nothing():
 
 
 def test_mesh_raises():
+    """The seven calls that raised on a mesh before the parallel port now
+    run with a two-device CPU mesh (and still raise on a non-mesh)."""
     from videomorphing_tpu_torch import api
     from videomorphing_tpu_torch.models.video_morph import VideoMorpher
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
     from videomorphing_tpu_torch.video import layered, pipeline
 
-    clip = torch.zeros((2, 16, 16, 3))
+    mesh = make_mesh((2,), devices=["cpu", "cpu"])
+    mp = port_config.MorphParams(n_levels=1, iters_coarse=2, iters_fine=2)
+    vp = port_config.VideoParams(flow_iters=2, warm_iters_fine=2)
+    clip = torch.rand((2, 16, 16, 3), generator=torch.Generator().manual_seed(0))
     layers = [dict(mask0=torch.ones(16, 16), mask1=torch.ones(16, 16))]
-    for call in (
-        lambda: pipeline.solve_clip_fields(clip, clip, mesh=object()),
-        lambda: pipeline.render_video(clip, clip, torch.zeros((2, 16, 16, 2)), mesh=object()),
-        lambda: pipeline.morph_video(clip, clip, mesh=object()),
-        lambda: VideoMorpher()(clip, clip, mesh=object()),
-        lambda: api.morph_clips(clip, clip, mesh=object()),
-        lambda: api.morph_clips_layered(clip, clip, layers, mesh=object()),
-        lambda: layered.solve_clip_fields_layered(clip, clip, [], mesh=object()),
-    ):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            call()
+    calls = (
+        lambda m: pipeline.solve_clip_fields(clip, clip, mp=mp, vp=vp, mesh=m)[0],
+        lambda m: pipeline.render_video(clip, clip, torch.zeros((2, 16, 16, 2)), vp=vp, mesh=m).frames,
+        lambda m: pipeline.morph_video(clip, clip, mp=mp, vp=vp, mesh=m).frames,
+        lambda m: VideoMorpher(mp, vp=vp, device="cpu")(clip, clip, mesh=m).frames,
+        lambda m: api.morph_clips(clip, clip, mp=mp, vp=vp, mesh=m, device="cpu").frames,
+        lambda m: api.morph_clips_layered(clip, clip, layers, mp=mp, vp=vp, mesh=m, device="cpu").frames,
+        lambda m: layered.solve_clip_fields_layered(clip, clip, [], mp=mp, vp=vp, mesh=m)[0],
+    )
+    for call in calls:
+        out = call(mesh)
+        assert out.shape[:3] == (2, 16, 16) and torch.isfinite(out).all()
+        with pytest.raises(TypeError, match="Mesh"):
+            call(object())
 
 
 def test_mixed_devices_raise():

@@ -1,11 +1,13 @@
 """Public library API: the image-pair, clip-pair and layered morphs, and
 the interactive session.
 
-Port of ``videomorphing_tpu/api.py``; the multi-device ``mesh`` of the clip
-morphs waits for the parallel port (a ``mesh`` other than None raises).
-Inputs may be numpy arrays or tensors; ``device`` says where the work runs
-(default: the input tensor's device, or the CPU for numpy input). On a
-CUDA device every kernel of the path is a hand-written CUDA kernel.
+Port of ``videomorphing_tpu/api.py``. Inputs may be numpy arrays or
+tensors; ``device`` says where the work runs: by default the input's card
+when it is a CUDA tensor, else the first card (raising when there is
+none); the CPU only with ``device="cpu"``. On a CUDA device every kernel
+of the path is a hand-written CUDA kernel. The clip morphs take a 1-D
+``parallel.mesh.Mesh``: flows, frame blocks and the render are then
+spread over its devices (``video.pipeline``).
 
     from videomorphing_tpu_torch import api
     frames = api.morph_pair(i0, i1, points, n_frames=16, device="cuda")
@@ -22,14 +24,14 @@ import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import MorphParams, SynthParams, VideoParams
-from videomorphing_tpu_torch.device import as_device
+from videomorphing_tpu_torch.device import pick_device
 from videomorphing_tpu_torch.models.image_morph import ImageMorpher, MorphArtifacts
 from videomorphing_tpu_torch.models.video_morph import VideoMorpher
 from videomorphing_tpu_torch.models.layered import Layer
 from videomorphing_tpu_torch.models.layered import morph_pair_layered as _morph_pair_layered
 from videomorphing_tpu_torch.video.layered import LayeredVideoResult, VideoLayer
 from videomorphing_tpu_torch.video.layered import morph_clips_layered as _morph_clips_layered
-from videomorphing_tpu_torch.video.pipeline import VideoResult, _default_times, _no_mesh
+from videomorphing_tpu_torch.video.pipeline import VideoResult, _default_times
 
 
 def morph_pair(
@@ -42,13 +44,13 @@ def morph_pair(
     device=None,
 ) -> torch.Tensor:
     """Morph an image pair: (H, W, C) x2 -> (n_frames, H, W, C) on ``device``."""
-    dev = _pick_device(i0, device)
+    dev = pick_device(device, i0)
     return ImageMorpher(mp, sp, str(dev))(_dev(i0, dev), _dev(i1, dev), _pts(points, dev), n_frames)
 
 
 def solve_pair(i0, i1, points=None, mp=MorphParams(), sp=SynthParams(), device=None) -> MorphArtifacts:
     """Solve only (field + bulge), for callers that render separately."""
-    dev = _pick_device(i0, device)
+    dev = pick_device(device, i0)
     return ImageMorpher(mp, sp, str(dev)).solve(_dev(i0, dev), _dev(i1, dev), _pts(points, dev))
 
 
@@ -66,11 +68,12 @@ def morph_clips(
 ) -> VideoResult:
     """Morph a clip pair: (T, H, W, C) x2 -> ``VideoResult`` with frames
     (T, H, W, C) on ``device``. ``points``: (N, 2, 2) on frame 0, or a
-    keyframe mapping ``{frame_idx: (N, 2, 2)}``."""
-    _no_mesh(mesh)
-    dev = _pick_device(clip_a, device)
+    keyframe mapping ``{frame_idx: (N, 2, 2)}``. ``mesh``: an optional 1-D
+    ``parallel.mesh.Mesh``; frame BLOCKS then solve across its devices and
+    the frames render across them."""
+    dev = pick_device(device, clip_a)
     return VideoMorpher(mp, sp, vp, str(dev))(
-        _dev(clip_a, dev), _dev(clip_b, dev), _pts(points, dev), times=times, render=render
+        _dev(clip_a, dev), _dev(clip_b, dev), _pts(points, dev), times=times, render=render, mesh=mesh
     )
 
 
@@ -90,7 +93,7 @@ def morph_pair_layered(
     ``mask1`` ((H, W) arrays; uint8 scales to [0, 1]) and an optional
     ``points``. Returns (n_frames, H, W, C) on ``device``.
     """
-    dev = _pick_device(i0, device)
+    dev = pick_device(device, i0)
     norm = [Layer(*_layer_parts(l, dev)) for l in layers]
     return _morph_pair_layered(_dev(i0, dev), _dev(i1, dev), norm, _pts(points, dev), n_frames, mp, sp)
 
@@ -112,13 +115,14 @@ def morph_clips_layered(
 
     ``layers``: ``video.layered.VideoLayer``s or dicts with keys ``mask0`` /
     ``mask1`` ((T, H, W) or (H, W) arrays) and an optional ``points`` (the
-    forms of ``morph_clips``).
+    forms of ``morph_clips``). ``mesh``: as for ``morph_clips``, for the
+    background's and every layer's solve.
     """
-    _no_mesh(mesh)
-    dev = _pick_device(clip_a, device)
+    dev = pick_device(device, clip_a)
     norm = [VideoLayer(*_layer_parts(l, dev)) for l in layers]
     return _morph_clips_layered(
-        _dev(clip_a, dev), _dev(clip_b, dev), norm, _pts(points, dev), times=times, mp=mp, sp=sp, vp=vp
+        _dev(clip_a, dev), _dev(clip_b, dev), norm, _pts(points, dev), times=times, mp=mp, sp=sp, vp=vp,
+        mesh=mesh,
     )
 
 
@@ -126,7 +130,7 @@ class Session:
     """Interactive morphing session with warm restarts on point edits."""
 
     def __init__(self, i0, i1, mp: MorphParams = MorphParams(), sp: SynthParams = SynthParams(), device=None):
-        self.device = _pick_device(i0, device)
+        self.device = pick_device(device, i0)
         self.i0 = _dev(i0, self.device)
         self.i1 = _dev(i1, self.device)
         self.morpher = ImageMorpher(mp, sp, str(self.device))
@@ -152,12 +156,6 @@ class Session:
     def render(self, n_frames: int = 16) -> torch.Tensor:
         """``n_frames`` frames at the reference's float32 ``linspace(0, 1)``."""
         return self.morpher.render(self.i0, self.i1, self.solve(), _default_times(n_frames, "cpu"))
-
-
-def _pick_device(x, device) -> torch.device:
-    if device is None and isinstance(x, torch.Tensor):
-        return x.device
-    return as_device(device)
 
 
 def _dev(x, device) -> torch.Tensor:

@@ -12,8 +12,11 @@ the CUDA device raises, it does not fall back to the CPU.
         --out m.vmc --fields f.npz -v
     python -m videomorphing_tpu_torch.cli project job.json
 
-``batch``, ``edit`` and ``bench`` are not ported yet (ROADMAP queue 1 items
-13, 15 and 16); ``--spatial-shards`` above 1 raises (item 16).
+``pair --spatial-shards N`` solves one large frame with its rows split
+over ``min(N, devices)`` devices (``parallel.spatial``; the devices are the
+cards for ``--device cuda``, one for the CPU), and ``video`` splits the
+clip over every card when there is more than one. ``batch``, ``edit`` and
+``bench`` are not ported yet (ROADMAP queue 1 items 13, 15 and 16).
 """
 
 from __future__ import annotations
@@ -174,6 +177,13 @@ def _device(args) -> torch.device:
     return as_device(dev)
 
 
+def _devices_of(dev: torch.device) -> list:
+    """The devices a mesh may span for ``--device``: every card, or the CPU."""
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -190,10 +200,6 @@ def cmd_pair(args) -> int:
     from videomorphing_tpu_torch.utils.profiling import trace_to
     from videomorphing_tpu_torch.video.pipeline import _default_times
 
-    if args.spatial_shards > 1:
-        raise NotImplementedError(
-            "--spatial-shards: the row-sharded solve is not ported yet (ROADMAP queue 1 item 16)"
-        )
     dev = _device(args)
     m = MetricsLogger(verbose=args.verbose)
     mp, sp, _ = _params_from_args(args)
@@ -203,7 +209,22 @@ def cmd_pair(args) -> int:
 
     t0 = time.perf_counter()
     with trace_to(args.trace), m.phase("solve"):
-        art = api.solve_pair(i0, i1, points, mp, sp, device=dev)
+        if args.spatial_shards > 1:
+            # one large frame's rows across devices (config 5's spatial tier)
+            from videomorphing_tpu_torch.models.image_morph import MorphArtifacts
+            from videomorphing_tpu_torch.parallel.mesh import make_mesh
+            from videomorphing_tpu_torch.parallel.spatial import optimize_pair_spatial
+            from videomorphing_tpu_torch.synth.paths import bulge_field
+
+            devices = _devices_of(dev)
+            n = min(args.spatial_shards, len(devices))
+            mesh = make_mesh((n,), ("y",), devices=devices)
+            res = optimize_pair_spatial(i0, i1, api._pts(points, dev), mp, mesh)
+            b = bulge_field(res.v, sp) if sp.quadratic_paths else None
+            art = MorphArtifacts(v=res.v, b=b, result=res)
+            m.emit("spatial", shards=n)
+        else:
+            art = api.solve_pair(i0, i1, points, mp, sp, device=dev)
         _sync(dev)
     shapes = pyramid_shapes(i0.shape[0], i0.shape[1], art.result.n_levels)
     # level_stats run coarse -> fine; entry k solved level (n_solved - 1 - k)
@@ -260,6 +281,16 @@ def cmd_video(args) -> int:
                 clip=[h, w],
             )
 
+    # frames split over every card when there is more than one (the
+    # reference's config-4 layout): frame blocks in the solve, frames in
+    # the render
+    mesh = None
+    devices = _devices_of(dev)
+    if len(devices) > 1 and t_len > 1:
+        from videomorphing_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=devices)
+
     t0 = time.perf_counter()
     with trace_to(args.trace), m.phase("video"):
         if done_n == t_len:
@@ -267,7 +298,7 @@ def cmd_video(args) -> int:
             v_all, b_all = store.fields()
             res = render_video(
                 clip_a, clip_b, api._dev(v_all, dev), sp=sp, vp=vp,
-                bulges=api._dev(b_all, dev) if sp.quadratic_paths else None,
+                bulges=api._dev(b_all, dev) if sp.quadratic_paths else None, mesh=mesh,
             )
             m.emit("resume", skipped_frames=t_len)
         elif done_n > 0:
@@ -275,10 +306,10 @@ def cmd_video(args) -> int:
             v_all, _ = store.fields()
             vs = resume_clip_fields(clip_a, clip_b, v_all[done_n - 1], done_n, points, mp, vp)
             fields = torch.cat([api._dev(v_all[:done_n], dev), vs], 0)
-            res = render_video(clip_a, clip_b, fields, sp=sp, vp=vp)
+            res = render_video(clip_a, clip_b, fields, sp=sp, vp=vp, mesh=mesh)
             m.emit("resume", skipped_frames=done_n)
         else:
-            res = api.morph_clips(clip_a, clip_b, points, mp=mp, sp=sp, vp=vp, device=dev)
+            res = api.morph_clips(clip_a, clip_b, points, mp=mp, sp=sp, vp=vp, mesh=mesh, device=dev)
         _sync(dev)
     dt = time.perf_counter() - t0
 
@@ -357,12 +388,14 @@ def _run_project_pair(proj: Project, dev: torch.device, fps: int) -> int:
     t0 = time.perf_counter()
     if proj.layers:
         layers = _layer_dicts(proj, lambda p: load_image(p).mean(-1))
-        frames = api.morph_pair_layered(i0, i1, layers, proj.points, proj.n_frames, proj.morph, proj.synth)
+        frames = api.morph_pair_layered(
+            i0, i1, layers, proj.points, proj.n_frames, proj.morph, proj.synth, device=dev
+        )
         save_clip(proj.output, _numpy(frames), fps=fps)
         print(f"wrote {frames.shape[0]} layered frames to {proj.output} "
               f"in {time.perf_counter() - t0:.2f}s")
         return 0
-    art = api.solve_pair(i0, i1, proj.points, proj.morph, proj.synth)
+    art = api.solve_pair(i0, i1, proj.points, proj.morph, proj.synth, device=dev)
     ts = proj.times if proj.times is not None else _default_times(proj.n_frames, "cpu")
     frames = ImageMorpher(proj.morph, proj.synth, str(dev)).render(i0, i1, art, ts)
     save_clip(proj.output, _numpy(frames), fps=fps)
@@ -389,12 +422,12 @@ def _run_project_video(proj: Project, dev: torch.device, fps: int) -> int:
         # layered clips: per-layer temporally propagated fields
         res = api.morph_clips_layered(
             clip_a, clip_b, _layer_dicts(proj, _load_mask), proj.points,
-            times=proj.times, mp=proj.morph, sp=proj.synth, vp=proj.video,
+            times=proj.times, mp=proj.morph, sp=proj.synth, vp=proj.video, device=dev,
         )
     else:
         res = api.morph_clips(
             clip_a, clip_b, proj.points,
-            times=proj.times, mp=proj.morph, sp=proj.synth, vp=proj.video,
+            times=proj.times, mp=proj.morph, sp=proj.synth, vp=proj.video, device=dev,
         )
     save_clip(proj.output, _numpy(res.frames), fps=fps)
     print(f"wrote {clip_a.shape[0]} frames to {proj.output} in {time.perf_counter() - t0:.2f}s")
@@ -415,7 +448,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_pair.add_argument("--out", default="morph_out")
     p_pair.add_argument(
         "--spatial-shards", type=int, default=1,
-        help="shard one giant frame's rows over N devices (not ported yet: > 1 raises)",
+        help="shard one large frame's rows over min(N, devices) devices",
     )
     _add_param_overrides(p_pair)
     p_pair.set_defaults(fn=cmd_pair)

@@ -23,6 +23,15 @@
 // block in a fixed shared-memory tree and then across blocks in a fixed
 // order by sweep_reduce_kernel: no float atomics, so reruns are bitwise
 // identical.
+//
+// Row-shard form (Pallas: the same builders driven by
+// fused_grad_parts_shard, sweep.py:936, and fused_energy_parts_shard, :959):
+// the arrays hold a block of rows extended by real neighbour rows, its owned
+// rows are [own0, own0 + nown), and row0 / gh place it in the global frame.
+// Every in-image test, 1/n and the TPS stencil validity use global rows;
+// outputs and energy partials cover the owned rows only, so the caller sums
+// the raw partials over the blocks and normalizes by the global pixel count.
+// The whole frame is the form with one block: row0 = own0 = 0, gh = nown = h.
 
 #include <cuda_runtime.h>
 
@@ -42,7 +51,10 @@ struct VmSweepScalars {
   float pquad_n;      // 2 / npix
   float eps_n;        // precond_eps / npix
   float gamma_ui, beta_tc, lambda_tps;
-  int h, w, C;
+  int h, w, C;        // rows of the block's arrays (owned + neighbour rows), width, channels
+  int row0;           // global row of the arrays' row 0
+  int gh;             // global height
+  int own0, nown;     // owned rows [own0, own0 + nown) of the arrays
 };
 }
 
@@ -61,16 +73,25 @@ __device__ __forceinline__ float tap_sum_range(const VmSweepScalars& s, int cent
   return acc;
 }
 
+// local row y lies in the block's arrays and in the global frame
+__device__ __forceinline__ bool row_in(const VmSweepScalars& s, int y) {
+  int g = y + s.row0;
+  return y >= 0 && y < s.h && g >= 0 && g < s.gh;
+}
+
 // Second-difference maps of field component k at (y, x), zero where the
-// stencil leaves the image (solver/energy.py tps_maps).
+// stencil leaves the global image (solver/energy.py tps_maps).
 __device__ __forceinline__ void tps_maps_at(const float* __restrict__ v, int y, int x, int k,
-                                            int h, int w, float& vxx, float& vxy, float& vyy) {
+                                            const VmSweepScalars& s, float& vxx, float& vxy,
+                                            float& vyy) {
+  const int w = s.w;
   vxx = vxy = vyy = 0.0f;
-  if (y < 0 || y >= h || x < 0 || x >= w) return;
+  if (!row_in(s, y) || x < 0 || x >= w) return;
   auto V = [&](int yy, int xx) { return v[2 * (yy * w + xx) + k]; };
   float c = V(y, x);
+  int g = y + s.row0;
   bool inx = x >= 1 && x <= w - 2;
-  bool iny = y >= 1 && y <= h - 2;
+  bool iny = g >= 1 && g <= s.gh - 2;
   if (inx) vxx = V(y, x + 1) - 2.0f * c + V(y, x - 1);
   if (iny) vyy = V(y + 1, x) - 2.0f * c + V(y - 1, x);
   if (inx && iny)
@@ -99,11 +120,13 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
 
   const int h = s.h, w = s.w, C = s.C;
   const int hw = h * w;
+  const int own_end = s.own0 + s.nown;
   const int tid = threadIdx.y * T + threadIdx.x;
-  const int y0 = blockIdx.y * T, x0 = blockIdx.x * T;
+  const int y0 = s.own0 + blockIdx.y * T, x0 = blockIdx.x * T;
   const int oy = y0 + threadIdx.y, ox = x0 + threadIdx.x;
-  const bool own_in = oy < h && ox < w;
-  const int opix = oy * w + ox;
+  const bool own_in = oy < own_end && ox < w;
+  const int opix = oy * w + ox;                // in the block's arrays
+  const int qpix = (oy - s.own0) * w + ox;     // in the owned-row maps and outputs
 
   float taps[K];
 #pragma unroll
@@ -128,7 +151,7 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
     for (int i = tid; i < NA * NA; i += NT) {
       int gy = y0 - HA + i / NA, gx = x0 - HA + i % NA;
       float a0 = 0.0f, a1 = 0.0f;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+      if (row_in(s, gy) && gx >= 0 && gx < w) {
         int p = gy * w + gx;
         float dvy = v[2 * p] - v_lin[2 * p];
         float dvx = v[2 * p + 1] - v_lin[2 * p + 1];
@@ -167,7 +190,7 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
     for (int i = tid; i < NS * NS; i += NT) {
       int r = i / NS, cx = i % NS;
       int gy = y0 - HS + r, gx = x0 - HS + cx;
-      bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
+      bool in = row_in(s, gy) && gx >= 0 && gx < w;
       float st[5];
 #pragma unroll
       for (int q = 0; q < 5; ++q) {
@@ -178,7 +201,7 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
       }
       float qv = 0.f, qc = 0.f, q0 = 0.f, q1 = 0.f, cy_ = 0.f, cx_ = 0.f;
       if (in) {
-        float inv_n = 1.0f / (tap_sum_range(s, gy, h) * tap_sum_range(s, gx, w));
+        float inv_n = 1.0f / (tap_sum_range(s, gy + s.row0, s.gh) * tap_sum_range(s, gx, w));
         float mu0 = st[0] * inv_n, mu1 = st[1] * inv_n;
         float var0 = fmaxf(st[2] * inv_n - mu0 * mu0, 0.0f);
         float var1 = fmaxf(st[3] * inv_n - mu1 * mu1, 0.0f);
@@ -192,7 +215,7 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
         }
         float denom = b1 * b2;
         float ssim = (a1 * a2) / denom;
-        if (r >= HS && r < HS + T && cx >= HS && cx < HS + T) e_sim += 1.0f - ssim;
+        if (r >= HS && r < HS + T && cx >= HS && cx < HS + T && gy < own_end) e_sim += 1.0f - ssim;
         if (WITH_GRAD) {
           float ds_da2 = a1 / denom;
           float ds_db2 = -ssim / b2;
@@ -286,30 +309,30 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
 
   float e_tps = 0.f, e_ui = 0.f, e_tc = 0.f;
   if (own_in) {
-    float uw = ui_w[opix], tw = tc_w[opix];
+    float uw = ui_w[qpix], tw = tc_w[qpix];
     float gk[2];
     for (int k = 0; k < 2; ++k) {
       float vxx, vxy, vyy;
-      tps_maps_at(v, oy, ox, k, h, w, vxx, vxy, vyy);
+      tps_maps_at(v, oy, ox, k, s, vxx, vxy, vyy);
       e_tps += vxx * vxx + 2.0f * vxy * vxy + vyy * vyy;
       float vk = v[2 * opix + k];
-      float dui = vk - ui_v[2 * opix + k];
-      float dtc = vk - tc_v[2 * opix + k];
+      float dui = vk - ui_v[2 * qpix + k];
+      float dtc = vk - tc_v[2 * qpix + k];
       e_ui += uw * (dui * dui);
       e_tc += tw * (dtc * dtc);
       if (WITH_GRAD) {
         // self-adjoint stencils of the three maps (descent.py tps_adj_*)
         float l, r_, u, d, ul, ur, dl, dr, t1, t2;
-        tps_maps_at(v, oy, ox - 1, k, h, w, l, t1, t2);
-        tps_maps_at(v, oy, ox + 1, k, h, w, r_, t1, t2);
+        tps_maps_at(v, oy, ox - 1, k, s, l, t1, t2);
+        tps_maps_at(v, oy, ox + 1, k, s, r_, t1, t2);
         float adj_xx = l - 2.0f * vxx + r_;
-        tps_maps_at(v, oy - 1, ox, k, h, w, t1, t2, u);
-        tps_maps_at(v, oy + 1, ox, k, h, w, t1, t2, d);
+        tps_maps_at(v, oy - 1, ox, k, s, t1, t2, u);
+        tps_maps_at(v, oy + 1, ox, k, s, t1, t2, d);
         float adj_yy = u - 2.0f * vyy + d;
-        tps_maps_at(v, oy - 1, ox - 1, k, h, w, t1, ul, t2);
-        tps_maps_at(v, oy - 1, ox + 1, k, h, w, t1, ur, t2);
-        tps_maps_at(v, oy + 1, ox - 1, k, h, w, t1, dl, t2);
-        tps_maps_at(v, oy + 1, ox + 1, k, h, w, t1, dr, t2);
+        tps_maps_at(v, oy - 1, ox - 1, k, s, t1, ul, t2);
+        tps_maps_at(v, oy - 1, ox + 1, k, s, t1, ur, t2);
+        tps_maps_at(v, oy + 1, ox - 1, k, s, t1, dl, t2);
+        tps_maps_at(v, oy + 1, ox + 1, k, s, t1, dr, t2);
         float adj_xy = 0.25f * (ul - ur - dl + dr);
         float g_tps = 2.0f * adj_xx + 4.0f * adj_xy + 2.0f * adj_yy;
         float g_sim = k == 0 ? gs_y : gs_x;
@@ -318,10 +341,10 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
     }
     if (WITH_GRAD) {
       float p_rest = s.ptps + s.pquad_n * (s.gamma_ui * uw + s.beta_tc * tw);
-      grad[2 * opix] = gk[0];
-      grad[2 * opix + 1] = gk[1];
-      precond[2 * opix] = s.psim_n * pc_y + p_rest + s.eps_n;
-      precond[2 * opix + 1] = s.psim_n * pc_x + p_rest + s.eps_n;
+      grad[2 * qpix] = gk[0];
+      grad[2 * qpix + 1] = gk[1];
+      precond[2 * qpix] = s.psim_n * pc_y + p_rest + s.eps_n;
+      precond[2 * qpix + 1] = s.psim_n * pc_x + p_rest + s.eps_n;
     }
   }
 
@@ -347,7 +370,9 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
 constexpr int RED = 256;
 
 // Sums the per-block partials in a fixed order and combines them into the
-// energy like pallas/sweep.py _combine_parts. out: (sim, tps, ui, tc, E).
+// energy like pallas/sweep.py _combine_parts. out: (sim, tps, ui, tc, E); a
+// row shard's E covers its own rows only, and its caller combines the raw
+// partials of all shards instead.
 __global__ void __launch_bounds__(RED)
 sweep_reduce_kernel(const float* __restrict__ partials, int n_blocks, float* __restrict__ out,
                     VmSweepScalars s) {
@@ -369,8 +394,8 @@ sweep_reduce_kernel(const float* __restrict__ partials, int n_blocks, float* __r
     __syncthreads();
   }
   if (tid == 0) {
-    float npix = (float)(s.h * s.w);
-    float npix_c = (float)(s.h * s.w * s.C);
+    float npix = (float)(s.gh * s.w);
+    float npix_c = (float)(s.gh * s.w * s.C);
     out[0] = sred[0][0];
     out[1] = sred[1][0];
     out[2] = sred[2][0];
@@ -386,7 +411,7 @@ int launch(const float* planes, const float* v_lin, const float* v, const float*
            float* precond, float* partials, float* out, const VmSweepScalars& s,
            cudaStream_t stream) {
   dim3 block(T, T);
-  dim3 grid((s.w + T - 1) / T, (s.h + T - 1) / T);
+  dim3 grid((s.w + T - 1) / T, (s.nown + T - 1) / T);
   sweep_kernel<R, WITH_GRAD><<<grid, block, 0, stream>>>(planes, v_lin, v, ui_w, ui_v, tc_w,
                                                          tc_v, grad, precond, partials, s);
   cudaError_t err = cudaGetLastError();

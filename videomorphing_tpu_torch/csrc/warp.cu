@@ -15,6 +15,12 @@
 // strict raw-coordinate tests 0 < y < h - 1. The lerps use __fadd_rn /
 // __fmul_rn so no multiply-add is contracted and each step rounds as the
 // plain PyTorch version's separate operations do.
+//
+// The halfway warp also has a row-offset form for the row-sharded solve
+// (videomorphing_tpu/parallel/spatial.py:264-273, an XLA gather there): it
+// warps ho rows starting at global row row0 of the full images, with v of
+// those rows, and writes zero planes for rows outside [0, h). Offset 0 with
+// ho = h is the whole-frame warp.
 
 #include <cuda_runtime.h>
 
@@ -71,17 +77,22 @@ __device__ __forceinline__ void warp_one(const float* __restrict__ img, float yr
 
 __global__ void halfway_warp_kernel(const float* __restrict__ i0, const float* __restrict__ i1,
                                     const float* __restrict__ v, float* __restrict__ out,
-                                    int h, int w, int C) {
+                                    int h, int w, int C, int row0, int ho) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
+  if (x >= w || y >= ho) return;
   int pix = y * w + x;
-  int hw = h * w;
+  int hw = ho * w;  // plane stride of the output
+  int gy = y + row0;
+  if (gy < 0 || gy >= h) {
+    for (int q = 0; q < 6 * C; ++q) out[(size_t)q * hw + pix] = 0.0f;
+    return;
+  }
   float vy = v[2 * pix], vx = v[2 * pix + 1];
   // plane order: w0 (C), w1 (C), dw0 (y, x per channel), dw1
-  warp_one(i0, __fsub_rn((float)y, vy), __fsub_rn((float)x, vx), h, w, C, pix, hw,
+  warp_one(i0, __fsub_rn((float)gy, vy), __fsub_rn((float)x, vx), h, w, C, pix, hw,
            out, out + (size_t)2 * C * hw);
-  warp_one(i1, __fadd_rn((float)y, vy), __fadd_rn((float)x, vx), h, w, C, pix, hw,
+  warp_one(i1, __fadd_rn((float)gy, vy), __fadd_rn((float)x, vx), h, w, C, pix, hw,
            out + (size_t)C * hw, out + (size_t)4 * C * hw);
 }
 
@@ -112,11 +123,14 @@ constexpr int SAMPLE_THREADS = 256;
 
 }  // namespace
 
+// i0, i1 (h, w, C); v (ho, w, 2) and out (6C, ho, w) for the global rows
+// [row0, row0 + ho)
 extern "C" int vm_halfway_warp(const float* i0, const float* i1, const float* v, float* out,
-                               int h, int w, int C, void* stream) {
+                               int h, int w, int C, int row0, int ho, void* stream) {
   dim3 block(BX, BY);
-  dim3 grid((w + BX - 1) / BX, (h + BY - 1) / BY);
-  halfway_warp_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(i0, i1, v, out, h, w, C);
+  dim3 grid((w + BX - 1) / BX, (ho + BY - 1) / BY);
+  halfway_warp_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(i0, i1, v, out, h, w, C, row0,
+                                                                 ho);
   return (int)cudaGetLastError();
 }
 

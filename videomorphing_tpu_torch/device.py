@@ -22,10 +22,20 @@ def require_cuda() -> torch.device:
 
 
 def as_device(device) -> torch.device:
-    """Normalize a ``device=`` argument (``None`` means the CPU)."""
+    """Normalize a ``device=`` argument; ``None`` means the first card (and
+    raises without one): the CPU runs only when asked for."""
     if device is None:
-        return torch.device("cpu")
+        return require_cuda()
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def pick_device(device, like=None) -> torch.device:
+    """Where an entry point runs: ``device`` when given, else the card of
+    ``like`` when it is a CUDA tensor, else the first card (raises without
+    one)."""
+    if device is None and isinstance(like, torch.Tensor) and like.device.type == "cuda":
+        return like.device
+    return as_device(device)

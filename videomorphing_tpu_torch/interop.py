@@ -6,7 +6,8 @@ to run the warm frame loop and the video render from the reference's flows
 and fields, and to render the layered morphs from its layered fields, so
 that each part's parity is separated from drift upstream of it (solver and
 flow). The configuration needs no conversion: ``config.py`` mirrors the
-reference's dataclasses field for field.
+reference's dataclasses field for field. Being test plumbing, the helpers
+place tensors on the CPU unless given a ``device``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from videomorphing_tpu_torch.solver.energy import LevelData, make_level_data
 def _t(x, device) -> Optional[torch.Tensor]:
     if x is None:
         return None
-    return torch.from_numpy(np.array(x, dtype=np.float32)).to(as_device(device)).contiguous()
+    dev = torch.device("cpu") if device is None else as_device(device)
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev).contiguous()
 
 
 def artifacts_from_numpy(v, b=None, device=None) -> MorphArtifacts:

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` compiles every ``csrc/*.cu`` (and nothing else) into one
-shared library with a plain C interface, bound here with ``ctypes``. The
-library is built at first use into
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC -c`` compiles every ``csrc/*.cu`` (and nothing else), one nvcc per
+source, all started together, and ``nvcc -shared`` links the objects into
+one shared library with a plain C interface, bound here with ``ctypes``.
+The library is built at first use into
 ``build/vmorph_kernels/<hash of sources>/libvmorph_kernels.so`` at the root
 of the checkout, so a changed source builds anew and an unchanged one is
 reused. A missing ``nvcc`` or a failed compile raises with the compiler's
@@ -27,7 +28,7 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "vmorph_kernels"
 LIB_NAME = "libvmorph_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -74,12 +75,29 @@ def build() -> Path:
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = out.with_name(f"{src.stem}.{os.getpid()}.o")  # nvcc links by the .o suffix
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log = ""
+    failed = None
+    for cmd, _obj, proc in jobs:
+        log += proc.communicate()[0]
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd)
+    if failed is None:
+        cmd = [nvcc, NVCC_FLAGS[0], NVCC_FLAGS[1], "-shared", "-o", str(tmp),
+               *(str(obj) for _cmd, obj, _proc in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = (proc.returncode, cmd)
+    for _cmd, obj, _proc in jobs:
+        obj.unlink(missing_ok=True)
+    if failed is not None:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{' '.join(failed[1])}\n{log}")
     (out.parent / "build.log").write_text(log)
     os.replace(tmp, out)
     return out
@@ -88,7 +106,7 @@ def build() -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
-        "vm_halfway_warp": [P, P, P, P, I, I, I, P],
+        "vm_halfway_warp": [P, P, P, P, I, I, I, I, I, P],
         "vm_bilinear_sample": [P, P, P, I, I, I, I, L, P],
         "vm_sweep_grad": [P] * 13,
         "vm_sweep_energy": [P] * 11,

@@ -6,7 +6,11 @@ template ``sweep_kernel<R, WITH_GRAD>``).
 - ``sweep_grad`` replaces ``videomorphing_tpu/pallas/sweep.py:293``
   (``_build_grad_call``, driven by ``fused_value_grad_precond_pack``);
 - ``sweep_energy`` replaces ``videomorphing_tpu/pallas/sweep.py:502``
-  (``_build_energy_call``, driven by ``fused_total_energy_pack``).
+  (``_build_energy_call``, driven by ``fused_total_energy_pack``);
+- ``sweep_grad_shard`` and ``sweep_energy_shard``, the row-shard forms of
+  the same template, replace ``fused_grad_parts_shard`` (``sweep.py:936``)
+  and ``fused_energy_parts_shard`` (``:959``), which drive the same two
+  builders with a global pixel count and an ownership plane.
 
 Both evaluate the halfway-domain energy on the warps linearized around
 ``v_lin``: ``a0 = w0 - dw0.(v - v_lin)``, ``a1 = w1 + dw1.(v - v_lin)``.
@@ -17,22 +21,33 @@ and the inputs are the warp kernel's plane stack as it comes, with no pack.
 Energy partials reduce in a fixed order (no float atomics), so reruns are
 bitwise identical.
 
+A row shard is a block of a frame's rows extended by ``halo`` real
+neighbour rows above and below (zero rows beyond the frame, as
+``parallel.halo.halo_exchange_rows`` gives them): the kernel tests rows
+against the global frame, normalizes by the global pixel count and returns
+the block's RAW partials (sim, tps, ui, tc) of its owned rows; the caller
+sums them over the blocks in block order and combines them with
+:func:`combine_parts`.
+
 Dispatch: a CPU tensor runs the plain PyTorch version (``linearized_warps``
-+ ``value_grad_precond_planes`` / ``total_energy_planes``); a CUDA tensor
-launches the kernel or raises. Launch counts: ``sweep_grad.launches`` and
-``sweep_energy.launches``.
++ ``value_grad_precond_planes`` / ``total_energy_planes``; for a shard the
+port of the reference's jnp shard branch, ``parallel/spatial.py:44-61,
+172-224``); a CUDA tensor launches the kernel or raises. Launch counts:
+``sweep_grad.launches``, ``sweep_energy.launches``,
+``sweep_grad_shard.launches`` and ``sweep_energy_shard.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import MorphParams
 from videomorphing_tpu_torch.kernels import build
 from videomorphing_tpu_torch.kernels.warp import check_cuda_input, on_cuda, stream_of
-from videomorphing_tpu_torch.ops.windows import gaussian_taps
+from videomorphing_tpu_torch.ops.windows import gaussian_taps, separable_filter
 
 TILE = 16  # output tile side of sweep_kernel (csrc/sweep.cu: T)
 MAX_RADIUS = 3  # window radii instantiated in csrc/sweep.cu
@@ -61,17 +76,31 @@ class _Scalars(ctypes.Structure):
         ("h", ctypes.c_int),
         ("w", ctypes.c_int),
         ("C", ctypes.c_int),
+        ("row0", ctypes.c_int),
+        ("gh", ctypes.c_int),
+        ("own0", ctypes.c_int),
+        ("nown", ctypes.c_int),
     ]
 
 
-def _scalars(p: MorphParams, h: int, w: int, c: int) -> _Scalars:
-    """Kernel constants, each computed in double and rounded once to
-    float32, as the reference's weakly typed Python constants are."""
-    taps = gaussian_taps(int(p.ssim_window), float(p.ssim_sigma))
-    r = (len(taps) - 1) // 2
+def _radius(p: MorphParams) -> int:
+    r = (int(p.ssim_window) - 1) // 2
     if not 1 <= r <= MAX_RADIUS:
         raise ValueError(f"sweep kernels support ssim_window 3, 5 or 7, got {p.ssim_window}")
-    npix = h * w
+    return r
+
+
+def _scalars(p: MorphParams, h: int, w: int, c: int, row0: int = 0, gh: int = 0, own0: int = 0,
+             nown: int = 0) -> _Scalars:
+    """Kernel constants, each computed in double and rounded once to
+    float32, as the reference's weakly typed Python constants are. The
+    defaults describe a whole frame; a row shard passes its block geometry
+    and every ``/npix`` uses the global ``gh * w``."""
+    taps = gaussian_taps(int(p.ssim_window), float(p.ssim_sigma))
+    r = _radius(p)
+    gh = gh or h
+    nown = nown or h
+    npix = gh * w
     s = _Scalars()
     for i, t in enumerate(taps):
         s.taps[i] = t
@@ -88,20 +117,24 @@ def _scalars(p: MorphParams, h: int, w: int, c: int) -> _Scalars:
     s.eps_n = p.precond_eps / npix
     s.gamma_ui, s.beta_tc, s.lambda_tps = p.gamma_ui, p.beta_tc, p.lambda_tps
     s.h, s.w, s.C = h, w, c
+    s.row0, s.gh, s.own0, s.nown = row0, gh, own0, nown
     return s
 
 
-def _check(planes, v_lin, v, data):
+def _check(planes, v_lin, v, data, halo: int = 0):
+    """Shapes of a (whole or shard) call: ``planes`` (6C, H, W), ``v_lin``
+    and ``v`` (H, W, 2), the data maps on the H - 2 halo owned rows."""
     c6, h, w = planes.shape
     if c6 % 6:
         raise ValueError(f"planes: expected (6C, H, W), got {tuple(planes.shape)}")
+    bh = h - 2 * halo
     check_cuda_input(planes, "planes")
     check_cuda_input(v_lin, "v_lin", (h, w, 2))
     check_cuda_input(v, "v", (h, w, 2))
-    check_cuda_input(data.ui_w, "ui_w", (h, w, 1))
-    check_cuda_input(data.ui_v, "ui_v", (h, w, 2))
-    check_cuda_input(data.tc_w, "tc_w", (h, w, 1))
-    check_cuda_input(data.tc_v, "tc_v", (h, w, 2))
+    check_cuda_input(data.ui_w, "ui_w", (bh, w, 1))
+    check_cuda_input(data.ui_v, "ui_v", (bh, w, 2))
+    check_cuda_input(data.tc_w, "tc_w", (bh, w, 1))
+    check_cuda_input(data.tc_v, "tc_v", (bh, w, 2))
     return h, w, c6 // 6
 
 
@@ -137,29 +170,48 @@ def sweep_energy_plain(planes, v_lin, v, data, p: MorphParams):
     return total_energy_planes(w0e, w1e, v, data, p)
 
 
+def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int = 0, gh: int = 0,
+            halo: int = 0):
+    """One launch of ``sweep_kernel`` (and its reduce) on a whole frame or,
+    with ``halo`` > 0, on a row shard; returns (out (5,), grad, precond)."""
+    h, w, c = _check(planes, v_lin, v, data, halo)
+    bh = h - 2 * halo
+    s = _scalars(p, h, w, c, row0, gh or h, halo, bh)
+    dev = v.device
+    partials = torch.empty((_n_blocks(bh, w), 4), dtype=torch.float32, device=dev)
+    out = torch.empty((5,), dtype=torch.float32, device=dev)
+    lib = build.load()
+    grad = precond = None
+    with torch.cuda.device(dev):
+        if with_grad:
+            grad = torch.empty((bh, w, 2), dtype=torch.float32, device=dev)
+            precond = torch.empty((bh, w, 2), dtype=torch.float32, device=dev)
+            err = lib.vm_sweep_grad(
+                planes.data_ptr(), v_lin.data_ptr(), v.data_ptr(),
+                data.ui_w.data_ptr(), data.ui_v.data_ptr(),
+                data.tc_w.data_ptr(), data.tc_v.data_ptr(),
+                grad.data_ptr(), precond.data_ptr(), partials.data_ptr(), out.data_ptr(),
+                ctypes.addressof(s), stream_of(v),
+            )
+        else:
+            err = lib.vm_sweep_energy(
+                planes.data_ptr(), v_lin.data_ptr(), v.data_ptr(),
+                data.ui_w.data_ptr(), data.ui_v.data_ptr(),
+                data.tc_w.data_ptr(), data.tc_v.data_ptr(),
+                partials.data_ptr(), out.data_ptr(),
+                ctypes.addressof(s), stream_of(v),
+            )
+    build.check(err, "vm_sweep_grad" if with_grad else "vm_sweep_energy")
+    return out, grad, precond
+
+
 def sweep_grad(planes, v_lin, v, data, p: MorphParams):
     """``(energy, grad, precond)`` at ``v`` on the warps linearized around
     ``v_lin``; ``planes`` is the (6C, H, W) stack of ``halfway_warp``.
     ``energy`` is a 0-d tensor on the input's device."""
     if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
         return sweep_grad_plain(planes, v_lin, v, data, p)
-    h, w, c = _check(planes, v_lin, v, data)
-    s = _scalars(p, h, w, c)
-    dev = v.device
-    grad = torch.empty((h, w, 2), dtype=torch.float32, device=dev)
-    precond = torch.empty((h, w, 2), dtype=torch.float32, device=dev)
-    partials = torch.empty((_n_blocks(h, w), 4), dtype=torch.float32, device=dev)
-    out = torch.empty((5,), dtype=torch.float32, device=dev)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.vm_sweep_grad(
-            planes.data_ptr(), v_lin.data_ptr(), v.data_ptr(),
-            data.ui_w.data_ptr(), data.ui_v.data_ptr(),
-            data.tc_w.data_ptr(), data.tc_v.data_ptr(),
-            grad.data_ptr(), precond.data_ptr(), partials.data_ptr(), out.data_ptr(),
-            ctypes.addressof(s), stream_of(v),
-        )
-    build.check(err, "vm_sweep_grad")
+    out, grad, precond = _launch(True, planes, v_lin, v, data, p)
     sweep_grad.launches += 1
     return out[4], grad, precond
 
@@ -171,23 +223,157 @@ def sweep_energy(planes, v_lin, v, data, p: MorphParams):
     """Total energy (0-d tensor) at ``v`` on the linearized warps."""
     if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
         return sweep_energy_plain(planes, v_lin, v, data, p)
-    h, w, c = _check(planes, v_lin, v, data)
-    s = _scalars(p, h, w, c)
-    dev = v.device
-    partials = torch.empty((_n_blocks(h, w), 4), dtype=torch.float32, device=dev)
-    out = torch.empty((5,), dtype=torch.float32, device=dev)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.vm_sweep_energy(
-            planes.data_ptr(), v_lin.data_ptr(), v.data_ptr(),
-            data.ui_w.data_ptr(), data.ui_v.data_ptr(),
-            data.tc_w.data_ptr(), data.tc_v.data_ptr(),
-            partials.data_ptr(), out.data_ptr(),
-            ctypes.addressof(s), stream_of(v),
-        )
-    build.check(err, "vm_sweep_energy")
+    out, _, _ = _launch(False, planes, v_lin, v, data, p)
     sweep_energy.launches += 1
     return out[4]
 
 
 sweep_energy.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# row-shard forms (the row-sharded level solve, parallel/spatial.py)
+# ---------------------------------------------------------------------------
+
+
+def shard_reach(p: MorphParams) -> int:
+    """Neighbour rows a shard needs above and below its owned rows: the
+    linearized warps' 2R (statistics R plus the transposed sums R) and the
+    TPS adjoint's 2."""
+    return max(2 * _radius(p), 2)
+
+
+def combine_parts(parts, p: MorphParams, npix: int, c: int) -> np.float32:
+    """The total energy from raw partials (sim, tps, ui, tc) summed over all
+    shards, in float32 as the reference's ``combine_energy_parts``."""
+    ps = np.asarray(parts, dtype=np.float32).reshape(4)
+    f = np.float32
+    return (ps[0] / f(npix * c) + f(p.lambda_tps) * ps[1] / f(npix)
+            + f(p.gamma_ui) * ps[2] / f(npix) + f(p.beta_tc) * ps[3] / f(npix))
+
+
+def _masked_tps_maps(v_ext: torch.Tensor, vld_rows: torch.Tensor):
+    """Second-difference maps of an extended block, zero where the stencil
+    crosses the frame's top or bottom (``vld_rows`` (He, 1, 1) is the
+    in-frame row indicator); port of ``spatial._masked_tps_maps``."""
+    from videomorphing_tpu_torch.solver.energy import tps_maps
+
+    vxx, vxy, vyy = tps_maps(v_ext)
+    ok_y = torch.zeros_like(vld_rows)
+    ok_y[1:-1] = vld_rows[:-2] * vld_rows[1:-1] * vld_rows[2:]
+    return vxx * vld_rows, vxy * ok_y, vyy * ok_y
+
+
+def _shard_plain(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int, gh: int, halo: int):
+    """Plain version of the shard forms: the reference's jnp shard branch
+    (``masked_energy``, ``value_grad_precond``) on the extended block,
+    returning raw partials like the kernel."""
+    from videomorphing_tpu_torch.kernels.warp import bundle_from_planes
+    from videomorphing_tpu_torch.ops.ssim import dssim_grad_bundle
+    from videomorphing_tpu_torch.solver.descent import (
+        WarpBundle,
+        linearized_warps,
+        tps_adj_xx,
+        tps_adj_xy,
+        tps_adj_yy,
+    )
+
+    he, w = v.shape[0], v.shape[1]
+    c = planes.shape[0] // 6
+    npix = gh * w
+    crop = lambda a: a[halo:he - halo]
+    w0, dw0, w1, dw1 = bundle_from_planes(planes)
+    w0e, w1e = linearized_warps(WarpBundle(v_lin, w0, dw0, w1, dw1), v)
+    ys = torch.arange(row0, row0 + he, device=v.device)
+    vld_rows = ((ys >= 0) & (ys < gh)).to(v.dtype)[:, None, None]
+    vld = vld_rows.expand(he, w, 1)
+    bundle = dssim_grad_bundle(
+        w0e, w1e, window=p.ssim_window, sigma=p.ssim_sigma,
+        c1=p.ssim_c1, c2=p.ssim_c2, use_luminance=p.ssim_use_luminance, valid=vld,
+    )
+    vxx, vxy, vyy = _masked_tps_maps(v, vld_rows)
+    tmap = torch.sum(vxx * vxx + 2.0 * vxy * vxy + vyy * vyy, dim=-1)
+    v_in = crop(v)
+    d_ui = v_in - data.ui_v
+    d_tc = v_in - data.tc_v
+    parts = torch.stack([
+        torch.sum(crop(bundle.dmap)) * c,
+        torch.sum(crop(tmap)),
+        torch.sum(data.ui_w * torch.sum(d_ui * d_ui, -1, keepdim=True)),
+        torch.sum(data.tc_w * torch.sum(d_tc * d_tc, -1, keepdim=True)),
+    ])
+    if not with_grad:
+        return parts
+    # the bundle normalizes by the extended block's size; rescale to global
+    rescale = (he * w * c) / (npix * c)
+    g0 = bundle.g0 * rescale
+    g1 = bundle.g1 * rescale
+    g_sim = -(g0[..., None] * dw0).sum(2) + (g1[..., None] * dw1).sum(2)
+    lam_n = p.lambda_tps / npix
+    g_tps = lam_n * (2.0 * tps_adj_xx(vxx) + 4.0 * tps_adj_xy(vxy) + 2.0 * tps_adj_yy(vyy))
+    grad = crop(g_sim + g_tps)
+    grad = grad + (2.0 * p.gamma_ui / npix) * data.ui_w * d_ui
+    grad = grad + (2.0 * p.beta_tc / npix) * data.tc_w * d_tc
+
+    k = gaussian_taps(int(p.ssim_window), float(p.ssim_sigma))
+    inv_b2 = vld / bundle.b2
+    curv_y = torch.sum((dw0[..., 0] ** 2 + dw1[..., 0] ** 2) * inv_b2, dim=-1)
+    curv_x = torch.sum((dw0[..., 1] ** 2 + dw1[..., 1] ** 2) * inv_b2, dim=-1)
+    curv = crop(separable_filter(torch.stack([curv_y, curv_x], dim=-1), k, k, mode="same_zero"))
+    p_sim = (2.0 / (npix * c)) * curv
+    p_quad = (2.0 / npix) * (p.gamma_ui * data.ui_w + p.beta_tc * data.tc_w)
+    precond = p_sim + lam_n * 25.0 + p_quad + p.precond_eps / npix
+    return parts, grad, precond
+
+
+def sweep_grad_shard_plain(planes, v_lin, v, data, p: MorphParams, row0: int, gh: int, halo: int):
+    """Plain version of kernel 1's shard form."""
+    return _shard_plain(True, planes, v_lin, v, data, p, row0, gh, halo)
+
+
+def sweep_energy_shard_plain(planes, v_lin, v, data, p: MorphParams, row0: int, gh: int, halo: int):
+    """Plain version of kernel 2's shard form."""
+    return _shard_plain(False, planes, v_lin, v, data, p, row0, gh, halo)
+
+
+def _check_shard(p: MorphParams, v, row0: int, gh: int, halo: int) -> None:
+    if halo < shard_reach(p) or v.shape[0] <= 2 * halo:
+        raise ValueError(
+            f"row shard of {v.shape[0]} rows with halo {halo}: need halo >= {shard_reach(p)} "
+            "and at least one owned row"
+        )
+    if not (row0 + halo >= 0 and row0 + v.shape[0] - halo <= gh):
+        raise ValueError(f"owned rows from {row0 + halo} leave the frame of {gh} rows")
+
+
+def sweep_grad_shard(planes, v_lin, v, data, p: MorphParams, row0: int, gh: int, halo: int):
+    """Kernel 1 on one row shard: ``(parts (4,), grad, precond)``.
+
+    ``planes`` (6C, He, W), ``v_lin`` and ``v`` (He, W, 2) cover the block
+    extended by ``halo`` rows above and below (``halfway_warp_rows`` at
+    ``row0``, the global row of the extended block's first row); ``data``
+    holds the owned rows' (He - 2 halo, W, .) constraint maps; ``gh`` is the
+    frame's height. ``grad``/``precond`` cover the owned rows, normalized by
+    the global pixel count; ``parts`` are the owned rows' raw partials."""
+    _check_shard(p, v, row0, gh, halo)
+    if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
+        return sweep_grad_shard_plain(planes, v_lin, v, data, p, row0, gh, halo)
+    out, grad, precond = _launch(True, planes, v_lin, v, data, p, row0, gh, halo)
+    sweep_grad_shard.launches += 1
+    return out[:4], grad, precond
+
+
+sweep_grad_shard.launches = 0
+
+
+def sweep_energy_shard(planes, v_lin, v, data, p: MorphParams, row0: int, gh: int, halo: int):
+    """Kernel 2 on one row shard: the owned rows' raw partials (4,)."""
+    _check_shard(p, v, row0, gh, halo)
+    if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
+        return sweep_energy_shard_plain(planes, v_lin, v, data, p, row0, gh, halo)
+    out, _, _ = _launch(False, planes, v_lin, v, data, p, row0, gh, halo)
+    sweep_energy_shard.launches += 1
+    return out[:4]
+
+
+sweep_energy_shard.launches = 0

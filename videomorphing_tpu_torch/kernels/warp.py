@@ -4,6 +4,9 @@ Source: ``csrc/warp.cu`` (``vm_halfway_warp``, ``vm_bilinear_sample``).
 
 - ``halfway_warp`` replaces ``videomorphing_tpu/pallas/warp.py:206``
   (``_build_warp_call``, driven by ``fused_warp_planes``);
+  ``halfway_warp_rows``, its row-offset form, replaces the XLA gather of
+  the row-sharded solve (``videomorphing_tpu/parallel/spatial.py:264-273``):
+  a block of rows of the full frames, with zero planes outside the frame;
 - ``bilinear_sample`` and ``bilinear_sample_batched`` replace
   ``videomorphing_tpu/pallas/warp.py:311`` (``_build_sample_call``, driven
   by ``fused_sample``); both launch one kernel, the first with n = 1.
@@ -17,7 +20,8 @@ output pixel with no fit test and no fallback.
 Dispatch: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in a plain
 integer attribute (``halfway_warp.launches``, ``bilinear_sample.launches``,
-``bilinear_sample_batched.launches``).
+``bilinear_sample_batched.launches``); the row-offset form counts only
+under ``halfway_warp_rows.launches``.
 """
 
 from __future__ import annotations
@@ -89,28 +93,63 @@ def halfway_warp_plain(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor) -> t
     return planes_from_bundle(w0, dw0, w1, dw1)
 
 
+def _launch_warp(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor, row0: int) -> torch.Tensor:
+    """Kernel 3 on the ``v.shape[0]`` rows from global row ``row0``."""
+    h, w, c = i0.shape
+    ho = v.shape[0]
+    check_cuda_input(i0, "i0")
+    check_cuda_input(i1, "i1", (h, w, c))
+    check_cuda_input(v, "v", (ho, w, 2))
+    out = torch.empty((6 * c, ho, w), dtype=torch.float32, device=v.device)
+    lib = build.load()
+    with torch.cuda.device(v.device):
+        err = lib.vm_halfway_warp(
+            i0.data_ptr(), i1.data_ptr(), v.data_ptr(), out.data_ptr(), h, w, c, row0, ho, stream_of(v)
+        )
+    build.check(err, "vm_halfway_warp")
+    return out
+
+
 def halfway_warp(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Both halfway warps ``I0(p - v)``, ``I1(p + v)`` and their exact
     interpolant derivatives as one (6C, H, W) plane stack, in the order of
     the reference's ``fused_warp_planes``; the sweep kernels read it as is."""
     if not on_cuda(i0, i1, v):
         return halfway_warp_plain(i0, i1, v)
-    h, w, c = i0.shape
-    check_cuda_input(i0, "i0")
-    check_cuda_input(i1, "i1", (h, w, c))
-    check_cuda_input(v, "v", (h, w, 2))
-    out = torch.empty((6 * c, h, w), dtype=torch.float32, device=v.device)
-    lib = build.load()
-    with torch.cuda.device(v.device):
-        err = lib.vm_halfway_warp(
-            i0.data_ptr(), i1.data_ptr(), v.data_ptr(), out.data_ptr(), h, w, c, stream_of(v)
-        )
-    build.check(err, "vm_halfway_warp")
+    out = _launch_warp(i0, i1, v, 0)
     halfway_warp.launches += 1
     return out
 
 
 halfway_warp.launches = 0
+
+
+def halfway_warp_rows_plain(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor, row0: int) -> torch.Tensor:
+    """Plain version of kernel 3's row-offset form: the sampler at the
+    offset coordinates, times the row mask of the frame."""
+    h, w = i0.shape[0], i0.shape[1]
+    ys = torch.arange(row0, row0 + v.shape[0], dtype=v.dtype, device=v.device)
+    xs = torch.arange(w, dtype=v.dtype, device=v.device)
+    g = torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1)
+    w0, dw0 = resample.bilinear_sample_with_grad(i0, g - v)
+    w1, dw1 = resample.bilinear_sample_with_grad(i1, g + v)
+    inside = ((ys >= 0) & (ys < h)).to(v.dtype)[None, :, None]
+    return planes_from_bundle(w0, dw0, w1, dw1) * inside
+
+
+def halfway_warp_rows(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor, row0: int) -> torch.Tensor:
+    """Kernel 3 on a block of rows: the (6C, Ho, W) planes of the global
+    rows ``[row0, row0 + Ho)`` of the full frames ``i0``/``i1`` (H, W, C)
+    at the block's field ``v`` (Ho, W, 2); rows outside ``[0, H)`` are zero
+    planes. ``row0 = 0`` with ``Ho = H`` is :func:`halfway_warp`."""
+    if not on_cuda(i0, i1, v):
+        return halfway_warp_rows_plain(i0, i1, v, row0)
+    out = _launch_warp(i0, i1, v, int(row0))
+    halfway_warp_rows.launches += 1
+    return out
+
+
+halfway_warp_rows.launches = 0
 
 
 MAX_BATCH = 65535  # the launch grid's y extent: one grid row per image

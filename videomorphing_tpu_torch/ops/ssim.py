@@ -4,7 +4,9 @@ Port of ``videomorphing_tpu/ops/ssim.py`` (the data term E_SIM of [TOG14]
 section 3.1). Windowed sums use zero padding plus the normalization map
 ``n = wsum(1)``, so border pixels get unbiased statistics. The analytic
 backward here is the plain version of what the sweep kernel
-(``csrc/sweep.cu``) fuses into one pass.
+(``csrc/sweep.cu``) fuses into one pass. ``valid=`` (an (H, W, 1) mask of
+in-frame pixels) serves the row-sharded solve: a block extended by zero
+rows beyond the frame plus this mask gives the frame's window sums.
 """
 
 from __future__ import annotations
@@ -20,10 +22,17 @@ def _wsum(x: torch.Tensor, taps) -> torch.Tensor:
     return separable_filter(x, taps, taps, mode="same_zero")
 
 
-def ssim_parts(w0: torch.Tensor, w1: torch.Tensor, window: int = 5, sigma: float = 1.0) -> Dict[str, torch.Tensor]:
-    """Windowed SSIM statistics of two (H, W, C) images."""
+def ssim_parts(
+    w0: torch.Tensor, w1: torch.Tensor, window: int = 5, sigma: float = 1.0, valid=None
+) -> Dict[str, torch.Tensor]:
+    """Windowed SSIM statistics of two (H, W, C) images; with ``valid``
+    (H, W, 1) the images are masked to it and ``n`` is its window sum."""
     k = gaussian_taps(int(window), float(sigma))
-    valid = w0.new_ones(w0.shape[:2] + (1,))
+    if valid is None:
+        valid = w0.new_ones(w0.shape[:2] + (1,))
+    else:
+        w0 = w0 * valid
+        w1 = w1 * valid
     n = _wsum(valid, k)
     inv_n = torch.where(n > 1e-8, 1.0 / torch.clamp(n, min=1e-8), torch.zeros_like(n))
     mu0 = _wsum(w0, k) * inv_n
@@ -75,6 +84,7 @@ def dssim_grad_bundle(
     c1: float = 1e-4,
     c2: float = 9e-4,
     use_luminance: bool = True,
+    valid=None,
 ) -> DssimGradBundle:
     """Value, analytic gradients and curvature scale in one pass.
 
@@ -84,11 +94,16 @@ def dssim_grad_bundle(
         dE/dw0 = wsum((c_mu - 2 mu0 c_var - mu1 c_cov)/n)
                  + 2 w0 wsum(c_var/n) + w1 wsum(c_cov/n),
 
-    and symmetrically for w1.
+    and symmetrically for w1. With ``valid``, window centres outside it add
+    nothing (their 1/n is zeroed) and the energy and map count only valid
+    pixels, normalized by the full H W C as the reference's.
     """
     h, w, c = w0.shape
     k = gaussian_taps(int(window), float(sigma))
-    parts = ssim_parts(w0, w1, window, sigma)
+    parts = ssim_parts(w0, w1, window, sigma, valid)
+    if valid is not None:
+        w0 = w0 * valid
+        w1 = w1 * valid
     mu0, mu1 = parts["mu0"], parts["mu1"]
     var0, var1, cov, n = parts["var0"], parts["var1"], parts["cov"], parts["n"]
 
@@ -102,7 +117,8 @@ def dssim_grad_bundle(
         b1 = torch.ones_like(a2)
     denom = b1 * b2
     s = (a1 * a2) / denom
-    energy = torch.mean(1.0 - s)
+    vmask = 1.0 if valid is None else valid
+    energy = torch.mean((1.0 - s) * vmask)
 
     ds_da2 = a1 / denom
     ds_db2 = -s / b2
@@ -118,7 +134,10 @@ def dssim_grad_bundle(
     c_cov = ds_da2 * 2.0
 
     scale = -1.0 / (h * w * c)
-    inv_n = 1.0 / n
+    if valid is None:
+        inv_n = 1.0 / n
+    else:
+        inv_n = torch.where(n > 1e-8, 1.0 / torch.clamp(n, min=1e-8), torch.zeros_like(n)) * valid
 
     def grad_one(c_mu_a, mu_a, mu_b, w_a, w_b):
         t0 = _wsum(scale * (c_mu_a - 2.0 * mu_a * c_var - mu_b * c_cov) * inv_n, k)
@@ -128,5 +147,5 @@ def dssim_grad_bundle(
 
     g0 = grad_one(c_mu0, mu0, mu1, w0, w1)
     g1 = grad_one(c_mu1, mu1, mu0, w1, w0)
-    dmap = torch.mean(1.0 - s, dim=-1)
+    dmap = torch.mean((1.0 - s) * vmask, dim=-1)
     return DssimGradBundle(energy, g0, g1, dmap, b2)

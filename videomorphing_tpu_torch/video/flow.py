@@ -256,6 +256,20 @@ def flow_pair_bidir(
     return u[:, :, 0], u[:, :, 1]
 
 
+def _pair_flows(clip: torch.Tensor, pairs: List[int], vp: VideoParams) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both flows of the consecutive-frame pairs ``t -> t+1`` for t in
+    ``pairs`` (ascending) of (T, H, W, C), as one batch: ``(fwd, bwd)``,
+    each (len(pairs), H, W, 2). Only the frames the pairs touch are
+    shrunk and pyramided."""
+    lo = pairs[0]
+    frames = clip[lo:pairs[-1] + 2]
+    src = [t - lo for t in pairs] + [t + 1 - lo for t in pairs]
+    dst = [t + 1 - lo for t in pairs] + [t - lo for t in pairs]
+    n = len(pairs)
+    u = _solve_frames(frames.permute(1, 2, 0, 3), (src, dst), vp).permute(2, 0, 1, 3)
+    return u[:n].contiguous(), u[n:].contiguous()
+
+
 def clip_flows(clip: torch.Tensor, vp: VideoParams = VideoParams()) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward and backward flows between consecutive frames of (T, H, W, C).
 
@@ -263,8 +277,27 @@ def clip_flows(clip: torch.Tensor, vp: VideoParams = VideoParams()) -> Tuple[tor
     t+1 (sampled at t), ``bwd[t]`` maps frame t+1 back to t. All 2(T-1)
     problems run as one batch.
     """
+    return _pair_flows(clip, list(range(clip.shape[0] - 1)), vp)
+
+
+def clip_flows_sharded(
+    clip: torch.Tensor, vp: VideoParams, mesh, axis: str = "batch"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`clip_flows` with the T-1 frame pairs split over the mesh:
+    each device solves its contiguous share as one batch. The pairs pad to a
+    multiple of the axis size by repeating the last pair, as the
+    reference's; the results gather on the clip's device and are trimmed."""
+    from videomorphing_tpu_torch.parallel.frames import shares
+    from videomorphing_tpu_torch.parallel.mesh import as_mesh
+
+    devs = as_mesh(mesh).axis_devices(axis)
     n = clip.shape[0] - 1
-    src = list(range(n)) + list(range(1, n + 1))
-    dst = list(range(1, n + 1)) + list(range(n))
-    u = _solve_frames(clip.permute(1, 2, 0, 3), (src, dst), vp).permute(2, 0, 1, 3)
-    return u[:n].contiguous(), u[n:].contiguous()
+    n_pad = n + (-n) % len(devs)
+    fwd, bwd = [], []
+    for dev, sl in zip(devs, shares(n_pad, len(devs))):
+        pairs = [min(t, n - 1) for t in range(sl.start, sl.stop)]
+        lo = pairs[0]
+        f, b = _pair_flows(clip[lo:pairs[-1] + 2].to(dev), [t - lo for t in pairs], vp)
+        fwd.append(f.to(clip.device))
+        bwd.append(b.to(clip.device))
+    return torch.cat(fwd, 0)[:n].contiguous(), torch.cat(bwd, 0)[:n].contiguous()

@@ -27,7 +27,6 @@ from videomorphing_tpu_torch.utils.profiling import phase_scope
 from videomorphing_tpu_torch.video.pipeline import (
     _clip_confidences,
     _default_times,
-    _no_mesh,
     clip_bulges,
     render_video,
     solve_clip_fields,
@@ -65,16 +64,16 @@ def solve_clip_fields_layered(
     """Background and per-layer halfway fields of a clip pair:
     ``(fields_bg, fields_layers, flows)``. ``flows`` are the FULL clips'
     flows (the render's occlusion confidences read them); the flows of the
-    neutralized clips are dropped."""
-    _no_mesh(mesh)
+    neutralized clips are dropped. A ``mesh`` serves every solve (the
+    background's and each layer's), as the reference's."""
     t_len = clip_a.shape[0]
-    fields_bg, _tracked, flows = solve_clip_fields(clip_a, clip_b, points, mp, vp)
+    fields_bg, _tracked, flows = solve_clip_fields(clip_a, clip_b, points, mp, vp, mesh=mesh)
     fields_layers = []
     for layer in layers:
         with phase_scope("layer_solve"):
             na = neutralize(clip_a, _masks_t(layer.mask0, t_len))
             nb = neutralize(clip_b, _masks_t(layer.mask1, t_len))
-            f, _, _ = solve_clip_fields(na, nb, layer.points, mp, vp)
+            f, _, _ = solve_clip_fields(na, nb, layer.points, mp, vp, mesh=mesh)
             del na, nb
         fields_layers.append(f)
     return fields_bg, tuple(fields_layers), flows
@@ -139,9 +138,10 @@ def morph_clips_layered(
     vp: VideoParams = VideoParams(),
     mesh=None,
 ) -> LayeredVideoResult:
-    """End-to-end layered video morph -> (T, H, W, C) composite frames."""
-    _no_mesh(mesh)
-    fields_bg, fields_layers, flows = solve_clip_fields_layered(clip_a, clip_b, layers, points, mp, vp)
+    """End-to-end layered video morph -> (T, H, W, C) composite frames; the
+    ``mesh`` serves the solves (the composite renders on one device, as the
+    reference's)."""
+    fields_bg, fields_layers, flows = solve_clip_fields_layered(clip_a, clip_b, layers, points, mp, vp, mesh)
     frames = render_clips_layered(
         clip_a, clip_b, layers, fields_bg, fields_layers, flows, times=times, sp=sp, vp=vp
     )

@@ -13,8 +13,12 @@ Stages, each a ``utils.profiling.phase_scope``: ``flows``, ``tracking``,
 ``cold_solve``, ``warm_loop`` (the loop's per-frame iteration counts are
 noted as ``warm_iters``), ``bulges``, ``confidences`` and ``render``.
 
-The multi-device paths (``mesh``) wait for ROADMAP queue 1 item 16: a
-``mesh`` other than None raises ``NotImplementedError``.
+With a 1-D ``mesh`` (``parallel.mesh.Mesh``) of more than one device the
+flows split their frame pairs over it (``flow.clip_flows_sharded``), the
+solve runs one frame block per device (``parallel.video_blocks``; a clip
+that does not divide pads with repeats of its last frame and is trimmed)
+and the render splits its frames (``parallel.frames``), as the
+reference's.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from videomorphing_tpu_torch.solver.energy import make_level_data
 from videomorphing_tpu_torch.synth.paths import bulge_field
 from videomorphing_tpu_torch.synth.render import render_frame
 from videomorphing_tpu_torch.utils.profiling import note, phase_scope
-from videomorphing_tpu_torch.video.flow import clip_flows
+from videomorphing_tpu_torch.video.flow import clip_flows, clip_flows_sharded
 from videomorphing_tpu_torch.video.occlusion import occlusion_confidence
 from videomorphing_tpu_torch.video.temporal import advect_halfway_field, track_keyframe_points
 
@@ -47,11 +51,13 @@ class VideoResult(NamedTuple):
     solve_iters: Optional[int] = None         # optimizer iterations, cold + warm
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the multi-device video paths are not ported yet (ROADMAP queue 1 item 16)"
-        )
+def _mesh_size(mesh, axis: str) -> int:
+    """Devices on ``axis`` of ``mesh`` (1 without a mesh)."""
+    if mesh is None:
+        return 1
+    from videomorphing_tpu_torch.parallel.mesh import as_mesh
+
+    return int(as_mesh(mesh).shape[axis])
 
 
 def warm_level_count(hw: Tuple[int, int], vp: VideoParams) -> int:
@@ -145,15 +151,26 @@ def _keyframes(points, dtype, device):
     return [0], torch.as_tensor(points, dtype=dtype, device=device)[None]
 
 
-def _flows_and_tracks(clip_a, clip_b, points, vp):
+def _clip_pair_flows(clip_a, clip_b, vp, mesh=None, mesh_axis: str = "batch") -> dict:
+    """Both clips' fwd/bwd flows, their frame pairs split over a mesh of
+    more than one device (and more than one pair)."""
     with phase_scope("flows"):
-        fa_fwd, fa_bwd = clip_flows(clip_a, vp)
-        fb_fwd, fb_bwd = clip_flows(clip_b, vp)
-    flows = dict(fa_fwd=fa_fwd, fa_bwd=fa_bwd, fb_fwd=fb_fwd, fb_bwd=fb_bwd)
+        if _mesh_size(mesh, mesh_axis) > 1 and clip_a.shape[0] > 2:
+            fa_fwd, fa_bwd = clip_flows_sharded(clip_a, vp, mesh, mesh_axis)
+            fb_fwd, fb_bwd = clip_flows_sharded(clip_b, vp, mesh, mesh_axis)
+        else:
+            fa_fwd, fa_bwd = clip_flows(clip_a, vp)
+            fb_fwd, fb_bwd = clip_flows(clip_b, vp)
+    return dict(fa_fwd=fa_fwd, fa_bwd=fa_bwd, fb_fwd=fb_fwd, fb_bwd=fb_bwd)
+
+
+def _flows_and_tracks(clip_a, clip_b, points, vp, mesh=None, mesh_axis: str = "batch"):
+    flows = _clip_pair_flows(clip_a, clip_b, vp, mesh, mesh_axis)
     with phase_scope("tracking"):
         key_idx, key_pts = _keyframes(points, clip_a.dtype, clip_a.device)
         tracked = track_keyframe_points(
-            clip_a.shape[0], key_idx, key_pts, fa_fwd, fa_bwd, fb_fwd, fb_bwd
+            clip_a.shape[0], key_idx, key_pts,
+            flows["fa_fwd"], flows["fa_bwd"], flows["fb_fwd"], flows["fb_bwd"],
         )
     return flows, tracked
 
@@ -174,11 +191,32 @@ def solve_clip_fields(
     keyframe mapping ``{frame_idx: (N, 2, 2)}`` with the same N identities
     on every keyframe. Returns ``(fields (T, H, W, 2), tracked (T, N, 2,
     2), flows)`` with ``flows`` the dict of per-clip fwd/bwd flows, plus the
-    total optimizer iterations when ``return_stats``.
+    total optimizer iterations when ``return_stats`` (on the blocked path
+    every block's cold head and warm frames, padded repeats included).
     """
-    _no_mesh(mesh)
     t_len, h, w = clip_a.shape[0], clip_a.shape[1], clip_a.shape[2]
-    flows, tracked = _flows_and_tracks(clip_a, clip_b, points, vp)
+    n_dev = _mesh_size(mesh, mesh_axis)
+    flows, tracked = _flows_and_tracks(clip_a, clip_b, points, vp, mesh, mesh_axis)
+
+    if n_dev > 1 and t_len > 1:
+        from videomorphing_tpu_torch.parallel.frames import pad_to_multiple
+        from videomorphing_tpu_torch.parallel.video_blocks import solve_clip_fields_blocked
+
+        # repeats of the last frame, with zero flow between them
+        pad = (-t_len) % n_dev
+        pad_frames = lambda x: pad_to_multiple(x, n_dev)[0]
+
+        def pad_flows(f):
+            return torch.cat([f, f.new_zeros((pad,) + tuple(f.shape[1:]))], 0) if pad else f
+
+        fields, iters = solve_clip_fields_blocked(
+            pad_frames(clip_a), pad_frames(clip_b), pad_frames(tracked),
+            {k: pad_flows(f) for k, f in flows.items()}, mesh, mp, vp, mesh_axis,
+        )
+        fields = fields[:t_len]
+        if return_stats:
+            return fields, tracked, flows, iters
+        return fields, tracked, flows
 
     with phase_scope("cold_solve"):
         res0 = optimize_pair(clip_a[0], clip_b[0], points=tracked[0], params=mp)
@@ -199,12 +237,15 @@ def solve_clip_fields(
 
 
 def _clip_confidences(fwd: torch.Tensor, bwd: torch.Tensor, t_len: int, vp: VideoParams) -> torch.Tensor:
-    """Per-frame visibility confidence (T, H, W): frame t against frame
-    t+1 (one batched round trip over the T-1 pairs); the last frame reuses
-    the final pair's reverse direction."""
-    conf_mid = occlusion_confidence(fwd, bwd, vp)
-    conf_last = occlusion_confidence(bwd[-1], fwd[-1], vp)[None]
-    return torch.cat([conf_mid, conf_last], 0)
+    """Per-frame visibility confidence (t_len, H, W) of the frames that the
+    pairs ``fwd``/``bwd`` start from: frame t against frame t+1 (one
+    batched round trip over the pairs); when the pairs run out (t_len =
+    pairs + 1, a clip's last frame) that frame reuses the final pair's
+    reverse direction."""
+    conf = occlusion_confidence(fwd[:t_len], bwd[:t_len], vp)
+    if conf.shape[0] < t_len:
+        conf = torch.cat([conf, occlusion_confidence(bwd[-1], fwd[-1], vp)[None]], 0)
+    return conf
 
 
 def clip_bulges(fields: torch.Tensor, sp: SynthParams) -> torch.Tensor:
@@ -243,40 +284,77 @@ def render_video(
 
     ``flows`` (from :func:`solve_clip_fields`) are recomputed when absent
     and occlusion weighting is on. ``times``: per-frame morph time
-    (default: a linear 0 -> 1 transition across the clip).
+    (default: a linear 0 -> 1 transition across the clip). With a ``mesh``
+    each of its devices runs :func:`synthesize_frames` on its share of the
+    frames (``parallel.frames.render_video_frames_sharded``).
     """
-    _no_mesh(mesh)
     t_len = clip_a.shape[0]
-    if bulges is None and sp.quadratic_paths:
-        with phase_scope("bulges"):
-            bulges = clip_bulges(fields, sp)
-
-    frames = None
     if render:
         if times is None:
             times = _default_times(t_len, clip_a.device)
         times = np.asarray(torch.as_tensor(times).detach().cpu(), np.float32).reshape(-1)
-        need_occl = sp.occlusion_weighting and t_len > 1
-        if need_occl and flows is None:
-            with phase_scope("flows"):
-                fa_fwd, fa_bwd = clip_flows(clip_a, vp)
-                fb_fwd, fb_bwd = clip_flows(clip_b, vp)
-            flows = dict(fa_fwd=fa_fwd, fa_bwd=fa_bwd, fb_fwd=fb_fwd, fb_bwd=fb_bwd)
-        with phase_scope("confidences"):
-            if need_occl:
-                conf_a = _clip_confidences(flows["fa_fwd"], flows["fa_bwd"], t_len, vp)
-                conf_b = _clip_confidences(flows["fb_fwd"], flows["fb_bwd"], t_len, vp)
-            else:
-                conf_a = conf_b = clip_a.new_ones(clip_a.shape[:3])
-        with phase_scope("render"):
-            bl = bulges if bulges is not None else torch.zeros_like(fields)
-            frames = torch.empty_like(clip_a)
-            for t in range(t_len):
-                frames[t] = render_frame(
-                    clip_a[t], clip_b[t], fields[t], bl[t], times[t], sp,
-                    conf0=conf_a[t], conf1=conf_b[t],
-                )
+    need_occl = render and sp.occlusion_weighting and t_len > 1
+    if need_occl and flows is None:
+        flows = _clip_pair_flows(clip_a, clip_b, vp, mesh, mesh_axis)
+    occl_flows = flows if need_occl else None
+    if render and _mesh_size(mesh, mesh_axis) > 1 and t_len > 1:
+        from videomorphing_tpu_torch.parallel.frames import render_video_frames_sharded
+
+        bulges, frames = render_video_frames_sharded(
+            clip_a, clip_b, fields, times, mesh, sp, vp, mesh_axis, bulges=bulges, flows=occl_flows
+        )
+    else:
+        bulges, frames = synthesize_frames(clip_a, clip_b, fields, times, sp, vp, bulges, occl_flows, render)
     return VideoResult(fields=fields, bulges=bulges, frames=frames, tracked_points=None)
+
+
+def synthesize_frames(
+    clip_a: torch.Tensor,
+    clip_b: torch.Tensor,
+    fields: torch.Tensor,
+    times,
+    sp: SynthParams,
+    vp: VideoParams,
+    bulges: Optional[torch.Tensor] = None,
+    flows: Optional[dict] = None,
+    render: bool = True,
+    share: slice = slice(None),
+    device=None,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The synthesis of the clip's frames ``share`` on ``device`` (default:
+    all frames, on the clip's device): their bulges (as given, else computed
+    when ``sp.quadratic_paths``), their occlusion confidences from the
+    clip's ``flows`` (None: no occlusion weighting) and, when ``render``,
+    the frames at ``times`` (numpy, one per clip frame). Returns
+    ``(bulges, frames)`` of the share, on ``device``."""
+    t_len = clip_a.shape[0]
+    s, e, _ = share.indices(t_len)
+    dev = clip_a.device if device is None else torch.device(device)
+    put = lambda x: x[s:e].to(dev)
+    a, b, v = put(clip_a), put(clip_b), put(fields)
+    if bulges is not None:
+        bulges = put(bulges)
+    elif sp.quadratic_paths:
+        with phase_scope("bulges"):
+            bulges = clip_bulges(v, sp)
+    if not render:
+        return bulges, None
+    with phase_scope("confidences"):
+        if flows is not None:
+            lo = min(s, t_len - 2)  # the clip's last frame reads the final pair
+            f = {k: x[lo:e].to(dev) for k, x in flows.items()}
+            conf_a = _clip_confidences(f["fa_fwd"], f["fa_bwd"], e - lo, vp)[s - lo:]
+            conf_b = _clip_confidences(f["fb_fwd"], f["fb_bwd"], e - lo, vp)[s - lo:]
+        else:
+            conf_a = conf_b = a.new_ones(a.shape[:3])
+    with phase_scope("render"):
+        bl = bulges if bulges is not None else torch.zeros_like(v)
+        frames = torch.empty_like(a)
+        for t in range(e - s):
+            frames[t] = render_frame(
+                a[t], b[t], v[t], bl[t], times[s + t], sp, conf0=conf_a[t], conf1=conf_b[t],
+            )
+    return bulges, frames
 
 
 def morph_video(
@@ -290,12 +368,15 @@ def morph_video(
     render: bool = True,
     mesh=None,
 ) -> VideoResult:
-    """Full video morph: solve fields, bend paths, render the transition."""
-    _no_mesh(mesh)
+    """Full video morph: solve fields, bend paths, render the transition;
+    a 1-D ``mesh`` spreads the flows, frame blocks and render over its
+    devices."""
     fields, tracked, flows, iters = solve_clip_fields(
-        clip_a, clip_b, points, mp, vp, return_stats=True
+        clip_a, clip_b, points, mp, vp, mesh=mesh, return_stats=True
     )
-    res = render_video(clip_a, clip_b, fields, times=times, sp=sp, vp=vp, flows=flows, render=render)
+    res = render_video(
+        clip_a, clip_b, fields, times=times, sp=sp, vp=vp, flows=flows, render=render, mesh=mesh
+    )
     return res._replace(tracked_points=tracked, solve_iters=iters)
 
 
