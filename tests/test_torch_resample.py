@@ -139,8 +139,9 @@ def test_sampler_plain_matches_reference(c):
 
 @pytest.mark.parametrize(
     "img_shape,co_shape",
-    [((12, 9), (5, 6)), ((12, 9, 3), (4,)), ((12, 9), (0,)), ((12, 9, 2), (7, 5)), ((12, 9, 3), (2, 3, 4))],
-    ids=["2d-image", "points-n4", "points-n0", "map", "3d-coords"],
+    [((12, 9), (5, 6)), ((12, 9, 3), (4,)), ((12, 9), (0,)), ((12, 9, 2), (7, 5)), ((12, 9, 3), (2, 3, 4)),
+     ((12, 9, 5), (7, 5))],
+    ids=["2d-image", "points-n4", "points-n0", "map", "3d-coords", "c5-map"],
 )
 def test_sampler_shape_contract(img_shape, co_shape):
     """Kernel 4's wrapper takes what ``resample.bilinear_sample`` takes: an
@@ -194,3 +195,55 @@ def test_batched_sampler_plain_matches_per_image(c):
         assert torch.equal(got[k], kw.bilinear_sample(_t(imgs[k]), _t(co[k])))
         assert _maxabs(jr.bilinear_sample(jnp.asarray(imgs[k]), jnp.asarray(co[k])), got[k]) <= ATOL
     assert kw.bilinear_sample_batched.launches == 0
+
+
+# (C, n, M, image, coordinate and output byte offsets from a 16-byte
+# boundary) -> whether kernel 4 takes its vector instantiation; the scalar
+# instantiation of the same C (the generic one for C = 5) otherwise
+VECTOR_CHOICES = [
+    (1, 1, 1000, 0, 0, 0, True),
+    (1, 1, 999, 4, 0, 0, True),       # a grey image needs 4-byte alignment only; M may be odd with n = 1
+    (1, 1, 1000, 0, 8, 0, False),     # two coordinate pairs per float4
+    (1, 1, 1000, 0, 0, 4, False),     # four outputs per float4
+    (1, 58, 518400, 0, 0, 0, True),   # the flow warps' batch
+    (1, 3, 1002, 0, 0, 0, False),     # image k's coordinates start unaligned
+    (2, 1, 1000, 8, 0, 0, True),      # corners as float2
+    (2, 1, 1000, 4, 0, 0, False),
+    (2, 29, 1001, 0, 0, 0, False),
+    (2, 29, 1002, 0, 0, 0, True),
+    (3, 2, 2073600, 4, 0, 0, True),   # the render's colour samples
+    (3, 2, 2073602, 0, 0, 0, False),
+    (3, 1, 7, 0, 4, 0, False),
+    (4, 1, 1048576, 0, 0, 0, True),   # the path inversion's stacked [disp, v]
+    (4, 1, 1048576, 8, 0, 0, False),  # corners as float4
+    (4, 3, 7, 0, 8, 0, True),         # one coordinate pair per float2
+    (4, 1, 7, 0, 4, 0, False),
+    (4, 1, 7, 0, 0, 8, False),
+    (5, 1, 1000, 0, 0, 0, False),     # no vector form beyond C = 4
+    (6, 2, 1000, 0, 0, 0, False),
+]
+
+
+@pytest.mark.parametrize("c,n,m,img_off,co_off,out_off,vector", VECTOR_CHOICES)
+def test_sampler_instantiation_choice(c, n, m, img_off, co_off, out_off, vector):
+    """Kernel 4's wrapper picks the vector instantiation from C, the batch
+    and the pointers' alignment alone (a pure function, here on the CPU)."""
+    base = 1 << 20
+    assert kw.sample_vectorized(c, n, m, base + img_off, base + 64 + co_off, base + 128 + out_off) is vector
+
+
+def test_sampler_views_with_a_storage_offset():
+    """A contiguous view one float into its storage (as one image of a
+    stack can be) is misaligned for the vector loads; the wrapper's choice
+    sees it, and the plain path is unaffected by the offset."""
+    rng = np.random.default_rng(40)
+    img = _t(rng.random((9, 11, 4), dtype=np.float32))
+    co = _t(_coords(rng, 9, 11, (6, 7)))
+    buf = torch.empty(img.numel() + 1)
+    view = buf[1:].view(img.shape)
+    view.copy_(img)
+    assert view.is_contiguous() and view.data_ptr() % 16 == (img.data_ptr() + 4) % 16 == 4
+    assert kw.sample_vectorized(4, 1, 42, img.data_ptr(), co.data_ptr(), 0)
+    assert not kw.sample_vectorized(4, 1, 42, view.data_ptr(), co.data_ptr(), 0)
+    assert torch.equal(kw.bilinear_sample(view, co), kw.bilinear_sample(img, co))
+    assert kw.bilinear_sample.launches == 0

@@ -100,3 +100,34 @@ def test_sweep_exact_at_linearization_point():
     planes = kw.halfway_warp(data.i0, data.i1, v)
     e = float(ks.sweep_energy(planes, v, v, data, MorphParams()))
     assert abs(e - float(total_energy(v, data, MorphParams()))) <= 1e-6 * abs(e)
+
+
+def test_sweep_tile_comes_from_the_source():
+    """The tile that sizes the partials is the one ``csrc/sweep.cu`` sets."""
+    import re
+
+    from videomorphing_tpu_torch.kernels import build
+
+    rows, cols = ks.sweep_tile()
+    text = (build.CSRC_DIR / "sweep.cu").read_text()
+    assert f"constexpr int TILE_ROWS = {rows};" in text and f"constexpr int TILE_COLS = {cols};" in text
+    assert rows > 0 and cols > 0
+    assert not re.search(r"\bTILE\s*=\s*16\b", (build.PACKAGE_DIR / "kernels" / "sweep.py").read_text())
+
+
+def _blocks_by_origin(w, nown):
+    """Blocks of a launch, counted from the tile origins of the owned rows."""
+    rows, cols = ks.sweep_tile()
+    return len({(y // rows, x // cols) for y in range(nown) for x in range(w)})
+
+
+@pytest.mark.parametrize(
+    "w,nown",
+    [(1024, 1024), (241, 135), (1, 1), (30, 17), (33, 16), (3840, 540), (241, 33), (1920, 1080), (37, 53)],
+    ids=["1k", "ragged", "one-pixel", "4k-level-width-30", "one-column-over", "4k-row-block",
+         "ragged-row-block", "1080p", "37x53"],
+)
+def test_n_partials_covers_every_tile(w, nown):
+    """The partials buffer holds one set per block: ragged shapes and the
+    row-shard geometry (a block's owned rows only) round up per axis."""
+    assert ks.n_partials(w, nown) == _blocks_by_origin(w, nown)

@@ -107,9 +107,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
         "vm_halfway_warp": [P, P, P, P, I, I, I, I, I, P],
-        "vm_bilinear_sample": [P, P, P, I, I, I, I, L, P],
-        "vm_sweep_grad": [P] * 13,
-        "vm_sweep_energy": [P] * 11,
+        "vm_bilinear_sample": [P, P, P, I, I, I, I, L, I, P],
+        "vm_sweep_grad": [P] * 10 + [I] + [P] * 3,
+        "vm_sweep_energy": [P] * 8 + [I] + [P] * 3,
+        "vm_sweep_n_partials": [I, I],
+        "vm_sweep_smem_bytes": [I, I],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

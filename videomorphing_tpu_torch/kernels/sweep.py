@@ -14,10 +14,13 @@ template ``sweep_kernel<R, WITH_GRAD>``).
 
 Both evaluate the halfway-domain energy on the warps linearized around
 ``v_lin``: ``a0 = w0 - dw0.(v - v_lin)``, ``a1 = w1 + dw1.(v - v_lin)``.
-They are bound by operations on the H100 (~29 window sums and ~60 maps per
-pixel and channel); each 16 x 16 tile is staged through shared memory with
-a halo of twice the window radius, so all window sums read shared memory,
-and the inputs are the warp kernel's plane stack as it comes, with no pack.
+On paper they are bound by bytes on the H100; in practice by instructions
+and their latency (~29 window sums and ~60 maps per pixel and channel,
+over a halo). Each block stages a tile of owned pixels (:func:`sweep_tile`)
+and its halo of twice the window radius in shared memory, channel by
+channel through ``cp.async`` with the next channel's planes in flight, so
+every window sum, the dw chain and the TPS stencils read shared memory;
+the inputs are the warp kernel's plane stack as it comes, with no pack.
 Energy partials reduce in a fixed order (no float atomics), so reruns are
 bitwise identical.
 
@@ -40,6 +43,8 @@ port of the reference's jnp shard branch, ``parallel/spatial.py:44-61,
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
 
 import numpy as np
 import torch
@@ -49,8 +54,27 @@ from videomorphing_tpu_torch.kernels import build
 from videomorphing_tpu_torch.kernels.warp import check_cuda_input, on_cuda, stream_of
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, separable_filter
 
-TILE = 16  # output tile side of sweep_kernel (csrc/sweep.cu: T)
 MAX_RADIUS = 3  # window radii instantiated in csrc/sweep.cu
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_tile() -> tuple[int, int]:
+    """(rows, columns) of owned pixels per block of ``sweep_kernel``, read
+    from ``csrc/sweep.cu``, the one place they are set."""
+    text = (build.CSRC_DIR / "sweep.cu").read_text()
+    dims = [re.search(rf"^constexpr int {name} = (\d+);", text, re.M) for name in ("TILE_ROWS", "TILE_COLS")]
+    if not all(dims):
+        raise RuntimeError("csrc/sweep.cu does not set TILE_ROWS and TILE_COLS")
+    return tuple(int(d.group(1)) for d in dims)
+
+
+def n_partials(w: int, nown: int) -> int:
+    """Blocks of a launch over ``nown`` owned rows of width ``w``, each
+    writing one set of (sim, tps, ui, tc) partials; ``vm_sweep_n_partials``
+    computes the same count on the card, and the kernel refuses a buffer
+    that holds fewer."""
+    rows, cols = sweep_tile()
+    return -(-nown // rows) * -(-w // cols)
 
 
 class _Scalars(ctypes.Structure):
@@ -138,10 +162,6 @@ def _check(planes, v_lin, v, data, halo: int = 0):
     return h, w, c6 // 6
 
 
-def _n_blocks(h: int, w: int) -> int:
-    return -(-h // TILE) * -(-w // TILE)
-
-
 def sweep_grad_plain(planes, v_lin, v, data, p: MorphParams):
     """Plain version of kernel 1."""
     from videomorphing_tpu_torch.kernels.warp import bundle_from_planes
@@ -178,7 +198,8 @@ def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int =
     bh = h - 2 * halo
     s = _scalars(p, h, w, c, row0, gh or h, halo, bh)
     dev = v.device
-    partials = torch.empty((_n_blocks(bh, w), 4), dtype=torch.float32, device=dev)
+    n_parts = n_partials(w, bh)
+    partials = torch.empty((n_parts, 4), dtype=torch.float32, device=dev)
     out = torch.empty((5,), dtype=torch.float32, device=dev)
     lib = build.load()
     grad = precond = None
@@ -190,7 +211,7 @@ def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int =
                 planes.data_ptr(), v_lin.data_ptr(), v.data_ptr(),
                 data.ui_w.data_ptr(), data.ui_v.data_ptr(),
                 data.tc_w.data_ptr(), data.tc_v.data_ptr(),
-                grad.data_ptr(), precond.data_ptr(), partials.data_ptr(), out.data_ptr(),
+                grad.data_ptr(), precond.data_ptr(), partials.data_ptr(), n_parts, out.data_ptr(),
                 ctypes.addressof(s), stream_of(v),
             )
         else:
@@ -198,7 +219,7 @@ def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int =
                 planes.data_ptr(), v_lin.data_ptr(), v.data_ptr(),
                 data.ui_w.data_ptr(), data.ui_v.data_ptr(),
                 data.tc_w.data_ptr(), data.tc_v.data_ptr(),
-                partials.data_ptr(), out.data_ptr(),
+                partials.data_ptr(), n_parts, out.data_ptr(),
                 ctypes.addressof(s), stream_of(v),
             )
     build.check(err, "vm_sweep_grad" if with_grad else "vm_sweep_energy")

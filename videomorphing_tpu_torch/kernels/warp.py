@@ -14,8 +14,11 @@ Source: ``csrc/warp.cu`` (``vm_halfway_warp``, ``vm_bilinear_sample``).
 Both are bound by memory on the H100 (4 taps x C reads per image, one write
 per output value). The TPU kernels enumerate per-tile residual offsets over
 row-phase copies and fall back to an XLA gather when a tile's field is too
-wild; on Hopper a gather is native, so each CUDA kernel is one thread per
-output pixel with no fit test and no fallback.
+wild; on Hopper a gather is native, so each CUDA kernel gathers per output
+pixel with no fit test and no fallback. Kernel 4 has one instantiation per
+C in 1..4 with 8- and 16-byte loads and stores, chosen by
+:func:`sample_vectorized` from C and the buffers' alignment, the scalar
+instantiation of the same C otherwise, and a generic one for any other C.
 
 Dispatch: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in a plain
@@ -154,6 +157,25 @@ halfway_warp_rows.launches = 0
 
 MAX_BATCH = 65535  # the launch grid's y extent: one grid row per image
 
+# The vector instantiations of kernel 4 per channel count C (csrc/warp.cu
+# VectorForm<C>): outputs per thread, then the byte alignment that the
+# image, the coordinates and the output need for their wide accesses.
+VECTOR_FORMS = {1: (4, 4, 16, 16), 2: (2, 8, 16, 16), 3: (4, 4, 16, 16), 4: (1, 16, 8, 16)}
+
+
+def sample_vectorized(c: int, n: int, m: int, img_ptr: int, coords_ptr: int, out_ptr: int) -> bool:
+    """Whether kernel 4 runs its vector instantiation for C = ``c`` on n
+    images of ``m`` coordinate pairs each at these addresses, rather than the
+    scalar instantiation of the same C: only C in 1..4 has one, every
+    pointer must be aligned for its wide accesses, and with n > 1 each
+    image's coordinates and outputs must start aligned too (m a multiple of
+    the outputs per thread)."""
+    if c not in VECTOR_FORMS:
+        return False
+    vec, img_align, coords_align, out_align = VECTOR_FORMS[c]
+    return (img_ptr % img_align == 0 and coords_ptr % coords_align == 0
+            and out_ptr % out_align == 0 and (n == 1 or m % vec == 0))
+
 
 def _launch_sample(imgs: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Kernel 4 on ``imgs`` (n, H, W, C) and ``coords`` (n, M, 2), M >= 1."""
@@ -164,10 +186,12 @@ def _launch_sample(imgs: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     check_cuda_input(imgs, "img")
     check_cuda_input(coords, "coords")
     out = torch.empty((n, m, c), dtype=torch.float32, device=imgs.device)
+    vector = sample_vectorized(c, n, m, imgs.data_ptr(), coords.data_ptr(), out.data_ptr())
     lib = build.load()
     with torch.cuda.device(imgs.device):
         err = lib.vm_bilinear_sample(
-            imgs.data_ptr(), coords.data_ptr(), out.data_ptr(), n, h, w, c, m, stream_of(imgs)
+            imgs.data_ptr(), coords.data_ptr(), out.data_ptr(), n, h, w, c, m, int(vector),
+            stream_of(imgs),
         )
     build.check(err, "vm_bilinear_sample")
     return out
@@ -220,8 +244,8 @@ def bilinear_sample_batched(imgs: torch.Tensor, coords: torch.Tensor) -> torch.T
     (n, Ho, Wo, C), equal to ``[bilinear_sample(imgs[k], coords[k])]``.
 
     The contract of the reference's ``fused_sample(srcs, coords)``, whose
-    C <= 4 limit comes from the TPU's channel blocking; this kernel loops
-    over any C. It serves the flow warps batched over frame pairs, the
+    C <= 4 limit comes from the TPU's channel blocking; this kernel takes
+    any C. It serves the flow warps batched over frame pairs, the
     occlusion confidences batched over frames and the render's two colour
     samples.
     """
