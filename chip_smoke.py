@@ -8,12 +8,13 @@ Phases:
   0. the card: ``require_cuda()`` and its name and power limit from nvidia-smi;
   1. build the CUDA kernels of ``videomorphing_tpu_torch/csrc`` with nvcc;
      print ptxas's registers and spills per kernel (``-Xptxas -v``, from
-     ``build.log``) and the sweep kernels' dynamic shared memory, and check
-     the partials count the wrapper sizes against ``vm_sweep_n_partials``;
+     ``build.log``) and each sweep kernel's registers, shared memory and
+     resident blocks per SM (``vm_sweep_kernel_info``), and check the
+     partials counts the wrapper sizes against ``vm_sweep_n_partials``;
   2. each kernel against its plain PyTorch version on the card, at the
      slices' shapes (1024 x 1024, 1080 x 1920 and a ragged 135 x 241,
      C = 3; kernels 1-2 also at ``ssim_window`` 3 and 7 on the ragged shape,
-     every radius of the template; the sampler, bitwise, also at C = 4 on
+     every instantiated radius, each rerun bitwise; the sampler, bitwise, also at C = 4 on
      the stacked [disp, v] planes, on a grey 540 x 960 image, at 4 points,
      and batched: 29 and 58 grey 540 x 960 images as the flow warps take
      them, 29 two-channel 540 x 960 and 1080 x 1920 flows as the occlusion
@@ -73,6 +74,7 @@ lines before the last; the last line is ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -115,7 +117,7 @@ def bound(n_bytes: float, n_ops: float):
 
 
 def sweep_ops_per_pixel(c: int, k: int, with_grad: bool) -> int:
-    """Arithmetic of sweep_kernel per owned pixel, counted from
+    """Arithmetic of the sweep kernels per owned pixel, counted from
     csrc/sweep.cu: per channel the linearized warps (8), two passes of 5
     window sums of k taps (20 k) and 3 products, the SSIM map (~20); with
     the gradient also the coefficient maps (~20), two passes of 4
@@ -286,15 +288,17 @@ def check_kernels(dev) -> dict:
         e2_k = ks.sweep_energy(planes, v_lin, v, data, pw)
         e2_p = ks.sweep_energy_plain(planes, v_lin, v, data, pw)
         compare("sweep_energy", e2_p.reshape(1), e2_k.reshape(1), shape, 1e-5, True)
-        # the energy kernel and the gradient pass share one template
+        # the energy kernel and the gradient pass share the per-pixel arithmetic
         require(abs(float(e2_k) - float(e_k)) <= 1e-6 * abs(float(e_k)),
                 f"{shape}: sweep_energy and sweep_grad disagree on the energy")
         # fixed-order reductions: a rerun is bitwise identical
         e_k2, g_k2, p_k2 = ks.sweep_grad(planes, v_lin, v, data, pw)
         require(float(e_k2) == float(e_k) and torch.equal(g_k2, g_k) and torch.equal(p_k2, p_k),
                 f"{shape}: sweep_grad rerun is not bitwise identical")
+        require(float(ks.sweep_energy(planes, v_lin, v, data, pw)) == float(e2_k),
+                f"{shape}: sweep_energy rerun is not bitwise identical")
 
-    # every window radius of the template (ssim_window 3, 5, 7) on the ragged shape
+    # every window radius the kernels instantiate (ssim_window 3, 5, 7) on the ragged shape
     windows = {3: MorphParams(ssim_window=3), 5: p, 7: MorphParams(ssim_window=7, ssim_sigma=1.5)}
     for h, w in ((1024, 1024), (1080, 1920), (135, 241)):
         full = (h, w) == (1024, 1024)
@@ -531,7 +535,7 @@ def check_shard_forms(dev, compare, rec, t, p) -> None:
     from videomorphing_tpu_torch.config import MorphParams
 
     n = 4
-    # the ragged split at every window radius of the template
+    # the ragged split at every window radius the kernels instantiate
     cases = [(SHARD_SHAPES[0], p)] + [(SHARD_SHAPES[1], pw) for pw in (
         MorphParams(ssim_window=3), p, MorphParams(ssim_window=7, ssim_sigma=1.5))]
     for (h, w), p in cases:
@@ -569,6 +573,8 @@ def check_shard_forms(dev, compare, rec, t, p) -> None:
             compare("sweep_grad_shard", rpc, pck, blk + " precond", 1e-5, True)
             compare_parts("sweep_energy_shard", ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
                           pe, blk)
+            require(torch.equal(ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo), pe),
+                    f"{blk}: sweep_energy_shard rerun is not bitwise identical")
             del rp, rg, rpc
             if big:
                 lo, hi = max(row0, 0), min(row0 + he, h)
@@ -631,9 +637,9 @@ def check_shard_forms(dev, compare, rec, t, p) -> None:
 def make_pair(n: int):
     """Frame 0 of the JAX bench's synthetic clip pair (a textured base and a
     Gaussian blob that moves from x = 0.45 n to 0.55 n), and its 4 points."""
-    import bench
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
 
-    clip_a, clip_b = bench._make_clips(1, n, n, seed=0)
+    clip_a, clip_b = make_clips(1, n, n, seed=0)
     return clip_a[0], clip_b[0], bench_points(n, n)
 
 
@@ -760,13 +766,13 @@ def video_path(dev, card: str) -> dict:
     ``api.morph_clips`` with default parameters and 4 points."""
     import torch
 
-    import bench
     from videomorphing_tpu_torch import api
     from videomorphing_tpu_torch.config import VideoParams
     from videomorphing_tpu_torch.utils import profiling
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
 
     t_len, h, w = 30, 1080, 1920
-    clip_a, clip_b = bench._make_clips(t_len, h, w, seed=0)
+    clip_a, clip_b = make_clips(t_len, h, w, seed=0)
     pts = bench_points(h, w)
     ca = torch.from_numpy(clip_a).to(dev)
     cb = torch.from_numpy(clip_b).to(dev)
@@ -818,10 +824,10 @@ def determinism(dev) -> None:
     equal (the reference's ``tests/test_determinism.py`` contract)."""
     import torch
 
-    import bench
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
     from videomorphing_tpu_torch.video.pipeline import solve_clip_fields
 
-    clip_a, clip_b = bench._make_clips(6, 270, 480, seed=1)
+    clip_a, clip_b = make_clips(6, 270, 480, seed=1)
     ca = torch.from_numpy(clip_a).to(dev)
     cb = torch.from_numpy(clip_b).to(dev)
     pts = torch.from_numpy(bench_points(270, 480)).to(dev)
@@ -903,12 +909,12 @@ def layered_video_path(dev, card: str) -> dict:
     pair with 4 points and one layer whose masks follow the blob."""
     import torch
 
-    import bench
     from videomorphing_tpu_torch import api
     from videomorphing_tpu_torch.utils import profiling
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
 
     t_len, h, w = 30, 1080, 1920
-    clip_a, clip_b = bench._make_clips(t_len, h, w, seed=0)
+    clip_a, clip_b = make_clips(t_len, h, w, seed=0)
     ca = torch.from_numpy(clip_a).to(dev)
     cb = torch.from_numpy(clip_b).to(dev)
     del clip_a, clip_b
@@ -985,7 +991,6 @@ def spatial_path(dev, card: str) -> dict:
     the same pair and one 1080 x 1920 level, 6 iterations, both ways."""
     import torch
 
-    import bench
     from videomorphing_tpu_torch import api
     from videomorphing_tpu_torch.config import MorphParams, SynthParams
     from videomorphing_tpu_torch.models.image_morph import ImageMorpher, MorphArtifacts
@@ -1000,10 +1005,11 @@ def spatial_path(dev, card: str) -> dict:
     from videomorphing_tpu_torch.solver.descent import make_level_solver
     from videomorphing_tpu_torch.solver.energy import make_level_data
     from videomorphing_tpu_torch.synth.paths import bulge_field
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
     from videomorphing_tpu_torch.video.pipeline import _default_times
 
     (h, w), n_frames, n_blocks = SPATIAL_HW, 16, 4
-    clip_a, clip_b = bench._make_clips(1, h, w, seed=0)
+    clip_a, clip_b = make_clips(1, h, w, seed=0)
     i0 = torch.from_numpy(clip_a[0]).to(dev)
     i1 = torch.from_numpy(clip_b[0]).to(dev)
     del clip_a, clip_b
@@ -1091,16 +1097,16 @@ def mesh_video_path(dev, card: str) -> dict:
     sequential render of the same fields and flows (2e-5)."""
     import torch
 
-    import bench
     from videomorphing_tpu_torch import api
     from videomorphing_tpu_torch.config import VideoParams
     from videomorphing_tpu_torch.parallel.mesh import make_mesh
     from videomorphing_tpu_torch.utils import profiling
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
     from videomorphing_tpu_torch.video.flow import clip_flows, clip_flows_sharded
     from videomorphing_tpu_torch.video.pipeline import render_video
 
     t_len, h, w = MESH_VIDEO_THW
-    clip_a, clip_b = bench._make_clips(t_len, h, w, seed=0)
+    clip_a, clip_b = make_clips(t_len, h, w, seed=0)
     ca = torch.from_numpy(clip_a).to(dev)
     cb = torch.from_numpy(clip_b).to(dev)
     del clip_a, clip_b
@@ -1172,11 +1178,11 @@ def command_line() -> None:
     """Phase 9: the command line on a 6-frame 270 x 480 clip pair as .vmc
     files (no PIL needed): ``video`` with a field store, again to resume
     from it, and ``project`` on a layered clip project."""
-    import bench
     from videomorphing_tpu_torch.io.clips import read_vmc, read_vmc_header, save_clip
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
 
     t_len, h, w = 6, 270, 480
-    clip_a, clip_b = bench._make_clips(t_len, h, w, seed=1)
+    clip_a, clip_b = make_clips(t_len, h, w, seed=1)
     with tempfile.TemporaryDirectory() as tmp:
         f = lambda name: os.path.join(tmp, name)
         save_clip(f("a.vmc"), clip_a)
@@ -1235,14 +1241,21 @@ def main(argv) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
     lib = build.load()
-    log("  sweep_kernel dynamic shared memory per block (bytes), R = 1, 2, 3: gradient "
-        + ", ".join(str(lib.vm_sweep_smem_bytes(r, 1)) for r in (1, 2, 3)) + "; energy "
-        + ", ".join(str(lib.vm_sweep_smem_bytes(r, 0)) for r in (1, 2, 3)))
+    info = (ctypes.c_int * 5)()
+    for with_grad, kname in ((1, "sweep_grad_kernel"), (0, "sweep_energy_kernel")):
+        for r in (1, 2, 3):
+            build.check(lib.vm_sweep_kernel_info(r, with_grad, info), "vm_sweep_kernel_info")
+            log(f"  {kname}<{r}>: {info[0]} registers, {info[1]} B static + {info[2]} B dynamic shared memory, "
+                f"{info[3]} B local, {info[4]} resident blocks of "
+                f"{256} threads per SM ({info[4] * 8} warps)")
+            require(info[4] >= 1, f"{kname}<{r}> cannot be resident on an SM")
     from videomorphing_tpu_torch.kernels import sweep as ks
-    for w, nown in ((1024, 1024), (1920, 1080), (241, 135), (3840, 540), (30, 17), (1, 1)):
-        require(lib.vm_sweep_n_partials(w, nown) == ks.n_partials(w, nown),
-                f"partials of {nown}x{w}: {lib.vm_sweep_n_partials(w, nown)} on the card, {ks.n_partials(w, nown)} sized")
-    log(f"  sweep tile {ks.sweep_tile()} (rows, columns): partials counts agree with vm_sweep_n_partials")
+    for with_grad in (True, False):
+        for w, nown in ((1024, 1024), (1920, 1080), (241, 135), (3840, 540), (30, 17), (1, 1)):
+            got, sized = lib.vm_sweep_n_partials(w, nown, int(with_grad)), ks.n_partials(w, nown, with_grad)
+            require(got == sized, f"partials of {nown}x{w} (with_grad={with_grad}): {got} on the card, {sized} sized")
+        log(f"  {'gradient' if with_grad else 'energy'} tile {ks.sweep_tile(with_grad)} (rows, columns): "
+            "partials counts agree with vm_sweep_n_partials")
 
     log("phase 2: kernels against their plain versions")
     rec = check_kernels(dev)

@@ -1,8 +1,9 @@
 """The port's boundaries: no jax, device dispatch, no silent fallback.
 
 - importing the port's modules (the API, the layered morphs, the command
-  line, io, metrics and the field store among them) loads neither ``jax``
-  nor the JAX package (checked in a fresh interpreter);
+  line, io, metrics, the field store and every subpackage among them)
+  loads neither ``jax`` nor the JAX package (checked in a fresh
+  interpreter), and ``chip_smoke.py`` imports neither, nor ``bench``;
 - the configuration mirrors the reference's dataclasses field for field;
 - on CPU tensors the kernel wrappers (the sampler's batched form too) run
   their plain versions and leave their launch counters at 0;
@@ -46,6 +47,9 @@ def test_import_loads_no_jax():
         "import videomorphing_tpu_torch.io.project_xml, videomorphing_tpu_torch.utils.logging\n"
         "import videomorphing_tpu_torch.utils.checkpoint, videomorphing_tpu_torch.parallel.spatial\n"
         "import videomorphing_tpu_torch.parallel.frames, videomorphing_tpu_torch.parallel.video_blocks\n"
+        "import videomorphing_tpu_torch.ops, videomorphing_tpu_torch.solver, videomorphing_tpu_torch.synth\n"
+        "import videomorphing_tpu_torch.video, videomorphing_tpu_torch.models, videomorphing_tpu_torch.parallel\n"
+        "import videomorphing_tpu_torch.utils, videomorphing_tpu_torch.utils.synthetic\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'videomorphing_tpu' or m.startswith('videomorphing_tpu.'))\n"
         "print(bad)\n"
@@ -64,6 +68,23 @@ def test_sources_never_import_jax():
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1]
                 assert mod.split(".")[0] not in ("jax", "videomorphing_tpu"), f"{path}: {s}"
+
+
+def test_chip_smoke_imports_no_bench_and_no_jax():
+    """``chip_smoke.py`` runs where there is no jax: it imports neither the
+    JAX package, nor jax, nor the JAX benchmark harness ``bench``, at any
+    level (its clips come from ``utils.synthetic``)."""
+    import ast
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mods.add((node.module or "").split(".")[0])
+    assert "videomorphing_tpu_torch" in mods
+    assert not mods & {"bench", "jax", "videomorphing_tpu"}, sorted(mods)
 
 
 @pytest.mark.parametrize("cls", ["MorphParams", "SynthParams", "VideoParams"])

@@ -102,32 +102,70 @@ def test_sweep_exact_at_linearization_point():
     assert abs(e - float(total_energy(v, data, MorphParams()))) <= 1e-6 * abs(e)
 
 
-def test_sweep_tile_comes_from_the_source():
-    """The tile that sizes the partials is the one ``csrc/sweep.cu`` sets."""
+@pytest.mark.parametrize("with_grad", [True, False], ids=["grad", "energy"])
+def test_sweep_tile_comes_from_the_source(with_grad):
+    """The tile that sizes a kernel's partials is the one ``csrc/sweep.cu``
+    sets for it: ``TILE_*`` for the gradient kernel, ``ENERGY_TILE_*`` for
+    the energy kernel."""
     import re
 
     from videomorphing_tpu_torch.kernels import build
 
-    rows, cols = ks.sweep_tile()
+    prefix = "" if with_grad else "ENERGY_"
+    rows, cols = ks.sweep_tile(with_grad)
     text = (build.CSRC_DIR / "sweep.cu").read_text()
-    assert f"constexpr int TILE_ROWS = {rows};" in text and f"constexpr int TILE_COLS = {cols};" in text
+    assert f"constexpr int {prefix}TILE_ROWS = {rows};" in text
+    assert f"constexpr int {prefix}TILE_COLS = {cols};" in text
     assert rows > 0 and cols > 0
     assert not re.search(r"\bTILE\s*=\s*16\b", (build.PACKAGE_DIR / "kernels" / "sweep.py").read_text())
 
 
-def _blocks_by_origin(w, nown):
+def _blocks_by_origin(w, nown, with_grad):
     """Blocks of a launch, counted from the tile origins of the owned rows."""
-    rows, cols = ks.sweep_tile()
+    rows, cols = ks.sweep_tile(with_grad)
     return len({(y // rows, x // cols) for y in range(nown) for x in range(w)})
 
 
+@pytest.mark.parametrize("with_grad", [True, False], ids=["grad", "energy"])
 @pytest.mark.parametrize(
     "w,nown",
     [(1024, 1024), (241, 135), (1, 1), (30, 17), (33, 16), (3840, 540), (241, 33), (1920, 1080), (37, 53)],
     ids=["1k", "ragged", "one-pixel", "4k-level-width-30", "one-column-over", "4k-row-block",
          "ragged-row-block", "1080p", "37x53"],
 )
-def test_n_partials_covers_every_tile(w, nown):
+def test_n_partials_covers_every_tile(w, nown, with_grad):
     """The partials buffer holds one set per block: ragged shapes and the
     row-shard geometry (a block's owned rows only) round up per axis."""
-    assert ks.n_partials(w, nown) == _blocks_by_origin(w, nown)
+    assert ks.n_partials(w, nown, with_grad) == _blocks_by_origin(w, nown, with_grad)
+
+
+def test_shard_energies_sum_to_the_reference_total_energy():
+    """Kernel 2's row-shard form (plain version): the raw partials of 4 row
+    blocks, summed in block order and combined, give the reference's
+    linearized total energy of the whole frame (``total_energy_planes``)
+    and the whole-frame form's energy, within 1e-5 relative."""
+    from videomorphing_tpu_torch.interop import level_data_from_numpy
+    from videomorphing_tpu_torch.solver.energy import LevelData
+
+    h, w, n = 40, 56, 4
+    p = MorphParams()
+    arrs, v_lin, v = _case(h, w, seed=12)
+    ref = _reference(arrs, v_lin, v, JaxMorphParams())[3]
+    data = level_data_from_numpy(**arrs)
+    halo = ks.shard_reach(p)
+    bh = h // n
+    pad = lambda a: np.pad(a, ((halo, halo), (0, 0), (0, 0)))
+    acc = np.zeros(4, np.float32)
+    for k in range(n):
+        row0 = k * bh - halo
+        ext = lambda a: torch.from_numpy(pad(a)[k * bh:k * bh + bh + 2 * halo].copy())
+        vl_e, v_e = ext(v_lin), ext(v)
+        planes = kw.halfway_warp_rows(data.i0, data.i1, vl_e, row0)
+        blk = LevelData(data.i0, data.i1, *(m[k * bh:(k + 1) * bh] for m in (data.ui_w, data.ui_v, data.tc_w, data.tc_v)))
+        acc = acc + ks.sweep_energy_shard(planes, vl_e, v_e, blk, p, row0, h, halo).numpy()
+    e_shard = float(ks.combine_parts(acc, p, h * w, 3))
+    planes = kw.halfway_warp(data.i0, data.i1, torch.from_numpy(v_lin))
+    e_whole = float(ks.sweep_energy(planes, torch.from_numpy(v_lin), torch.from_numpy(v), data, p))
+    assert abs(e_shard - ref) <= 1e-5 * abs(ref)
+    assert abs(e_shard - e_whole) <= 1e-5 * abs(e_whole)
+    assert ks.sweep_energy_shard.launches == 0

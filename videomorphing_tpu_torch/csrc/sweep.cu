@@ -2,13 +2,15 @@
 // preconditioner of the halfway-domain energy on linearized warps.
 //
 // Replaces the Pallas builders videomorphing_tpu/pallas/sweep.py:293
-// (_build_grad_call, kernel 1) and :502 (_build_energy_call, kernel 2).
-// Both kernels are one template, sweep_kernel<R, WITH_GRAD>, so the energy
-// the line search sees and the energy of the gradient pass cannot drift
-// apart.
+// (_build_grad_call, kernel 1: sweep_grad_kernel<R>) and :502
+// (_build_energy_call, kernel 2: sweep_energy_kernel<R>). The two kernels
+// have their own designs but share the per-pixel arithmetic of the energy
+// (ssim_pixel, tps_maps_at, tps_energy, quad_terms) and the order of every
+// window sum, so the energy the line search sees and the energy of the
+// gradient pass cannot drift apart.
 //
-// What bounds it on the H100. Counting each input read once and each
-// output written once, kernel 1 at 1024^2, C = 3 moves 134 MB (40 us at
+// Kernel 1: what bounds it on the H100. Counting each input read once and
+// each output written once, it moves at 1024^2, C = 3 134 MB (40 us at
 // 3.35 TB/s) and does ~650 operations per pixel (10 us at 67 TFLOP/s):
 // bytes, on paper. In practice it is bound by instructions and their
 // latency: every owned pixel and its halo go through 5 K-tap window sums in
@@ -41,8 +43,34 @@
 //      shared memory, from which the adjoint stencil reads its neighbours.
 // The output tile is 32 x 16 rather than 16 x 16: the staged halo falls
 // from 2.25x to 1.88x of the owned pixels at R = 2 (statistics from 1.56x
-// to 1.41x). Shared memory is dynamic (90 KB at R = 2 for the gradient, so
-// two blocks share an SM; set with cudaFuncSetAttribute and checked).
+// to 1.41x). Shared memory is dynamic (90 KB at R = 2, so two blocks share
+// an SM; set with cudaFuncSetAttribute and checked).
+//
+// Kernel 2 needs neither the statistics halo nor dw after forming a0 and
+// a1, and runs once per Armijo trial, so it has a design of its own. Its
+// bound is the same kind (bytes on paper; 117 MB at 1024^2, C = 3), and
+// what held kernel 1's staging back there was the memory path: per channel
+// ten staged planes, four barrier-separated stages and 24 warps an SM. Per
+// block of ENERGY_TILE_ROWS x ENERGY_TILE_COLS owned pixels, 8 warps:
+//   - a warp walks a column strip of ESEG owned rows plus 2R halo rows;
+//     lane l holds column x0 - EHALO + l (ENERGY_TILE_COLS owned lanes, the
+//     rest the window's halo), so each row's loads are coalesced, at any
+//     width and origin;
+//   - dv = v - v_lin and 1/n are computed once per strip into shared
+//     memory that only the lane itself reads back (no barrier), so a
+//     channel's walk loads only its six planes;
+//   - those planes arrive by 4-byte cp.async into a per-warp ring of
+//     EDEPTH rows in shared memory, EDEPTH - 1 rows ahead of the row in
+//     use and across the channel boundary, so loads stay in flight while
+//     the window sums run (the memory path, not arithmetic, bounds it);
+//   - per channel and row, a0 and a1 go into a register ring of K rows;
+//     the vertical window sums come from the ring, the horizontal ones from
+//     the neighbouring lanes by shuffles, then the SSIM of the owned lanes;
+//   - TPS, UI and TC after the channels: v in a register ring of 3 rows,
+//     the neighbouring columns by shuffles (the v tile's ring of 1);
+//   - partials reduce by a shuffle tree per warp and the warps in order.
+// No barrier in the channel loop; registers capped at 64 for 4 blocks (32
+// warps) an SM; dynamic shared memory (EGeo) opted in like kernel 1's.
 //
 // cp.async rather than TMA: a TMA tile needs a 16-byte-aligned row stride,
 // W % 4 == 0, and the pyramid's levels break that (a 135 x 241 level, 4K
@@ -53,9 +81,9 @@
 // Every per-pixel sum keeps its order (taps t = 0..K-1, the vertical pass
 // before the horizontal one), and no value depends on where the tile
 // starts, so a row shard's outputs equal the whole frame's rows bit for
-// bit. Energy partials reduce per block in a fixed shared-memory tree and
-// then across blocks in a fixed order by sweep_reduce_kernel: no float
-// atomics, so reruns are bitwise identical.
+// bit. Energy partials reduce per block in a fixed order and then across
+// blocks in a fixed order by sweep_reduce_kernel: no float atomics, so
+// reruns are bitwise identical.
 //
 // Row-shard form (Pallas: the same builders driven by
 // fused_grad_parts_shard, sweep.py:936, and fused_energy_parts_shard, :959):
@@ -93,16 +121,42 @@ struct VmSweepScalars {
 
 namespace {
 
-// The output tile: rows x columns of owned pixels per block. kernels/sweep.py
-// reads these two lines (sweep_tile()) to size the energy partials, one set
-// of four per block, and vm_sweep_n_partials gives the same count here.
+// The output tiles: rows x columns of owned pixels per block of each
+// kernel. kernels/sweep.py reads these lines (sweep_tile(with_grad)) to
+// size the energy partials, one set of four per block, and
+// vm_sweep_n_partials gives the same count here.
 constexpr int TILE_ROWS = 16;
 constexpr int TILE_COLS = 32;
+// The energy kernel's output tile (sweep_energy_kernel): ENERGY_TILE_ROWS
+// rows split among its warps, ENERGY_TILE_COLS owned columns of each warp's
+// 32 lanes; the lanes left over hold the window's halo columns.
+constexpr int ENERGY_TILE_ROWS = 32;
+constexpr int ENERGY_TILE_COLS = 26;
+constexpr int EDEPTH = 4;  // rows of the planes in flight per warp, the current one included
 
 constexpr int TY = TILE_ROWS, TX = TILE_COLS;
 constexpr int NT = 256;              // threads per block
 constexpr int NOWN = TY * TX / NT;   // owned outputs per thread: a pair of neighbours in a row
 static_assert(NOWN == 2 && (TX / 2) * TY == NT, "each thread owns two neighbouring pixels");
+
+constexpr int ENT = 256;                               // threads per energy block
+constexpr int EWARPS = ENT / 32;
+constexpr int ESEG = ENERGY_TILE_ROWS / EWARPS;        // owned rows per warp
+constexpr int EHALO = (32 - ENERGY_TILE_COLS) / 2;     // lanes left of the owned columns
+static_assert(ESEG * EWARPS == ENERGY_TILE_ROWS, "the warps split the tile's rows evenly");
+static_assert(ENERGY_TILE_COLS + 2 * EHALO == 32 && EHALO >= 3,
+              "a warp's lanes hold the owned columns and the halo of the largest window (R = 3)");
+
+// The energy kernel's shared memory (floats) per warp: dv (2 NU rows), 1/n
+// (ESEG rows) and the planes' ring (EDEPTH rows of 6 planes), 32 lanes each.
+template <int R>
+struct EGeo {
+  static constexpr int NU = ESEG + 2 * R;  // rows a warp walks per channel
+  static_assert(NU <= 32 && EDEPTH >= 2 && EDEPTH - 1 <= NU && (EDEPTH & (EDEPTH - 1)) == 0,
+                "walk rows and a power-of-two ring depth");
+  static constexpr int WARP_FLOATS = 32 * (2 * NU + ESEG + 6 * EDEPTH);
+  static constexpr size_t BYTES = sizeof(float) * EWARPS * WARP_FLOATS;
+};
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
@@ -124,14 +178,14 @@ __host__ __device__ constexpr int seg_rows(int rows, int cols, int R) {
   return best;
 }
 
-// Tile geometry and shared-memory layout (in floats) of one instantiation.
-// Row strides are multiples of 4 floats so the horizontal passes load
-// float4 / float2 windows; the extra columns are real image columns (or
-// zeros) that feed only outputs outside the tile.
-template <int R, bool WITH_GRAD>
+// Tile geometry and shared-memory layout (in floats) of one instantiation
+// of the gradient kernel. Row strides are multiples of 4 floats so the
+// horizontal passes load float4 / float2 windows; the extra columns are
+// real image columns (or zeros) that feed only outputs outside the tile.
+template <int R>
 struct Geo {
   static constexpr int K = 2 * R + 1;
-  static constexpr int HS = WITH_GRAD ? R : 0;  // halo of the window statistics
+  static constexpr int HS = R;                  // halo of the window statistics
   static constexpr int HA = HS + R;             // halo of the linearized warps
   static constexpr int SY = TY + 2 * HS, SX = TX + 2 * HS;  // statistics tile
   static constexpr int SXP = round4(SX), NS = SY * SXP;
@@ -149,8 +203,8 @@ struct Geo {
   // vertical sums of the 5 statistics; later the vertical transposed sums
   // (4 TY SXP), the curvature's vertical sums and the block reduction
   static constexpr int V_SIZE = cmax(cmax(5 * SY * AW, 4 * TY * SXP), 4 * NT);
-  static constexpr int Q_SIZE = WITH_GRAD ? 4 * NS : 0;  // transposed-sum inputs
-  static constexpr int CURV_SIZE = WITH_GRAD ? 2 * NS : 0;
+  static constexpr int Q_SIZE = 4 * NS;  // transposed-sum inputs
+  static constexpr int CURV_SIZE = 2 * NS;
   static constexpr int FLOATS = P_SIZE + A_SIZE + V_SIZE + Q_SIZE + CURV_SIZE + NS + round4(SY) + SXP;
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
 };
@@ -183,22 +237,75 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
+// waits until at most the N most recent committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// ---------------------------------------------------------------------------
+// Per-pixel arithmetic of the energy, shared by both kernels so that the
+// line search's energy and the gradient pass's cannot drift apart.
+// ---------------------------------------------------------------------------
+
 // Second-difference maps of one field component at (y, x), zero where the
-// stencil leaves the global image (solver/energy.py tps_maps); vt points at
-// (y, x) in the staged v tile of row stride VX.
-template <int VX>
-__device__ __forceinline__ void tps_maps_at(const float* vt, int y, int x,
-                                            const VmSweepScalars& s, float& vxx, float& vxy,
-                                            float& vyy) {
+// stencil leaves the global image (solver/energy.py tps_maps); vt(dy, dx)
+// reads the component at (y + dy, x + dx), dy, dx in {-1, 0, 1}.
+template <class VT>
+__device__ __forceinline__ void tps_maps_at(const VT& vt, int y, int x, const VmSweepScalars& s,
+                                            float& vxx, float& vxy, float& vyy) {
   vxx = vxy = vyy = 0.0f;
   if (!row_in(s, y) || x < 0 || x >= s.w) return;
-  float c = vt[0];
+  float c = vt(0, 0);
   int g = y + s.row0;
   bool inx = x >= 1 && x <= s.w - 2;
   bool iny = g >= 1 && g <= s.gh - 2;
-  if (inx) vxx = vt[1] - 2.0f * c + vt[-1];
-  if (iny) vyy = vt[VX] - 2.0f * c + vt[-VX];
-  if (inx && iny) vxy = 0.25f * (vt[VX + 1] - vt[VX - 1] - vt[-VX + 1] + vt[-VX - 1]);
+  if (inx) vxx = vt(0, 1) - 2.0f * c + vt(0, -1);
+  if (iny) vyy = vt(1, 0) - 2.0f * c + vt(-1, 0);
+  if (inx && iny) vxy = 0.25f * (vt(1, 1) - vt(1, -1) - vt(-1, 1) + vt(-1, -1));
+}
+
+// E_TPS at one pixel and component from its three maps.
+__device__ __forceinline__ float tps_energy(float vxx, float vxy, float vyy) {
+  return vxx * vxx + 2.0f * vxy * vxy + vyy * vyy;
+}
+
+// The UI and TC terms of one pixel and component: adds w |v - target|^2 to
+// each energy and returns the two differences the gradient needs.
+struct QuadDiff {
+  float ui, tc;
+};
+__device__ __forceinline__ QuadDiff quad_terms(float vk, float ui_t, float tc_t, float uw, float tw,
+                                               float& e_ui, float& e_tc) {
+  QuadDiff d{vk - ui_t, vk - tc_t};
+  e_ui += uw * (d.ui * d.ui);
+  e_tc += tw * (d.tc * d.tc);
+  return d;
+}
+
+// The SSIM of one pixel and channel from the five window sums of a0, a1,
+// a0^2, a1^2 and a0 a1 (vertical pass, then horizontal, taps in order) and
+// 1/n; IEEE division, as the plain version's.
+struct SsimPixel {
+  float mu0, mu1, a1, a2, b1, b2, denom, ssim;
+};
+__device__ __forceinline__ SsimPixel ssim_pixel(const float st[5], float inv_n,
+                                                const VmSweepScalars& s) {
+  SsimPixel o;
+  o.mu0 = st[0] * inv_n;
+  o.mu1 = st[1] * inv_n;
+  float var0 = fmaxf(st[2] * inv_n - o.mu0 * o.mu0, 0.0f);
+  float var1 = fmaxf(st[3] * inv_n - o.mu1 * o.mu1, 0.0f);
+  float cov = st[4] * inv_n - o.mu0 * o.mu1;
+  o.a2 = 2.0f * cov + s.c2;
+  o.b2 = var0 + var1 + s.c2;
+  o.a1 = 1.0f;
+  o.b1 = 1.0f;
+  if (s.use_luminance) {
+    o.a1 = 2.0f * o.mu0 * o.mu1 + s.c1;
+    o.b1 = o.mu0 * o.mu0 + o.mu1 * o.mu1 + s.c1;
+  }
+  o.denom = o.b1 * o.b2;
+  o.ssim = (o.a1 * o.a2) / o.denom;
+  return o;
 }
 
 // Vertical K-tap window sums of NQ planes (row stride `cols`, `in_rows`
@@ -267,14 +374,15 @@ __device__ __forceinline__ void pair_sums(const float* __restrict__ row, int x0,
   }
 }
 
-template <int R, bool WITH_GRAD>
+// Kernel 1: energy partials, gradient and preconditioner of one tile.
+template <int R>
 __global__ void __launch_bounds__(NT, 2)
-sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
-             const float* __restrict__ v, const float* __restrict__ ui_w,
-             const float* __restrict__ ui_v, const float* __restrict__ tc_w,
-             const float* __restrict__ tc_v, float* __restrict__ grad,
-             float* __restrict__ precond, float* __restrict__ partials, VmSweepScalars s) {
-  using G = Geo<R, WITH_GRAD>;
+sweep_grad_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
+                  const float* __restrict__ v, const float* __restrict__ ui_w,
+                  const float* __restrict__ ui_v, const float* __restrict__ tc_w,
+                  const float* __restrict__ tc_v, float* __restrict__ grad,
+                  float* __restrict__ precond, float* __restrict__ partials, VmSweepScalars s) {
+  using G = Geo<R>;
   constexpr int K = G::K, HS = G::HS, HA = G::HA;
   constexpr int AY = G::AY, AW = G::AW, NA = G::NA, SY = G::SY, SX = G::SX, SXP = G::SXP,
                 NS = G::NS;
@@ -395,9 +503,7 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
       sNx[i - SY] = (gx >= 0 && gx < w) ? tap_sum_range(taps, R, gx, w) : 0.0f;
     }
   }
-  if (WITH_GRAD) {
-    for (int i = tid; i < 2 * NS; i += NT) sCurv[i] = 0.0f;
-  }
+  for (int i = tid; i < 2 * NS; i += NT) sCurv[i] = 0.0f;
   __syncthreads();
   for (int i = tid; i < NS; i += NT) {
     int r = i / SXP, cx = i % SXP;
@@ -505,45 +611,32 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
         const bool in = row_ok && cx < SX && gx >= 0 && gx < w;
         qv[j] = qc[j] = q0[j] = q1[j] = cy_[j] = cx_[j] = 0.f;
         if (in) {
-          float inv_n = invn[j];
-          float mu0 = st[j][0] * inv_n, mu1 = st[j][1] * inv_n;
-          float var0 = fmaxf(st[j][2] * inv_n - mu0 * mu0, 0.0f);
-          float var1 = fmaxf(st[j][3] * inv_n - mu1 * mu1, 0.0f);
-          float cov = st[j][4] * inv_n - mu0 * mu1;
-          float a2 = 2.0f * cov + s.c2;
-          float b2 = var0 + var1 + s.c2;
-          float a1 = 1.0f, b1 = 1.0f;
-          if (s.use_luminance) {
-            a1 = 2.0f * mu0 * mu1 + s.c1;
-            b1 = mu0 * mu0 + mu1 * mu1 + s.c1;
-          }
-          float denom = b1 * b2;
-          float ssim = (a1 * a2) / denom;
+          const float inv_n = invn[j];
+          const SsimPixel sp = ssim_pixel(st[j], inv_n, s);
+          const float mu0 = sp.mu0, mu1 = sp.mu1, ssim = sp.ssim;
           if (r >= HS && r < HS + TY && cx >= HS && cx < HS + TX && gy < own_end) e_sim += 1.0f - ssim;
-          if (WITH_GRAD) {
-            float rden = __fdividef(1.0f, denom), ib2 = __fdividef(1.0f, b2);
-            float ds_da2 = a1 * rden;
-            float ds_db2 = -ssim * ib2;
-            float c_mu0 = 0.f, c_mu1 = 0.f;
-            if (s.use_luminance) {
-              float ds_da1 = a2 * rden;
-              float ds_db1 = -ssim * __fdividef(1.0f, b1);
-              c_mu0 = ds_da1 * 2.0f * mu1 + ds_db1 * 2.0f * mu0;
-              c_mu1 = ds_da1 * 2.0f * mu0 + ds_db1 * 2.0f * mu1;
-            }
-            float c_var = ds_db2, c_cov = ds_da2 * 2.0f;
-            qv[j] = s.scale * c_var * inv_n;
-            qc[j] = s.scale * c_cov * inv_n;
-            q0[j] = s.scale * (c_mu0 - 2.0f * mu0 * c_var - mu1 * c_cov) * inv_n;
-            q1[j] = s.scale * (c_mu1 - 2.0f * mu1 * c_var - mu0 * c_cov) * inv_n;
-            int a = (r + R) * AW + cx + R;  // the same pixel in the staged planes
-            float d0y = sDc[a], d0x = sDc[NA + a], d1y = sDc[2 * NA + a], d1x = sDc[3 * NA + a];
-            cy_[j] = (d0y * d0y + d1y * d1y) * ib2;
-            cx_[j] = (d0x * d0x + d1x * d1x) * ib2;
+          float rden = __fdividef(1.0f, sp.denom), ib2 = __fdividef(1.0f, sp.b2);
+          float ds_da2 = sp.a1 * rden;
+          float ds_db2 = -ssim * ib2;
+          float c_mu0 = 0.f, c_mu1 = 0.f;
+          if (s.use_luminance) {
+            float ds_da1 = sp.a2 * rden;
+            float ds_db1 = -ssim * __fdividef(1.0f, sp.b1);
+            c_mu0 = ds_da1 * 2.0f * mu1 + ds_db1 * 2.0f * mu0;
+            c_mu1 = ds_da1 * 2.0f * mu0 + ds_db1 * 2.0f * mu1;
           }
+          float c_var = ds_db2, c_cov = ds_da2 * 2.0f;
+          qv[j] = s.scale * c_var * inv_n;
+          qc[j] = s.scale * c_cov * inv_n;
+          q0[j] = s.scale * (c_mu0 - 2.0f * mu0 * c_var - mu1 * c_cov) * inv_n;
+          q1[j] = s.scale * (c_mu1 - 2.0f * mu1 * c_var - mu0 * c_cov) * inv_n;
+          int a = (r + R) * AW + cx + R;  // the same pixel in the staged planes
+          float d0y = sDc[a], d0x = sDc[NA + a], d1y = sDc[2 * NA + a], d1x = sDc[3 * NA + a];
+          cy_[j] = (d0y * d0y + d1y * d1y) * ib2;
+          cx_[j] = (d0x * d0x + d1x * d1x) * ib2;
         }
       }
-      if (WITH_GRAD) {
+      {
         const int o = r * SXP + c0;
         *reinterpret_cast<float4*>(sQ + o) = make_float4(q0[0], q0[1], q0[2], q0[3]);
         *reinterpret_cast<float4*>(sQ + NS + o) = make_float4(q1[0], q1[1], q1[2], q1[3]);
@@ -559,7 +652,7 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
     }
     __syncthreads();
 
-    if (WITH_GRAD) {
+    {
       // 3a. vertical transposed window sums (into sV: the statistics are consumed)
       vertical_pass<R, G::SEG_Q, 4>(sQ, NS, SY, sV, TY * SXP, TY, SXP, taps, tid);
       __syncthreads();
@@ -590,7 +683,7 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
 
   // 4. the curvature's vertical window sums (zero outside the image), and the
   // v tile of the TPS stencils (zero outside the arrays)
-  if (WITH_GRAD) vertical_pass<R, G::SEG_Q, 2>(sCurv, NS, SY, sV, TY * SXP, TY, SXP, taps, tid);
+  vertical_pass<R, G::SEG_Q, 2>(sCurv, NS, SY, sV, TY * SXP, TY, SXP, taps, tid);
 #pragma unroll
   for (int u = 0; u < NVJ; ++u) {
     int i = tid + u * NT;
@@ -605,18 +698,18 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
     int r = i / MX, cx = i % MX;
     int vi = (r + 1) * VX + cx + 1;
 #pragma unroll
-    for (int k = 0; k < 2; ++k)
-      tps_maps_at<VX>(sVt + k * NV + vi, y0 - 1 + r, x0 - 1 + cx, s, sM[(3 * k) * NM + i],
-                      sM[(3 * k + 1) * NM + i], sM[(3 * k + 2) * NM + i]);
+    for (int k = 0; k < 2; ++k) {
+      const float* vt = sVt + k * NV + vi;
+      tps_maps_at([vt](int dy, int dx) { return vt[dy * VX + dx]; }, y0 - 1 + r, x0 - 1 + cx, s,
+                  sM[(3 * k) * NM + i], sM[(3 * k + 1) * NM + i], sM[(3 * k + 2) * NM + i]);
+    }
   }
   __syncthreads();
 
-  float pc_y[2] = {0.f, 0.f}, pc_x[2] = {0.f, 0.f};
-  if (WITH_GRAD) {
-    // the curvature's horizontal window sums at the owned pair
-    pair_sums<R>(sV + ly * SXP, lx0, taps, pc_y[0], pc_y[1]);
-    pair_sums<R>(sV + TY * SXP + ly * SXP, lx0, taps, pc_x[0], pc_x[1]);
-  }
+  // the curvature's horizontal window sums at the owned pair
+  float pc_y[2], pc_x[2];
+  pair_sums<R>(sV + ly * SXP, lx0, taps, pc_y[0], pc_y[1]);
+  pair_sums<R>(sV + TY * SXP + ly * SXP, lx0, taps, pc_x[0], pc_x[1]);
   float e_tps = 0.f, e_ui = 0.f, e_tc = 0.f;
 #pragma unroll
   for (int k = 0; k < NOWN; ++k) {
@@ -632,28 +725,21 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
       const float* Mxy = Mxx + NM;
       const float* Myy = Mxy + NM;
       float vxx = Mxx[m], vxy = Mxy[m], vyy = Myy[m];
-      e_tps += vxx * vxx + 2.0f * vxy * vxy + vyy * vyy;
+      e_tps += tps_energy(vxx, vxy, vyy);
       float vk = sVt[kk * NV + (ly + 2) * VX + lx + 2];
-      float dui = vk - uiv[k][kk];
-      float dtc = vk - tcv[k][kk];
-      e_ui += uw[k] * (dui * dui);
-      e_tc += tw[k] * (dtc * dtc);
-      if (WITH_GRAD) {
-        // self-adjoint stencils of the three maps (descent.py tps_adj_*)
-        float adj_xx = Mxx[m - 1] - 2.0f * vxx + Mxx[m + 1];
-        float adj_yy = Myy[m - MX] - 2.0f * vyy + Myy[m + MX];
-        float adj_xy = 0.25f * (Mxy[m - MX - 1] - Mxy[m - MX + 1] - Mxy[m + MX - 1] + Mxy[m + MX + 1]);
-        float g_tps = 2.0f * adj_xx + 4.0f * adj_xy + 2.0f * adj_yy;
-        float g_sim = kk == 0 ? gs_y[k] : gs_x[k];
-        gk[kk] = g_sim + s.lam_n * g_tps + s.gui_n * uw[k] * dui + s.gtc_n * tw[k] * dtc;
-      }
+      const QuadDiff d = quad_terms(vk, uiv[k][kk], tcv[k][kk], uw[k], tw[k], e_ui, e_tc);
+      // self-adjoint stencils of the three maps (descent.py tps_adj_*)
+      float adj_xx = Mxx[m - 1] - 2.0f * vxx + Mxx[m + 1];
+      float adj_yy = Myy[m - MX] - 2.0f * vyy + Myy[m + MX];
+      float adj_xy = 0.25f * (Mxy[m - MX - 1] - Mxy[m - MX + 1] - Mxy[m + MX - 1] + Mxy[m + MX + 1]);
+      float g_tps = 2.0f * adj_xx + 4.0f * adj_xy + 2.0f * adj_yy;
+      float g_sim = kk == 0 ? gs_y[k] : gs_x[k];
+      gk[kk] = g_sim + s.lam_n * g_tps + s.gui_n * uw[k] * d.ui + s.gtc_n * tw[k] * d.tc;
     }
-    if (WITH_GRAD) {
-      float p_rest = s.ptps + s.pquad_n * (s.gamma_ui * uw[k] + s.beta_tc * tw[k]);
-      reinterpret_cast<float2*>(grad)[qpix] = make_float2(gk[0], gk[1]);
-      reinterpret_cast<float2*>(precond)[qpix] =
-          make_float2(s.psim_n * pc_y[k] + p_rest + s.eps_n, s.psim_n * pc_x[k] + p_rest + s.eps_n);
-    }
+    float p_rest = s.ptps + s.pquad_n * (s.gamma_ui * uw[k] + s.beta_tc * tw[k]);
+    reinterpret_cast<float2*>(grad)[qpix] = make_float2(gk[0], gk[1]);
+    reinterpret_cast<float2*>(precond)[qpix] =
+        make_float2(s.psim_n * pc_y[k] + p_rest + s.eps_n, s.psim_n * pc_x[k] + p_rest + s.eps_n);
   }
 
   // fixed-order tree over the block (in sV: its last readers are done)
@@ -674,6 +760,186 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
   if (tid < 4) {
     int b = blockIdx.y * gridDim.x + blockIdx.x;
     partials[4 * b + tid] = sred[tid * NT];
+  }
+}
+
+// Kernel 2: the energy partials of one tile of ENERGY_TILE_ROWS x
+// ENERGY_TILE_COLS owned pixels, without the gradient. Each warp walks a
+// column strip of ESEG owned rows: lane l holds column x0 - EHALO + l and
+// the K rows of its linearized warps in registers; the horizontal window
+// comes from the neighbouring lanes by shuffles. Each lane reads back only
+// the shared memory it wrote, so the kernel's one barrier is the block's
+// reduction.
+template <int R>
+__global__ void __launch_bounds__(ENT, 4)
+sweep_energy_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
+                    const float* __restrict__ v, const float* __restrict__ ui_w,
+                    const float* __restrict__ ui_v, const float* __restrict__ tc_w,
+                    const float* __restrict__ tc_v, float* __restrict__ partials,
+                    VmSweepScalars s) {
+  constexpr int K = 2 * R + 1;
+  constexpr unsigned FULL = 0xffffffffu;
+  const int w = s.w, C = s.C;
+  const int hw = s.h * w;  // the launcher checks that 6 C hw offsets fit an int
+  const int own_end = s.own0 + s.nown;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int x = blockIdx.x * ENERGY_TILE_COLS - EHALO + lane;           // this lane's column
+  const int yw = s.own0 + blockIdx.y * ENERGY_TILE_ROWS + wid * ESEG;  // the warp's first owned row
+  const bool col_in = x >= 0 && x < w;
+  const bool owner = lane >= EHALO && lane < EHALO + ENERGY_TILE_COLS && x < w;
+
+  float taps[K];
+#pragma unroll
+  for (int t = 0; t < K; ++t) taps[t] = s.taps[t];
+
+  // this warp's shared memory, read back only by the lane that wrote it
+  // (its own column), so no barrier: dv (y, x) at the walk's rows, 1/n at
+  // the owned rows and a ring of EDEPTH rows of the six planes
+  using G = EGeo<R>;
+  constexpr int NU = G::NU;  // rows of a channel's walk
+  extern __shared__ float4 esmem4[];
+  float* const s_dv = reinterpret_cast<float*>(esmem4) + wid * G::WARP_FLOATS;  // [2][NU][32]
+  float* const s_invn = s_dv + 2 * NU * 32;                                     // [ESEG][32]
+  float* const s_pl = s_invn + ESEG * 32;                                       // [EDEPTH][6][32]
+
+  // 0. once per strip: dv = v - v_lin (zero outside the image) and 1/n;
+  // bit u of `in` marks walk row u in the image
+  unsigned in = 0;
+  const float nx = col_in ? tap_sum_range(taps, R, x, w) : 0.0f;
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int y = yw - R + u;
+    float dvy = 0.0f, dvx = 0.0f;
+    if (col_in && row_in(s, y)) {
+      in |= 1u << u;
+      const int p = y * w + x;
+      dvy = v[2 * p] - v_lin[2 * p];
+      dvx = v[2 * p + 1] - v_lin[2 * p + 1];
+    }
+    s_dv[u * 32 + lane] = dvy;
+    s_dv[(NU + u) * 32 + lane] = dvx;
+    if (u >= R && u < R + ESEG) {
+      const int yo = yw + u - R;
+      s_invn[(u - R) * 32 + lane] =
+          owner && yo < own_end ? 1.0f / (tap_sum_range(taps, R, yo + s.row0, s.gh) * nx) : 0.0f;
+    }
+  }
+
+  // 1. per channel: the linearized warps a0 = w0 - dw0.dv, a1 = w1 + dw1.dv
+  // row by row (zero outside the image), their window statistics (vertical
+  // from a register ring, horizontal by shuffles) and the SSIM map of the
+  // owned pixels. The planes of walk step i = c NU + u arrive by 4-byte
+  // cp.async (zero-filled outside the image) into ring slot i % EDEPTH,
+  // issued EDEPTH - 1 steps ahead, across the channel boundary too.
+  auto issue = [&](int c, int u, int slot) {
+    const bool ok = (in & (1u << u)) != 0;
+    const int p = ok ? (yw - R + u) * w + x : 0;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      // w0, w1, dw0 y, dw0 x, dw1 y, dw1 x of channel c
+      const int plane = k < 2 ? k * C + c : (k < 4 ? 2 * C : 4 * C) + 2 * c + (k & 1);
+      cp_async4(s_pl + (slot * 6 + k) * 32 + lane, planes + (plane * hw + p), ok);
+    }
+  };
+#pragma unroll
+  for (int u = 0; u < EDEPTH - 1; ++u) {
+    issue(0, u, u);
+    cp_async_commit();
+  }
+
+  float e_sim = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    const int slot0 = c * NU;  // ring position of the channel's first row
+    float ra[K], rb[K];        // rows u - 2R .. u of a0 and a1, row u at u % K
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      constexpr int AHEAD = EDEPTH - 1;
+      if (u + AHEAD < NU) issue(c, u + AHEAD, (slot0 + u + AHEAD) & (EDEPTH - 1));
+      else if (c + 1 < C) issue(c + 1, u + AHEAD - NU, (slot0 + u + AHEAD) & (EDEPTH - 1));
+      cp_async_commit();
+      cp_async_wait<AHEAD>();  // step u's planes are in
+      const float* const cur = s_pl + ((slot0 + u) & (EDEPTH - 1)) * 6 * 32 + lane;
+      const float dvy = s_dv[u * 32 + lane], dvx = s_dv[(NU + u) * 32 + lane];
+      const float a = cur[0] - (cur[2 * 32] * dvy + cur[3 * 32] * dvx);
+      const float b = cur[32] + (cur[4 * 32] * dvy + cur[5 * 32] * dvx);
+      ra[u % K] = a;
+      rb[u % K] = b;
+      if (u < 2 * R) continue;
+      const int j = u - 2 * R;  // output row yw + j: rows j .. j + 2R of the walk
+      float st[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        const float at = ra[(j + t) % K], bt = rb[(j + t) % K];
+        const float aa = at * at, bb = bt * bt, ab = at * bt;
+        st[0] += taps[t] * at;
+        st[1] += taps[t] * bt;
+        st[2] += taps[t] * aa;
+        st[3] += taps[t] * bb;
+        st[4] += taps[t] * ab;
+      }
+      float hs[5];
+#pragma unroll
+      for (int q = 0; q < 5; ++q) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 0; t < K; ++t) acc += taps[t] * (t == R ? st[q] : __shfl_sync(FULL, st[q], lane - R + t));
+        hs[q] = acc;
+      }
+      if (owner && yw + j < own_end) e_sim += 1.0f - ssim_pixel(hs, s_invn[j * 32 + lane], s).ssim;
+    }
+  }
+
+  // 2. TPS, UI and TC at the owned pixels: v on the strip and a ring of 1,
+  // rows in a register ring of 3, the neighbouring columns by shuffles
+  // (zero outside the arrays, as the gradient kernel's v tile)
+  float e_tps = 0.0f, e_ui = 0.0f, e_tc = 0.0f;
+  float rv[3][3][2];  // row u % 3; columns x - 1, x, x + 1; components
+#pragma unroll
+  for (int u = 0; u < ESEG + 2; ++u) {
+    const int y = yw - 1 + u;
+    const bool inside = col_in && y >= 0 && y < s.h;
+    const size_t p = inside ? (size_t)y * w + x : 0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float vc = inside ? v[2 * p + k] : 0.0f;
+      rv[u % 3][1][k] = vc;
+      rv[u % 3][0][k] = __shfl_up_sync(FULL, vc, 1);
+      rv[u % 3][2][k] = __shfl_down_sync(FULL, vc, 1);
+    }
+    if (u < 2) continue;
+    const int j = u - 2, yo = yw + j;
+    if (owner && yo < own_end) {
+      const size_t q = (size_t)(yo - s.own0) * w + x;  // in the owned-row maps
+      const float uw = ui_w[q], tw = tc_w[q];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float vxx, vxy, vyy;
+        tps_maps_at([&](int dy, int dx) { return rv[(j + 1 + dy) % 3][dx + 1][k]; }, yo, x, s, vxx,
+                    vxy, vyy);
+        e_tps += tps_energy(vxx, vxy, vyy);
+        quad_terms(rv[(j + 1) % 3][1][k], ui_v[2 * q + k], tc_v[2 * q + k], uw, tw, e_ui, e_tc);
+      }
+    }
+  }
+
+  // 3. fixed-order reduction: a shuffle tree per warp, then the warps in order
+  __shared__ float sred[4][EWARPS];
+  float e[4] = {e_sim, e_tps, e_ui, e_tc};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) e[q] += __shfl_down_sync(FULL, e[q], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sred[q][wid] = e[q];
+  }
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < EWARPS; ++i) acc += sred[threadIdx.x][i];
+    partials[4 * (blockIdx.y * gridDim.x + blockIdx.x) + threadIdx.x] = acc;
   }
 }
 
@@ -715,7 +981,11 @@ sweep_reduce_kernel(const float* __restrict__ partials, int n_blocks, float* __r
   }
 }
 
-dim3 tile_grid(int w, int nown) { return dim3((w + TX - 1) / TX, (nown + TY - 1) / TY); }
+dim3 tile_grid(bool with_grad, int w, int nown) {
+  return with_grad ? dim3((w + TX - 1) / TX, (nown + TY - 1) / TY)
+                   : dim3((w + ENERGY_TILE_COLS - 1) / ENERGY_TILE_COLS,
+                          (nown + ENERGY_TILE_ROWS - 1) / ENERGY_TILE_ROWS);
+}
 
 // Opt each instantiation in to its dynamic shared memory, once per device.
 template <int R, bool WITH_GRAD>
@@ -726,9 +996,12 @@ cudaError_t allow_smem() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(sweep_kernel<R, WITH_GRAD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Geo<R, WITH_GRAD>::BYTES);
+  if constexpr (WITH_GRAD)
+    err = cudaFuncSetAttribute(sweep_grad_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)Geo<R>::BYTES);
+  else
+    err = cudaFuncSetAttribute(sweep_energy_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)EGeo<R>::BYTES);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return err;
 }
@@ -738,12 +1011,18 @@ int launch(const float* planes, const float* v_lin, const float* v, const float*
            const float* ui_v, const float* tc_w, const float* tc_v, float* grad,
            float* precond, float* partials, int n_partials, float* out, const VmSweepScalars& s,
            cudaStream_t stream) {
-  dim3 grid = tile_grid(s.w, s.nown);
+  dim3 grid = tile_grid(WITH_GRAD, s.w, s.nown);
   if ((long long)grid.x * grid.y > n_partials) return (int)cudaErrorInvalidValue;
+  // the energy kernel's plane offsets are ints
+  if (!WITH_GRAD && 6LL * s.C * s.h * s.w > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem<R, WITH_GRAD>();
   if (err != cudaSuccess) return (int)err;
-  sweep_kernel<R, WITH_GRAD><<<grid, NT, Geo<R, WITH_GRAD>::BYTES, stream>>>(
-      planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, grad, precond, partials, s);
+  if constexpr (WITH_GRAD)
+    sweep_grad_kernel<R><<<grid, NT, Geo<R>::BYTES, stream>>>(
+        planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, grad, precond, partials, s);
+  else
+    sweep_energy_kernel<R><<<grid, ENT, EGeo<R>::BYTES, stream>>>(planes, v_lin, v, ui_w, ui_v,
+                                                                  tc_w, tc_v, partials, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sweep_reduce_kernel<<<1, RED, 0, stream>>>(partials, (int)(grid.x * grid.y), out, s);
@@ -771,23 +1050,54 @@ int dispatch(const float* planes, const float* v_lin, const float* v, const floa
   }
 }
 
+// Registers, static and dynamic shared memory, local (spill) bytes and
+// resident blocks per SM of one kernel instantiation.
+template <int R>
+int kernel_info(bool with_grad, int* info) {
+  cudaFuncAttributes a;
+  int blocks = 0;
+  cudaError_t err;
+  const size_t dyn = with_grad ? Geo<R>::BYTES : EGeo<R>::BYTES;
+  if (with_grad) {
+    err = allow_smem<R, true>();
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, sweep_grad_kernel<R>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sweep_grad_kernel<R>, NT, dyn);
+  } else {
+    err = allow_smem<R, false>();
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, sweep_energy_kernel<R>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sweep_energy_kernel<R>, ENT, dyn);
+  }
+  if (err != cudaSuccess) return (int)err;
+  info[0] = a.numRegs;
+  info[1] = (int)a.sharedSizeBytes;
+  info[2] = (int)dyn;
+  info[3] = (int)a.localSizeBytes;
+  info[4] = blocks;
+  return 0;
+}
+
 }  // namespace
 
 // The number of blocks, and so of (sim, tps, ui, tc) partial sets, of a
-// launch over nown owned rows of width w.
-extern "C" int vm_sweep_n_partials(int w, int nown) {
-  dim3 grid = tile_grid(w, nown);
+// launch of the gradient (with_grad) or the energy kernel over nown owned
+// rows of width w.
+extern "C" int vm_sweep_n_partials(int w, int nown, int with_grad) {
+  dim3 grid = tile_grid(with_grad != 0, w, nown);
   return (int)(grid.x * grid.y);
 }
 
-// Dynamic shared memory of one block (bytes), 0 for a radius without an
-// instantiation.
-extern "C" int vm_sweep_smem_bytes(int radius, int with_grad) {
+// info[0..4]: registers per thread, static shared memory, dynamic shared
+// memory (bytes), local memory (bytes) and resident blocks per SM of the
+// gradient (with_grad) or energy kernel at a window radius; returns the CUDA
+// error, cudaErrorInvalidValue for a radius without an instantiation.
+extern "C" int vm_sweep_kernel_info(int radius, int with_grad, int* info) {
   switch (radius) {
-    case 1: return (int)(with_grad ? Geo<1, true>::BYTES : Geo<1, false>::BYTES);
-    case 2: return (int)(with_grad ? Geo<2, true>::BYTES : Geo<2, false>::BYTES);
-    case 3: return (int)(with_grad ? Geo<3, true>::BYTES : Geo<3, false>::BYTES);
-    default: return 0;
+    case 1: return kernel_info<1>(with_grad != 0, info);
+    case 2: return kernel_info<2>(with_grad != 0, info);
+    case 3: return kernel_info<3>(with_grad != 0, info);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -110,8 +110,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "vm_bilinear_sample": [P, P, P, I, I, I, I, L, I, P],
         "vm_sweep_grad": [P] * 10 + [I] + [P] * 3,
         "vm_sweep_energy": [P] * 8 + [I] + [P] * 3,
-        "vm_sweep_n_partials": [I, I],
-        "vm_sweep_smem_bytes": [I, I],
+        "vm_sweep_n_partials": [I, I, I],
+        "vm_sweep_kernel_info": [I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -1,14 +1,15 @@
 """Kernels 1 and 2: the solver's sweep gradient and sweep energy.
 
-Source: ``csrc/sweep.cu`` (``vm_sweep_grad``, ``vm_sweep_energy``; one
-template ``sweep_kernel<R, WITH_GRAD>``).
+Source: ``csrc/sweep.cu`` (``vm_sweep_grad`` launches
+``sweep_grad_kernel<R>``, ``vm_sweep_energy`` ``sweep_energy_kernel<R>``;
+the two share their per-pixel arithmetic as ``__device__`` functions).
 
 - ``sweep_grad`` replaces ``videomorphing_tpu/pallas/sweep.py:293``
   (``_build_grad_call``, driven by ``fused_value_grad_precond_pack``);
 - ``sweep_energy`` replaces ``videomorphing_tpu/pallas/sweep.py:502``
   (``_build_energy_call``, driven by ``fused_total_energy_pack``);
 - ``sweep_grad_shard`` and ``sweep_energy_shard``, the row-shard forms of
-  the same template, replace ``fused_grad_parts_shard`` (``sweep.py:936``)
+  the same kernels, replace ``fused_grad_parts_shard`` (``sweep.py:936``)
   and ``fused_energy_parts_shard`` (``:959``), which drive the same two
   builders with a global pixel count and an ownership plane.
 
@@ -16,11 +17,14 @@ Both evaluate the halfway-domain energy on the warps linearized around
 ``v_lin``: ``a0 = w0 - dw0.(v - v_lin)``, ``a1 = w1 + dw1.(v - v_lin)``.
 On paper they are bound by bytes on the H100; in practice by instructions
 and their latency (~29 window sums and ~60 maps per pixel and channel,
-over a halo). Each block stages a tile of owned pixels (:func:`sweep_tile`)
-and its halo of twice the window radius in shared memory, channel by
-channel through ``cp.async`` with the next channel's planes in flight, so
-every window sum, the dw chain and the TPS stencils read shared memory;
-the inputs are the warp kernel's plane stack as it comes, with no pack.
+over a halo). The gradient kernel stages a tile of owned pixels
+(:func:`sweep_tile`) and its halo of twice the window radius in shared
+memory, channel by channel through ``cp.async`` with the next channel's
+planes in flight, so every window sum, the dw chain and the TPS stencils
+read shared memory. The energy kernel needs no gradient halo: each warp
+walks a column strip with the window's rows in registers and the
+neighbouring columns from its lanes. The inputs are the warp kernel's
+plane stack as it comes, with no pack.
 Energy partials reduce in a fixed order (no float atomics), so reruns are
 bitwise identical.
 
@@ -58,22 +62,25 @@ MAX_RADIUS = 3  # window radii instantiated in csrc/sweep.cu
 
 
 @functools.lru_cache(maxsize=None)
-def sweep_tile() -> tuple[int, int]:
-    """(rows, columns) of owned pixels per block of ``sweep_kernel``, read
-    from ``csrc/sweep.cu``, the one place they are set."""
+def sweep_tile(with_grad: bool) -> tuple[int, int]:
+    """(rows, columns) of owned pixels per block of the gradient kernel
+    (``with_grad``; ``TILE_ROWS``, ``TILE_COLS``) or of the energy kernel
+    (``ENERGY_TILE_ROWS``, ``ENERGY_TILE_COLS``), read from
+    ``csrc/sweep.cu``, the one place they are set."""
+    names = ("TILE_ROWS", "TILE_COLS") if with_grad else ("ENERGY_TILE_ROWS", "ENERGY_TILE_COLS")
     text = (build.CSRC_DIR / "sweep.cu").read_text()
-    dims = [re.search(rf"^constexpr int {name} = (\d+);", text, re.M) for name in ("TILE_ROWS", "TILE_COLS")]
+    dims = [re.search(rf"^constexpr int {name} = (\d+);", text, re.M) for name in names]
     if not all(dims):
-        raise RuntimeError("csrc/sweep.cu does not set TILE_ROWS and TILE_COLS")
+        raise RuntimeError(f"csrc/sweep.cu does not set {' and '.join(names)}")
     return tuple(int(d.group(1)) for d in dims)
 
 
-def n_partials(w: int, nown: int) -> int:
-    """Blocks of a launch over ``nown`` owned rows of width ``w``, each
-    writing one set of (sim, tps, ui, tc) partials; ``vm_sweep_n_partials``
-    computes the same count on the card, and the kernel refuses a buffer
-    that holds fewer."""
-    rows, cols = sweep_tile()
+def n_partials(w: int, nown: int, with_grad: bool) -> int:
+    """Blocks of a launch of the gradient (``with_grad``) or the energy
+    kernel over ``nown`` owned rows of width ``w``, each writing one set of
+    (sim, tps, ui, tc) partials; ``vm_sweep_n_partials`` computes the same
+    count on the card, and the kernel refuses a buffer that holds fewer."""
+    rows, cols = sweep_tile(with_grad)
     return -(-nown // rows) * -(-w // cols)
 
 
@@ -192,13 +199,13 @@ def sweep_energy_plain(planes, v_lin, v, data, p: MorphParams):
 
 def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int = 0, gh: int = 0,
             halo: int = 0):
-    """One launch of ``sweep_kernel`` (and its reduce) on a whole frame or,
+    """One launch of a sweep kernel (and its reduce) on a whole frame or,
     with ``halo`` > 0, on a row shard; returns (out (5,), grad, precond)."""
     h, w, c = _check(planes, v_lin, v, data, halo)
     bh = h - 2 * halo
     s = _scalars(p, h, w, c, row0, gh or h, halo, bh)
     dev = v.device
-    n_parts = n_partials(w, bh)
+    n_parts = n_partials(w, bh, with_grad)
     partials = torch.empty((n_parts, 4), dtype=torch.float32, device=dev)
     out = torch.empty((5,), dtype=torch.float32, device=dev)
     lib = build.load()

@@ -74,6 +74,18 @@ def screened_solve(rhs: torch.Tensor, lam: float) -> torch.Tensor:
     return idct2(dct2(rhs) / (lam + eigs))
 
 
+def poisson_solve_dct(rhs: torch.Tensor, mean_value=0.0) -> torch.Tensor:
+    """Solve ``Laplacian x = rhs`` (Neumann) with the free mean pinned to
+    ``mean_value`` (a number or a tensor broadcast over the channels)."""
+    h, w = rhs.shape[0], rhs.shape[1]
+    lam = _expand_eigs(_neg_laplace_eigs(h, w, rhs.dtype, rhs.device), rhs.dim())
+    r_hat = dct2(rhs)
+    zero = lam == 0.0
+    x_hat = torch.where(zero, torch.zeros_like(r_hat), r_hat / torch.where(zero, torch.ones_like(lam), -lam))
+    x = idct2(x_hat)
+    return x - torch.mean(x, dim=(0, 1), keepdim=True) + mean_value
+
+
 def divergence(gy: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
     """Backward-difference divergence matching forward-difference gradients."""
     dy = gy - torch.roll(gy, 1, dims=0)

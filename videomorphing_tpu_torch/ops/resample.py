@@ -69,6 +69,29 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return out[..., 0] if squeeze else out
 
 
+def sample_at(img: torch.Tensor, base: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """Sample ``img`` at ``base + offset``: the halfway-domain warp. With
+    ``base = grid_coords(H, W)`` this is I(p + offset(p)) (``offset = -v``
+    for image 0, ``+v`` for image 1)."""
+    return bilinear_sample(img, base + offset)
+
+
+def image_gradients(img: torch.Tensor) -> torch.Tensor:
+    """Central-difference gradients of (H, W, C) or (H, W): (H, W, C, 2)
+    (or (H, W, 2)) ordered (d/dy, d/dx), one-sided at the edges."""
+    squeeze = img.dim() == 2
+    if squeeze:
+        img = img[..., None]
+    gy = (torch.roll(img, -1, dims=0) - torch.roll(img, 1, dims=0)) * 0.5
+    gx = (torch.roll(img, -1, dims=1) - torch.roll(img, 1, dims=1)) * 0.5
+    gy[0] = img[1] - img[0]
+    gy[-1] = img[-1] - img[-2]
+    gx[:, 0] = img[:, 1] - img[:, 0]
+    gx[:, -1] = img[:, -1] - img[:, -2]
+    g = torch.stack([gy, gx], dim=-1)
+    return g[:, :, 0, :] if squeeze else g
+
+
 def bilinear_sample_batched(imgs: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """``bilinear_sample(imgs[k], coords[k])`` for every k in one pass:
     ``imgs`` (n, H, W, C), ``coords`` (n, ..., 2) -> (n, ..., C). The same

@@ -149,3 +149,18 @@ def dssim_grad_bundle(
     g1 = grad_one(c_mu1, mu1, mu0, w1, w0)
     dmap = torch.mean((1.0 - s) * vmask, dim=-1)
     return DssimGradBundle(energy, g0, g1, dmap, b2)
+
+
+def dssim_value_and_grad_wrt_images(
+    w0: torch.Tensor,
+    w1: torch.Tensor,
+    window: int = 5,
+    sigma: float = 1.0,
+    c1: float = 1e-4,
+    c2: float = 9e-4,
+    use_luminance: bool = True,
+):
+    """E_SIM = mean_{p,c}(1 - SSIM) and its analytic gradients: returns
+    ``(E, dE/dw0, dE/dw1, dssim_map)`` (see :func:`dssim_grad_bundle`)."""
+    b = dssim_grad_bundle(w0, w1, window, sigma, c1, c2, use_luminance)
+    return b.energy, b.g0, b.g1, b.dmap

@@ -74,6 +74,15 @@ def separable_filter(x: torch.Tensor, ky, kx=None, mode: str = "same_zero") -> t
     return _filter_axis(_filter_axis(x, _taps_list(ky), 0, mode), _taps_list(kx), 1, mode)
 
 
+def box_filter(x: torch.Tensor, size: int, mode: str = "same_zero") -> torch.Tensor:
+    """Separable box filter (windowed mean) of ``size`` taps of float32
+    1 / size; an integer image is filtered in float32."""
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    k = [float(np.float32(1.0 / size))] * size
+    return separable_filter(x, k, k, mode=mode)
+
+
 def median3x3(x: torch.Tensor) -> torch.Tensor:
     """Per-channel 3x3 median of (H, W, ...) with edge-replicated borders.
 

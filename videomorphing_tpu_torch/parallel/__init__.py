@@ -18,3 +18,23 @@ Each device's share runs in turn from this process; across several cards
 the launches overlap as far as the host issues them. The multi-process
 tier (``batch.py``, ``multihost.py``) is not ported (ROADMAP item 16).
 """
+
+from videomorphing_tpu_torch.parallel.mesh import make_mesh
+from videomorphing_tpu_torch.parallel.halo import halo_exchange_rows
+from videomorphing_tpu_torch.parallel.frames import (
+    render_clip_sharded,
+    optimize_pairs_batched,
+)
+from videomorphing_tpu_torch.parallel.spatial import make_spatial_level_solver
+
+# Names of the reference's __all__ that are jax.sharding objects: not ported
+# (a Mesh here lists torch devices, and each function places its own tensors).
+NOT_PORTED = ("batch_sharding", "replicated_sharding")
+
+__all__ = [
+    "make_mesh",
+    "halo_exchange_rows",
+    "render_clip_sharded",
+    "optimize_pairs_batched",
+    "make_spatial_level_solver",
+]

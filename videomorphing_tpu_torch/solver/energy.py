@@ -10,7 +10,7 @@ with the halfway warps w0(p) = I0(p - v(p)), w1(p) = I1(p + v(p)).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -78,8 +78,9 @@ def quadratic_energies(v: torch.Tensor, data: LevelData, p: MorphParams):
     return e_tps, e_ui, e_tc
 
 
-def total_energy(v: torch.Tensor, data: LevelData, p: MorphParams) -> torch.Tensor:
-    """E(v) with exact warps (0-d tensor)."""
+def energy_terms(v: torch.Tensor, data: LevelData, p: MorphParams) -> Dict[str, torch.Tensor]:
+    """Every energy term as a 0-d tensor, each already weight-multiplied:
+    ``sim``, ``tps``, ``ui`` and ``tc``, with exact warps."""
     w0, w1 = warp_pair(data.i0, data.i1, v)
     e_sim = torch.mean(
         dssim_map(
@@ -88,4 +89,10 @@ def total_energy(v: torch.Tensor, data: LevelData, p: MorphParams) -> torch.Tens
         )
     )
     e_tps, e_ui, e_tc = quadratic_energies(v, data, p)
-    return e_sim + e_tps + e_ui + e_tc
+    return dict(sim=e_sim, tps=e_tps, ui=e_ui, tc=e_tc)
+
+
+def total_energy(v: torch.Tensor, data: LevelData, p: MorphParams) -> torch.Tensor:
+    """E(v) with exact warps (0-d tensor)."""
+    t = energy_terms(v, data, p)
+    return t["sim"] + t["tps"] + t["ui"] + t["tc"]

@@ -14,7 +14,7 @@ plain PyTorch, as in the reference, which has no bicubic kernel.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -103,6 +103,12 @@ def invert_path_with_field(
     return q - s[..., :2], s[..., 2:].contiguous()
 
 
+class FrameAux(NamedTuple):
+    mask0: torch.Tensor         # (H, W) validity of the I0 sample
+    mask1: torch.Tensor         # (H, W) validity of the I1 sample
+    inv_residual: torch.Tensor  # (H, W) |x_t(p(q)) - q|, the path inversion's error
+
+
 def render_frame(
     i0: torch.Tensor,
     i1: torch.Tensor,
@@ -112,7 +118,8 @@ def render_frame(
     sp: SynthParams = SynthParams(),
     conf0: Optional[torch.Tensor] = None,
     conf1: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    with_aux: bool = False,
+):
     """Synthesize the morph frame at time ``t`` in [0, 1]:
     c_t(q) = (1-t) I0(phi0(p(q))) + t I1(phi1(p(q))), Poisson-extended and,
     with the per-source visibility maps ``conf0``/``conf1`` (H, W) of the
@@ -121,7 +128,8 @@ def render_frame(
     Each confidence rides along as a 4th image channel through the colour
     samples and is clipped to [0, 1] after sampling (the bicubic
     interpolant can overshoot). The two bilinear colour samples are one
-    launch of the batched sampler.
+    launch of the batched sampler. ``with_aux`` also returns a
+    :class:`FrameAux`: ``(frame, aux)``.
     """
     h, w = i0.shape[0], i0.shape[1]
     t = f32(t)
@@ -142,7 +150,13 @@ def render_frame(
         s1, c1 = s1[..., :-1], torch.clamp(s1[..., -1], 0.0, 1.0)
     m0 = inside_mask(phi0, h, w)
     m1 = inside_mask(phi1, h, w)
-    return blend_extended(s0, s1, m0, m1, float(t), sp, c0, c1)
+    out = blend_extended(s0, s1, m0, m1, float(t), sp, c0, c1)
+    if not with_aux:
+        return out
+    disp = path_displacement(v, b, t)
+    q = grid_coords(h, w, dtype=v.dtype, device=v.device)
+    res = torch.linalg.norm(p + bilinear_sample(disp, p) - q, dim=-1)
+    return out, FrameAux(mask0=m0, mask1=m1, inv_residual=res)
 
 
 def render_clip(
