@@ -36,8 +36,9 @@ Phases:
      ``ssim_window`` 3, 5 and 7);
   3. the pair path: ``api.morph_pair`` on a 1024 x 1024 pair with 4 point
      constraints and 16 frames, with every kernel's launch count;
-  4. the golden translation at 256 x 256: the midpoint frame against its
-     analytic truth (SSIM >= 0.99);
+  4. the golden cases (``utils.golden.run_golden``: translation, rotation
+     and scale at 256 x 256): midpoint SSIM >= 0.99 each, and a mean field
+     error < 0.1 px for the translation;
   5. the video path: ``api.morph_clips`` on the JAX bench's 30-frame
      1080 x 1920 clip pair with 4 points and default parameters, with every
      kernel's launch count, each stage's wall and frames/s;
@@ -61,12 +62,26 @@ Phases:
  11. the mesh video path: ``api.morph_clips`` on phase 5's clip pair with a
      3-device mesh of the one card (blocks of 10 frames), its sharded flows
      against ``clip_flows`` and its render against the sequential render
-     of the same fields.
+     of the same fields;
+ 12. the manifest at 4K: ``parallel.batch.run_manifest`` on three jobs of
+     2160 x 3840 pairs (4 points and 4 frames, no points and 4 frames, 4
+     points and 2 frames) over a 2-device mesh of the card, each job
+     bitwise equal to ``api.morph_pair`` of it;
+ 13. the streamed clip pair at 4K: 6 frames of 2160 x 3840 as ``.vmc``
+     stores through the native reader (required) and
+     ``StreamingBatchRunner.run_clip_pair`` on a 2-device mesh of the card,
+     each frame bitwise equal to its pair's own morph, with the runner's
+     decode / H2D / dispatch / fetch sums; then ``cli batch`` in child
+     processes (``--clip-a/--clip-b`` and ``--manifest``) at 270 x 480,
+     byte for byte against the in-process calls;
+ 14. the stressor (``utils.stressor``): the robust-flow morph beats the
+     cross-dissolve at 4 x 72 x 104, and the flow, occlusion and midframe
+     metrics at 8 x 480 x 854 (printed, no gate).
 
 A repeated-device mesh runs its blocks one after another on the card: a
 correctness path, not a speed-up. Any failure raises and exits non-zero.
 The card's name and power limit, then one JSON object with a record per
-kernel (launches summed over the paths of phases 3, 5, 7, 8, 10 and 11;
+kernel (launches summed over the paths of phases 3-5, 7, 8 and 10-14;
 ``ms`` and ``library_ms`` device times, ``plain_ms`` a call time), are the
 lines before the last; the last line is ``{"ok": true, "device":
 {...}}``. With no CUDA device it exits 1 and prints no result.
@@ -105,6 +120,13 @@ KERNELS = {
 SHARD_SHAPES = ((2160, 3840), (132, 241))
 SPATIAL_HW = (2160, 3840)
 MESH_VIDEO_THW = (30, 1080, 1920)
+# the shapes of phases 4 and 12-14 (the batch tier and the quality gates)
+GOLDEN_HW = (256, 256)
+MANIFEST_HW = (2160, 3840)
+STREAM_THW = (6, 2160, 3840)
+CLI_BATCH_THW = (6, 270, 480)
+STRESSOR_GATE_THW = (4, 72, 104)
+STRESSOR_FULL_THW = (8, 480, 854)
 BASE = ("halfway_warp", "bilinear_sample", "bilinear_sample_batched", "sweep_grad", "sweep_energy")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -446,8 +468,10 @@ def check_sampler_forms(dev, compare, rec, t) -> None:
     grey image and at 4 points, the batched form as the flow warps (n = 29
     and the 2(T-1) = 58 of one clip's batch, grey 540 x 960), the occlusion
     round trip (n = 29 two-channel flows at 540 x 960 and at 1080 x 1920)
-    and the render (n = 2 four-channel 1080 x 1920 frames) call it, each with
-    kernel and plain times (10 calls per reading). Bitwise (the lerps round
+    and the render (n = 2 four-channel 1080 x 1920 frames) call it, and at
+    the shapes of the batch tier and the stressor
+    (``batch_tier_sampler_cases``), each with kernel and plain times (10
+    calls per reading). Bitwise (the lerps round
     as the plain version's separate operations). The flow warps' 58-image
     case gives the batched form's record; it and the render's case are also
     timed through ``F.grid_sample``. Then the instantiations
@@ -469,27 +493,70 @@ def check_sampler_forms(dev, compare, rec, t) -> None:
         imgs = torch.stack([t(255.0 * rng.random((hh, ww, c), dtype=np.float32)) for _ in range(n)])
         coords = torch.stack([gg + t(smooth_field(hh, ww, 3.0, 10 + k)) for k in range(n)])
         cases.append(("bilinear_sample_batched", f"{n}x{hh}x{ww}x{c}", imgs, coords))
+    cases += batch_tier_sampler_cases(rng, t)
     for name, shape, img, coords in cases:
         kern = getattr(kw, name)
         plain = getattr(kw, name + "_plain")
         compare(name, plain(img, coords), kern(img, coords), shape, 0.0, False)
         ms, plain_ms, (k1, k2, pl1, pl2), call = timed_pair(lambda: kern(img, coords), lambda: plain(img, coords), 10)
+        c = 1 if img.dim() == 2 else img.shape[-1]  # a grey (H, W) image has one channel
+        npx = coords.numel() // 2
+        bnd = bound(4 * (img.numel() + coords.numel() + npx * c), npx * sample_ops_per_pixel(c))
         log(f"  {name} {shape} time: kernel {k1:.4f}/{k2:.4f} ms (device), {call:.4f} ms (call), "
-            f"plain {pl1:.4f}/{pl2:.4f} ms")
+            f"plain {pl1:.4f}/{pl2:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
         if shape in (f"58x{h}x{w}x1", "2x1080x1920x4"):
-            n, c = img.shape[0], img.shape[-1]
-            npx = n * coords.shape[1] * coords.shape[2]
-            bnd = bound(4 * (img.numel() + coords.numel() + npx * c), npx * sample_ops_per_pixel(c))
             lib_ms = grid_sample_ms(img, coords)
             lib_call = cuda_ms(grid_sample_call(img, coords), 10)
-            log(f"  {name} {shape} bound: {bnd[0]:.4f} ms ({bnd[1]}); F.grid_sample {lib_ms:.4f} ms (device), "
-                f"{lib_call:.4f} ms (call)")
+            log(f"  {name} {shape} F.grid_sample {lib_ms:.4f} ms (device), {lib_call:.4f} ms (call)")
             if shape == f"58x{h}x{w}x1":
                 rec[name]["ms"], rec[name]["plain_ms"] = ms, plain_ms
                 rec[name]["bound"], rec[name]["library_ms"] = bnd, lib_ms
     del cases
     torch.cuda.empty_cache()
     check_sampler_variants(dev, compare, t)
+
+
+def batch_tier_sampler_cases(rng, t) -> list:
+    """Kernel 4's inputs on the paths of phases 12-14, at ``MANIFEST_HW``
+    and ``STRESSOR_FULL_THW``: the path inversion of a 4K render (the
+    fixed point on 2-channel displacements at a quarter and a half of the
+    frame, then the stacked 4-channel [d_t, v] sample at full size, single
+    form), the render's two colour samples (batched, n = 2, C = 3); the
+    stressor's flow warps (n = 2(T-1) grey images at the flow's working
+    size, ``flow_scale`` of the frame, passed as ``video.flow._warp_gray``
+    passes them: permuted views of an (h, w, n) stack), its occlusion round
+    trip (n = T-1 two-channel flows) and its render with the confidences
+    as a 4th channel (n = 2, C = 4). Coordinates are the pixel grid plus a
+    smooth field that leaves the frame near its borders."""
+    import torch
+
+    from videomorphing_tpu_torch.config import VideoParams
+
+    half = lambda n: -(-n // 2)
+    grid = lambda hh, ww: t(np.stack(np.mgrid[0:hh, 0:ww], -1))
+    coords = lambda hh, ww, n, seed: torch.stack(
+        [grid(hh, ww) + t(smooth_field(hh, ww, 8.0, seed + k)) for k in range(n)])
+    cases = []
+    mh, mw = MANIFEST_HW
+    for hh, ww, c, what in ((half(half(mh)), half(half(mw)), 2, "quarter"), (half(mh), half(mw), 2, "half"),
+                            (mh, mw, 4, "stacked")):
+        img = t(8.0 * rng.standard_normal((hh, ww, c), dtype=np.float32))
+        cases.append(("bilinear_sample", f"path inversion ({what}) {hh}x{ww}x{c}", img, coords(hh, ww, 1, 40)[0]))
+    imgs = t(rng.random((2, mh, mw, 3), dtype=np.float32))
+    cases.append(("bilinear_sample_batched", f"render 2x{mh}x{mw}x3", imgs, coords(mh, mw, 2, 50)))
+    t_len, sh, sw = STRESSOR_FULL_THW
+    vp = VideoParams()
+    fh, fw = max(int(round(sh * vp.flow_scale)), 16), max(int(round(sw * vp.flow_scale)), 16)
+    n = 2 * (t_len - 1)
+    grey = t(255.0 * rng.random((fh, fw, n), dtype=np.float32))
+    flow_coords = coords(fh, fw, n, 60).permute(1, 2, 0, 3).contiguous()
+    cases.append(("bilinear_sample_batched", f"stressor flow warps {n}x{fh}x{fw}x1 (views)",
+                  grey.permute(2, 0, 1)[..., None], flow_coords.permute(2, 0, 1, 3)))
+    for n, c, what in ((t_len - 1, 2, "occlusion"), (2, 4, "render")):
+        imgs = t(4.0 * rng.standard_normal((n, sh, sw, c), dtype=np.float32))
+        cases.append(("bilinear_sample_batched", f"stressor {what} {n}x{sh}x{sw}x{c}", imgs,
+                      coords(sh, sw, n, 70)))
+    return cases
 
 
 def _blocks(h: int, n: int, halo: int):
@@ -694,43 +761,23 @@ def main_path(dev, card: str) -> dict:
     return launches
 
 
-def golden_translation(dev) -> float:
-    """Phase 4: translation golden case (numpy rebuild of the reference's
-    ``utils/golden.translation_case``): I1 = I0 shifted by 2u, u = (2.5, 4)."""
-    import torch
+def golden(dev) -> dict:
+    """Phase 4: ``utils.golden.run_golden`` on the translation, rotation and
+    scale cases at ``GOLDEN_HW`` with default parameters: midpoint SSIM
+    >= 0.99 for each and a mean field error < 0.1 px for the translation
+    (the gate of ``tests/test_golden.py``)."""
+    from videomorphing_tpu_torch.utils.golden import run_golden
 
-    from videomorphing_tpu_torch import api
-    from videomorphing_tpu_torch.models.image_morph import ImageMorpher
-    from videomorphing_tpu_torch.ops.ssim import dssim_map
-
-    h = w = 256
-    uy, ux = 2.5, 4.0
-    rng = np.random.default_rng(0)
-    c, k = 3, 24
-    period = np.exp(rng.uniform(np.log(10.0), np.log(80.0), (c, k)))
-    ang = rng.uniform(0.0, 2 * np.pi, (c, k))
-    psi = rng.uniform(0.0, 2 * np.pi, (c, k))
-    amp = rng.uniform(0.5, 1.0, (c, k))
-    amp = 0.48 * amp / amp.sum(1, keepdims=True)
-    omega = 2 * np.pi / period
-    wy, wx = omega * np.sin(ang), omega * np.cos(ang)
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
-
-    def tex(yy, xx):
-        ph = yy[..., None, None] * wy + xx[..., None, None] * wx + psi
-        return (0.5 + (amp * np.cos(ph)).sum(-1)).astype(np.float32)
-
-    i0, i1, mid = tex(ys, xs), tex(ys - 2 * uy, xs - 2 * ux), tex(ys - uy, xs - ux)
-    crop = int(np.ceil(2 * max(abs(uy), abs(ux)))) + 12
-    art = api.solve_pair(i0, i1, device=dev)
-    t = lambda a: torch.from_numpy(a).to(dev)
-    frame = ImageMorpher(device=str(dev)).render_one(t(i0), t(i1), art, 0.5)
-    sl = (slice(crop, -crop), slice(crop, -crop))
-    ssim = 1.0 - float(torch.mean(dssim_map(frame[sl], t(mid)[sl])))
-    v_err = float(torch.linalg.norm(art.v[sl] - torch.tensor([uy, ux], device=dev), dim=-1).mean())
-    log(f"  golden translation 256x256: midpoint SSIM {ssim:.5f}, mean field error {v_err:.4f} px")
-    require(ssim >= 0.99, f"golden midpoint SSIM {ssim} < 0.99")
-    return ssim
+    h, w = GOLDEN_HW
+    counters = reset_counters()
+    for case in ("translation", "rotation", "scale"):
+        r = run_golden(case, hw=GOLDEN_HW, device=dev)
+        log(f"  golden {case} {h}x{w}: ssim_mid {r['ssim_mid']}, v_err_mean {r['v_err_mean']} px, "
+            f"v_err_p99 {r['v_err_p99']} px (crop {r['crop']})")
+        require(r["ssim_mid"] >= 0.99, f"golden {case}: midpoint SSIM {r['ssim_mid']} < 0.99")
+        if case == "translation":
+            require(r["v_err_mean"] < 0.1, f"golden translation: mean field error {r['v_err_mean']} >= 0.1 px")
+    return read_counters(counters)
 
 
 def bench_points(h: int, w: int) -> np.ndarray:
@@ -1218,6 +1265,282 @@ def command_line() -> None:
                 f"cli project wrote {frames.shape}")
 
 
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reset_counters():
+    """Every launch counter set to 0 (after a synchronize), and the peak
+    memory statistic reset on a card; returns the counters."""
+    import torch
+
+    counters = kernel_counters()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    return counters
+
+
+def read_counters(counters) -> dict:
+    return {fn.__name__: fn.launches for fn in counters}
+
+
+def peak_gib(dev) -> str:
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        return "not measured"
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+
+def check_endpoints(frames, i0, i1, what: str) -> None:
+    """The first and last frames reproduce the inputs: mean |d| < 0.02 off a
+    2-pixel border (phase 7's tolerance)."""
+    sl = (slice(2, -2), slice(2, -2))
+    e0 = float(np.abs(frames[0][sl] - i0[sl]).mean())
+    e1 = float(np.abs(frames[-1][sl] - i1[sl]).mean())
+    log(f"  {what} endpoints: mean |frame 0 - A| {e0:.5f}, mean |last - B| {e1:.5f} (limit 0.02)")
+    require(e0 < 0.02 and e1 < 0.02, f"{what}: the endpoint frames do not reproduce the inputs")
+
+
+def manifest_path(dev, card: str) -> dict:
+    """Phase 12: ``parallel.batch.run_manifest`` on three jobs of frame 0 of
+    ``make_clips(1, *MANIFEST_HW, seed=s)``, s = 0, 1, 2 (the bench's 4
+    points and 4 frames; no points and 4 frames; points and 2 frames) over
+    a 2-device mesh of the card: two blocks, the second of one job (unpadded). Each job's
+    frames must equal ``api.morph_pair`` of the job bitwise (the same pair
+    path on the same inputs), be finite, hold their count and reproduce
+    the inputs at the ends."""
+    import torch
+
+    from videomorphing_tpu_torch import api
+    from videomorphing_tpu_torch.parallel.batch import run_manifest
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
+
+    h, w = MANIFEST_HW
+    pts = bench_points(h, w)
+    jobs = []
+    for seed, points, n_frames in ((0, pts, 4), (1, None, 4), (2, pts, 2)):
+        clip_a, clip_b = make_clips(1, h, w, seed=seed)
+        jobs.append(dict(i0=clip_a[0], i1=clip_b[0], points=points, n_frames=n_frames))
+    mesh = make_mesh(devices=[dev] * 2)
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    outs = run_manifest(jobs, mesh, verbose=True)
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    peak = peak_gib(dev)
+    log(f"  launches in the manifest path: {launches}")
+    require([o.shape for o in outs] == [(j["n_frames"], h, w, 3) for j in jobs],
+            f"manifest frames have shapes {[o.shape for o in outs]}")
+    for name in BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched on the manifest path")
+    log(f"  batch_manifest_4k: wall {wall:.3f} s for {len(jobs)} pairs ({sum(j['n_frames'] for j in jobs)} frames), "
+        f"{len(jobs) / wall:.3f} pairs/s, peak device memory {peak}, 2 slots on one card (in turn) on {card}")
+    for k, (job, frames) in enumerate(zip(jobs, outs)):
+        require(np.isfinite(frames).all(), f"job {k}: non-finite frames")
+        ref = api.morph_pair(job["i0"], job["i1"], job["points"], job["n_frames"], device=dev).cpu().numpy()
+        err = float(np.abs(ref - frames).max())
+        log(f"  job {k}: max |d| against api.morph_pair {err:.3e} (bitwise required)")
+        require(np.array_equal(ref, frames), f"job {k}: the manifest frames differ from api.morph_pair by {err}")
+        check_endpoints(frames, job["i0"], job["i1"], f"job {k}")
+    del outs, jobs
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def stream_path(dev, card: str) -> dict:
+    """Phase 13: ``make_clips(*STREAM_THW, seed=0)`` written as two ``.vmc``
+    stores, streamed through the native reader (required) by
+    ``StreamingBatchRunner.run_clip_pair`` over a 2-device mesh of the card
+    (reader blocks of 2) into a ``VmcWriter``. Frame k must equal the pair's
+    own solve rendered at ``linspace(0, 1, T)[k]`` bitwise, on the same
+    decoded frames, and the written store reads back as the frames'
+    uint8 quantization."""
+    import torch
+
+    from videomorphing_tpu_torch import api
+    from videomorphing_tpu_torch.io.clips import VmcWriter, open_clip_reader, read_vmc, save_clip
+    from videomorphing_tpu_torch.io.images import to_uint8
+    from videomorphing_tpu_torch.models.image_morph import ImageMorpher
+    from videomorphing_tpu_torch.parallel.batch import StreamingBatchRunner
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
+
+    t_len, h, w = STREAM_THW
+    with tempfile.TemporaryDirectory() as tmp:
+        pa, pb, out = (os.path.join(tmp, n) for n in ("a.vmc", "b.vmc", "out.vmc"))
+        clip_a, clip_b = make_clips(t_len, h, w, seed=0)
+        save_clip(pa, clip_a)
+        save_clip(pb, clip_b)
+        del clip_a, clip_b
+        mesh = make_mesh(devices=[dev] * 2)
+        runner = StreamingBatchRunner(mesh)
+        ra, rb = open_clip_reader(pa, block=2), open_clip_reader(pb, block=2)
+        require(ra.kind == rb.kind == "native", f"the .vmc readers are {ra.kind!r} / {rb.kind!r}, not native")
+        stats, got = [], {}
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        with VmcWriter(out) as wr:
+            for s0, frames in runner.run_clip_pair(ra, rb, t_len, (h, w), stats=stats):
+                wr.append(frames)
+                got[s0] = frames
+        wall = time.perf_counter() - t0
+        launches = read_counters(counters)
+        peak = peak_gib(dev)
+        log(f"  launches in the stream path: {launches}")
+        for name in BASE:
+            require(launches[name] > 0, f"kernel {name} was not launched on the stream path")
+        frames = np.concatenate([got[k] for k in sorted(got)])
+        require(frames.shape == (t_len, h, w, 3) and np.isfinite(frames).all(),
+                f"the stream gave {frames.shape} frames (finite: {np.isfinite(frames).all()})")
+        sums = {k: sum(st[k] for st in stats) for k in ("decode_s", "h2d_s", "dispatch_s", "fetch_s")}
+        log(f"  batch_stream_4k: wall {wall:.3f} s for {t_len} pairs, {t_len / wall:.3f} pairs/s, "
+            f"peak device memory {peak}, 2 slots on one card (in turn) on {card}")
+        log("  stats per block: " + json.dumps([{k: (round(v, 4) if isinstance(v, float) else v)
+                                                 for k, v in st.items()} for st in stats]))
+        log("  stats sums (s): " + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()))
+        require(np.array_equal(read_vmc(out), to_uint8(frames) / np.float32(255.0)),
+                "the written .vmc does not read back as the frames' quantization")
+        ca = np.concatenate([b for _, b in open_clip_reader(pa, block=t_len)])
+        cb = np.concatenate([b for _, b in open_clip_reader(pb, block=t_len)])
+    times = np.linspace(0.0, 1.0, t_len, dtype=np.float32)
+    morpher = ImageMorpher(device=str(dev))
+    worst = 0.0
+    for k in range(t_len):
+        i0, i1 = api._dev(ca[k], dev), api._dev(cb[k], dev)
+        ref = morpher.render(i0, i1, morpher.solve(i0, i1), times[k:k + 1])[0].cpu().numpy()
+        worst = max(worst, float(np.abs(ref - frames[k]).max()))
+        require(np.array_equal(ref, frames[k]), f"stream frame {k} differs from its pair's morph by {worst}")
+    log(f"  every frame equals its pair's solve rendered at its time: max |d| {worst:.3e} (bitwise required)")
+    check_endpoints(frames, ca[0], cb[-1], "stream")
+    del frames, ca, cb, got
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def batch_command_line(dev) -> None:
+    """Phase 13, the command line: ``cli batch`` in child processes on
+    ``make_clips(*CLI_BATCH_THW, seed=1)``: ``--clip-a/--clip-b`` on the
+    ``.vmc`` pair with the bench's points, and ``--manifest`` of two jobs
+    (``.npy`` frames: frame 0 with the points and 3 frames, frame 3 with
+    none and 2 frames). Each must exit 0 and write the bytes that the
+    in-process call writes."""
+    import torch
+
+    from videomorphing_tpu_torch.io.clips import VmcWriter, open_clip_reader, save_clip
+    from videomorphing_tpu_torch.parallel.batch import StreamingBatchRunner, run_manifest
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
+
+    t_len, h, w = CLI_BATCH_THW
+    clip_a, clip_b = make_clips(t_len, h, w, seed=1)
+    pts = bench_points(h, w)
+    mesh = make_mesh(devices=[dev])  # the CLI's mesh: every card of the machine
+    with tempfile.TemporaryDirectory() as tmp:
+        f = lambda name: os.path.join(tmp, name)
+        save_clip(f("a.vmc"), clip_a)
+        save_clip(f("b.vmc"), clip_b)
+        with open(f("p.json"), "w") as fh:
+            json.dump({"points": pts.tolist()}, fh)
+        events = run_cli(["batch", "--clip-a", f("a.vmc"), "--clip-b", f("b.vmc"), "--points", f("p.json"),
+                          "--out", f("cli.vmc"), "-v", "--device", torch.device(dev).type])
+        require(any(e.get("event") == "metrics" for e in events), "cli batch emitted no metrics line")
+        with VmcWriter(f("lib.vmc")) as wr:
+            for _s, frames in StreamingBatchRunner(mesh).run_clip_pair(
+                    open_clip_reader(f("a.vmc"), block=1), open_clip_reader(f("b.vmc"), block=1),
+                    t_len, (h, w), points=pts):
+                wr.append(frames)
+        require(Path(f("cli.vmc")).read_bytes() == Path(f("lib.vmc")).read_bytes(),
+                "cli batch --clip-a/--clip-b wrote other frames than run_clip_pair")
+        log(f"  cli batch --clip-a/--clip-b wrote the {Path(f('cli.vmc')).stat().st_size} bytes of run_clip_pair")
+
+        jobs = []
+        for k, (points, n_frames) in enumerate(((pts, 3), (None, 2))):
+            src = 3 * k
+            np.save(f(f"a{k}.npy"), clip_a[src])
+            np.save(f(f"b{k}.npy"), clip_b[src])
+            jobs.append(dict(a=f(f"a{k}.npy"), b=f(f"b{k}.npy"), n_frames=n_frames, out=f(f"m{k}.vmc"),
+                             **({"points": points.tolist()} if points is not None else {})))
+        with open(f("jobs.json"), "w") as fh:
+            json.dump({"jobs": jobs}, fh)
+        events = run_cli(["batch", "--manifest", f("jobs.json"), "-v", "--device", torch.device(dev).type])
+        require(any(e.get("event") == "metrics" for e in events), "cli batch --manifest emitted no metrics line")
+        lib = run_manifest([dict(i0=clip_a[3 * k], i1=clip_b[3 * k], points=None if j.get("points") is None
+                                 else np.asarray(j["points"], np.float32), n_frames=j["n_frames"])
+                            for k, j in enumerate(jobs)], mesh)
+        for k, frames in enumerate(lib):
+            save_clip(f(f"lib{k}.vmc"), frames)
+            require(Path(f(f"m{k}.vmc")).read_bytes() == Path(f(f"lib{k}.vmc")).read_bytes(),
+                    f"cli batch --manifest job {k} wrote other frames than run_manifest")
+        log("  cli batch --manifest wrote the bytes of run_manifest for both jobs")
+
+
+def stressor_path(dev, card: str) -> dict:
+    """Phase 14: ``utils.stressor`` at ``STRESSOR_GATE_THW`` (the size of
+    ``tests/test_stressor.py``, seed 3): ``video.pipeline.morph_video`` with
+    the robust flow, 4 frames at blend 0.5, must beat the cross-dissolve on
+    the analytic mid frames by 0.01 SSIM (that test's claim). Then at
+    ``STRESSOR_FULL_THW`` (the module's defaults, seed 0), no gate: clip A's
+    robust-flow EPE (mean and p95, background and disk), occlusion F1, and
+    the midframe SSIM of the morph and of the dissolve."""
+    import torch
+
+    from videomorphing_tpu_torch.config import VideoParams
+    from videomorphing_tpu_torch.utils.golden import ssim
+    from videomorphing_tpu_torch.utils.stressor import flow_epe, make_stressor, midframe_ssim, occlusion_f1
+    from videomorphing_tpu_torch.video.flow import clip_flows
+    from videomorphing_tpu_torch.video.occlusion import occlusion_confidence
+    from videomorphing_tpu_torch.video.pipeline import morph_video
+
+    vp = VideoParams(flow_robust=True)
+
+    def morph_and_dissolve(case):
+        t_len = case.clip_a.shape[0]
+        res = morph_video(case.clip_a, case.clip_b, points={0: torch.from_numpy(case.points).to(dev)},
+                          times=torch.full((t_len,), 0.5), vp=vp)
+        dissolve = 0.5 * (case.clip_a + case.clip_b)
+        base = float(np.mean([ssim(dissolve[t], case.mid_true[t], crop=case.crop) for t in range(t_len)]))
+        return midframe_ssim(res.frames, case)["ssim_mid_mean"], base
+
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    t_len, h, w = STRESSOR_GATE_THW
+    morph, base = morph_and_dissolve(make_stressor(t_len, h, w, seed=3, device=dev))
+    log(f"  stressor {t_len}x{h}x{w}: midframe SSIM morph (robust flow) {morph:.5f}, cross-dissolve {base:.5f} "
+        "(morph must exceed dissolve + 0.01)")
+    require(morph > base + 0.01, f"the stressor morph ({morph}) does not beat the cross-dissolve ({base})")
+
+    t_len, h, w = STRESSOR_FULL_THW
+    case = make_stressor(t_len, h, w, seed=0, device=dev)
+    fwd, bwd = clip_flows(case.clip_a, vp)
+    bg = case.valid_a & ~case.disk_a
+    disk = case.valid_a & case.disk_a
+    epe_bg = flow_epe(fwd, case.flow_a_true, bg)
+    epe_disk = flow_epe(fwd, case.flow_a_true, disk)
+    occ = occlusion_f1(occlusion_confidence(fwd, bwd, vp), case.occ_a)
+    morph, base = morph_and_dissolve(case)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    log(f"  launches in the stressor paths: {launches}")
+    log(f"  stressor {t_len}x{h}x{w} (robust flow, clip A): EPE background mean {epe_bg['epe_mean']:.4f} / "
+        f"p95 {epe_bg['epe_p95']:.4f} px, disk mean {epe_disk['epe_mean']:.4f} / p95 {epe_disk['epe_p95']:.4f} px; "
+        f"occlusion F1 {occ['f1']:.4f} (precision {occ['precision']:.4f}, recall {occ['recall']:.4f}); "
+        f"midframe SSIM morph {morph:.5f}, cross-dissolve {base:.5f}; both sizes in {wall:.3f} s on {card}")
+    for name in BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched on the stressor paths")
+    return launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -1265,8 +1588,8 @@ def main(argv) -> int:
         return 0
     log("phase 3: pair path (api.morph_pair, 1024x1024, 4 points, 16 frames)")
     launches = main_path(dev, card)
-    log("phase 4: golden translation")
-    golden_translation(dev)
+    log("phase 4: golden cases (utils.golden.run_golden: translation, rotation, scale)")
+    golden_launches = golden(dev)
     log("phase 5: video path (api.morph_clips, 30 frames of 1080x1920, 4 points)")
     video_launches = video_path(dev, card)
     log("phase 6: determinism")
@@ -1281,8 +1604,19 @@ def main(argv) -> int:
     spatial_launches = spatial_path(dev, card)
     log("phase 11: mesh video path (api.morph_clips, 30 frames of 1080x1920, a 3-device mesh of one card)")
     mesh_launches = mesh_video_path(dev, card)
+    log("phase 12: manifest (parallel.batch.run_manifest, 3 jobs of {}x{}, a 2-device mesh of one card)".format(
+        *MANIFEST_HW))
+    manifest_launches = manifest_path(dev, card)
+    log("phase 13: streamed clip pair (StreamingBatchRunner, {} frames of {}x{} through the native reader), "
+        "cli batch".format(*STREAM_THW))
+    stream_launches = stream_path(dev, card)
+    batch_command_line(dev)
+    log("phase 14: stressor (utils.stressor: the gate at {}x{}x{}, metrics at {}x{}x{})".format(
+        *STRESSOR_GATE_THW, *STRESSOR_FULL_THW))
+    stressor_launches = stressor_path(dev, card)
 
-    paths = (launches, video_launches, layered_launches, layered_video_launches, spatial_launches, mesh_launches)
+    paths = (launches, golden_launches, video_launches, layered_launches, layered_video_launches, spatial_launches,
+             mesh_launches, manifest_launches, stream_launches, stressor_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]

@@ -1,4 +1,4 @@
-"""The port's command line: ``pair``, ``video``, ``project`` and ``import``.
+"""The port's command line: ``pair``, ``video``, ``project``, ``batch`` and ``import``.
 
 - the same argv gives the same ``MorphParams``/``SynthParams``/
   ``VideoParams`` values through both packages' ``_params_from_args``, and
@@ -14,6 +14,10 @@
 - ``pair`` (also with ``--spatial-shards``, clamped to one device on the
   CPU), ``project`` (a layered clip project and a layered image project)
   and ``import`` write what the library gives;
+- ``batch --manifest`` (images as .png and .npy, ``--multihost`` as one
+  process) and ``batch --clip-a/--clip-b`` (.vmc streams) write exactly
+  the frames of ``parallel.batch.run_manifest`` / ``run_clip_pair`` on
+  the same inputs (after the uint8 quantization of the output files);
 - the default device, ``cuda``, raises without a card (no fallback).
 """
 
@@ -220,17 +224,73 @@ def test_layered_image_project_and_import(tmp_path):
     np.testing.assert_array_equal(got, q(ref.numpy()))
 
 
-@pytest.mark.parametrize("sub", ["pair", "video", "project"])
+BATCH_FAST = ["--levels", "2", "--iters", "8", "--device", "cpu"]
+BATCH_MP = MorphParams(n_levels=2, iters_coarse=8)
+
+
+def test_batch_manifest_writes_run_manifest(tmp_path, capsys):
+    from videomorphing_tpu_torch.parallel.batch import run_manifest
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+
+    (a0, b0), (a1, b1) = (bench._make_clips(1, H, W, seed=s) for s in (4, 5))
+    save_image(str(tmp_path / "a0.png"), a0[0])
+    save_image(str(tmp_path / "b0.png"), b0[0])
+    np.save(tmp_path / "a1.npy", a1[0])
+    np.save(tmp_path / "b1.npy", to_uint8(b1[0]))
+    pts = [[[H * 0.5, W * 0.45], [H * 0.5, W * 0.55]]]
+    spec = {"jobs": [
+        {"a": str(tmp_path / "a0.png"), "b": str(tmp_path / "b0.png"), "points": pts, "out": str(tmp_path / "o0.vmc")},
+        {"a": str(tmp_path / "a1.npy"), "b": str(tmp_path / "b1.npy"), "n_frames": 2, "out": str(tmp_path / "o1.vmc")},
+    ]}
+    (tmp_path / "jobs.json").write_text(json.dumps(spec))
+    argv = ["batch", "--manifest", str(tmp_path / "jobs.json"), "--frames", "3", "--multihost", "-v"] + BATCH_FAST
+    assert cli.main(argv) == 0
+    events = _events(capsys.readouterr().err)
+    mh = [e for e in events if e["event"] == "multihost"][0]
+    assert (mh["process"], mh["n_processes"], mh["jobs"]) == (0, 1, 2)
+    metrics = [e for e in events if e["event"] == "metrics"][-1]
+    assert metrics["jobs"] == 2 and metrics["frames_per_sec"] > 0
+    q = lambda x: to_uint8(x) / np.float32(255.0)
+    jobs = [dict(i0=q(a0[0]), i1=q(b0[0]), points=np.asarray(pts, np.float32), n_frames=3),
+            dict(i0=a1[0], i1=q(b1[0]), points=None, n_frames=2)]
+    ref = run_manifest(jobs, make_mesh(devices=["cpu"]), BATCH_MP)
+    for k, frames in enumerate(ref):
+        np.testing.assert_array_equal(load_clip(str(tmp_path / f"o{k}.vmc")), q(frames))
+
+
+def test_batch_clips_write_run_clip_pair(clip_files, tmp_path, capsys):
+    from videomorphing_tpu_torch.io.clips import open_clip_reader, save_clip
+    from videomorphing_tpu_torch.parallel.batch import StreamingBatchRunner
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+
+    d, ca, cb, pts = clip_files
+    save_clip(str(tmp_path / "a.vmc"), ca)
+    save_clip(str(tmp_path / "b.vmc"), cb)
+    out = str(tmp_path / "out.vmc")
+    assert cli.main(["batch", "--clip-a", str(tmp_path / "a.vmc"), "--clip-b", str(tmp_path / "b.vmc"),
+                     "--points", str(d / "p.json"), "--out", out, "-v"] + BATCH_FAST) == 0
+    metrics = [e for e in _events(capsys.readouterr().err) if e["event"] == "metrics"][-1]
+    assert metrics["resolution"] == f"{H}x{W}" and metrics["frames_per_sec"] > 0
+    runner = StreamingBatchRunner(make_mesh(devices=["cpu"]), BATCH_MP)
+    ref = np.concatenate([f for _, f in runner.run_clip_pair(
+        open_clip_reader(str(tmp_path / "a.vmc")), open_clip_reader(str(tmp_path / "b.vmc")),
+        T_LEN, (H, W), points=pts)])
+    np.testing.assert_array_equal(load_clip(out), to_uint8(ref) / np.float32(255.0))
+    assert cli.main(["batch", "--device", "cpu"]) == 2
+
+
+@pytest.mark.parametrize("sub", ["pair", "video", "project", "batch"])
 def test_default_device_raises_without_a_card(monkeypatch, tmp_path, sub):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     (tmp_path / "job.json").write_text(json.dumps({"source_a": "a.vmc", "source_b": "b.vmc"}))
     argv = {"pair": ["pair", "a.png", "b.png"], "video": ["video", "a.vmc", "b.vmc"],
-            "project": ["project", str(tmp_path / "job.json")]}[sub]
+            "project": ["project", str(tmp_path / "job.json")],
+            "batch": ["batch", "--manifest", str(tmp_path / "job.json")]}[sub]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)
 
 
-@pytest.mark.parametrize("sub", ["batch", "edit", "bench"])
+@pytest.mark.parametrize("sub", ["edit", "bench"])
 def test_unported_subcommands_are_not_registered(sub, capsys):
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args([sub])

@@ -1,7 +1,8 @@
 """The port's boundaries: no jax, device dispatch, no silent fallback.
 
 - importing the port's modules (the API, the layered morphs, the command
-  line, io, metrics, the field store and every subpackage among them)
+  line, io, metrics, the field store, the batch tier, the native reader,
+  the golden cases and the stressor, and every subpackage among them)
   loads neither ``jax`` nor the JAX package (checked in a fresh
   interpreter), and ``chip_smoke.py`` imports neither, nor ``bench``;
 - the configuration mirrors the reference's dataclasses field for field;
@@ -50,6 +51,9 @@ def test_import_loads_no_jax():
         "import videomorphing_tpu_torch.ops, videomorphing_tpu_torch.solver, videomorphing_tpu_torch.synth\n"
         "import videomorphing_tpu_torch.video, videomorphing_tpu_torch.models, videomorphing_tpu_torch.parallel\n"
         "import videomorphing_tpu_torch.utils, videomorphing_tpu_torch.utils.synthetic\n"
+        "import videomorphing_tpu_torch.parallel.batch, videomorphing_tpu_torch.parallel.multihost\n"
+        "import videomorphing_tpu_torch.utils.native, videomorphing_tpu_torch.utils.golden\n"
+        "import videomorphing_tpu_torch.utils.stressor, videomorphing_tpu_torch.config\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'videomorphing_tpu' or m.startswith('videomorphing_tpu.'))\n"
         "print(bad)\n"

@@ -1,4 +1,4 @@
-"""Command-line interface of the port: ``vmorph-torch pair | video | project | import``.
+"""Command-line interface of the port: ``vmorph-torch pair | video | project | batch | import``.
 
 Port of ``videomorphing_tpu/cli.py``. Every run emits the metrics
 (frames/s, optimizer iterations/s/Mpixel, endpoint and halfway-agreement
@@ -11,12 +11,15 @@ the CUDA device raises, it does not fall back to the CPU.
     python -m videomorphing_tpu_torch.cli video a.vmc b.vmc --points p.json \\
         --out m.vmc --fields f.npz -v
     python -m videomorphing_tpu_torch.cli project job.json
+    python -m videomorphing_tpu_torch.cli batch --manifest jobs.json
+    python -m videomorphing_tpu_torch.cli batch --clip-a a.vmc --clip-b b.vmc --out out.vmc
 
 ``pair --spatial-shards N`` solves one large frame with its rows split
 over ``min(N, devices)`` devices (``parallel.spatial``; the devices are the
-cards for ``--device cuda``, one for the CPU), and ``video`` splits the
-clip over every card when there is more than one. ``batch``, ``edit`` and
-``bench`` are not ported yet (ROADMAP queue 1 items 13, 15 and 16).
+cards for ``--device cuda``, one for the CPU), ``video`` splits the clip
+over every card when there is more than one, and ``batch`` spreads its
+pairs over the same devices (``parallel.batch``). ``edit`` and ``bench``
+are not ported yet (ROADMAP queue 1 items 6 and 2).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 from videomorphing_tpu_torch.config import MorphParams, SynthParams, VideoParams
 from videomorphing_tpu_torch.device import as_device, require_cuda
 from videomorphing_tpu_torch.io.clips import load_clip, save_clip
-from videomorphing_tpu_torch.io.images import load_image
+from videomorphing_tpu_torch.io.images import load_image, to_float
 from videomorphing_tpu_torch.io.project import Project, load_project
 from videomorphing_tpu_torch.utils.checkpoint import FieldStore
 from videomorphing_tpu_torch.utils.logging import (
@@ -434,6 +437,101 @@ def _run_project_video(proj: Project, dev: torch.device, fps: int) -> int:
     return 0
 
 
+def _load_still(path: str) -> np.ndarray:
+    """A manifest job's image: ``.npy`` (float in [0, 1] or uint8) without
+    PIL, any other format through ``load_image``."""
+    if path.endswith(".npy"):
+        return to_float(np.load(path))
+    return load_image(path)
+
+
+def cmd_batch(args) -> int:
+    """Config-5 batch pipeline (BASELINE.json config 5).
+
+    - ``--manifest jobs.json``: many independent image-pair jobs, solved in
+      mesh-sized blocks spread over the devices of ``--device``;
+    - ``--clip-a A --clip-b B --out out.vmc``: two clips streamed pair by
+      pair (decode -> H2D -> solve/render -> D2H -> encode, overlapped);
+      every frame pair solves alone.
+
+    ``--multihost`` joins a process group from the reference's
+    ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
+    (``parallel.multihost``) and takes this process's share of the manifest.
+    """
+    from videomorphing_tpu_torch.io.clips import VmcWriter, open_clip_reader, read_vmc_header
+    from videomorphing_tpu_torch.parallel import batch as pbatch
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _device(args)
+    m = MetricsLogger(verbose=args.verbose)
+    mp, sp, _ = _params_from_args(args)
+    if args.multihost:
+        from videomorphing_tpu_torch.parallel.multihost import initialize
+
+        pid, n_proc = initialize(device=dev)
+    mesh = make_mesh(devices=_devices_of(dev))  # this process's devices (multihost.global_mesh)
+    bsz = int(mesh.shape["batch"])
+
+    if args.manifest:
+        with open(args.manifest) as f:
+            spec = json.load(f)
+        job_specs = spec["jobs"] if isinstance(spec, dict) else spec
+        if args.multihost:
+            from videomorphing_tpu_torch.parallel.multihost import process_shard
+
+            job_specs = process_shard(job_specs)
+            m.emit("multihost", process=pid, n_processes=n_proc, jobs=len(job_specs))
+        jobs = []
+        for j in job_specs:
+            pts = j.get("points")
+            if isinstance(pts, str):
+                pts = _load_points(pts)
+            elif pts is not None:
+                pts = np.asarray(pts, np.float32)
+            jobs.append(dict(i0=_load_still(j["a"]), i1=_load_still(j["b"]), points=pts,
+                             n_frames=int(j.get("n_frames", args.frames))))
+        t0 = time.perf_counter()
+        results = pbatch.run_manifest(jobs, mesh, mp, sp, verbose=args.verbose)
+        dt = time.perf_counter() - t0
+        n_frames_total = 0
+        for j, frames in zip(job_specs, results):
+            out = j.get("out") or f"{os.path.splitext(j['a'])[0]}_morph"
+            save_clip(out, frames, fps=args.fps)
+            n_frames_total += frames.shape[0]
+        m.emit("metrics", jobs=len(jobs), frames_per_sec=n_frames_total / dt, wall_seconds=dt)
+        print(f"ran {len(jobs)} jobs ({n_frames_total} frames) in {dt:.2f}s")
+        return 0
+
+    if not (args.clip_a and args.clip_b):
+        print("batch: need --manifest or --clip-a/--clip-b", file=sys.stderr)
+        return 2
+    if args.clip_a.endswith(".vmc"):
+        t_len, h, w, _c = read_vmc_header(args.clip_a)
+    elif args.clip_a.endswith(".y4m"):
+        # header only: decoding the clip to learn its shape would defeat the streaming
+        from videomorphing_tpu_torch.io.y4m import read_y4m_header
+
+        t_len, h, w, _chroma, _fps = read_y4m_header(args.clip_a)
+    else:
+        t_len, h, w = load_clip(args.clip_a).shape[:3]
+    points = _load_points(args.points)
+    runner = pbatch.StreamingBatchRunner(mesh, mp, sp)
+    t0 = time.perf_counter()
+    n_done = 0
+    with VmcWriter(args.out) as wr:
+        for _s, frames in runner.run_clip_pair(
+            open_clip_reader(args.clip_a, block=bsz),
+            open_clip_reader(args.clip_b, block=bsz),
+            t_len, (h, w), points=points,
+        ):
+            wr.append(frames)
+            n_done += frames.shape[0]
+    dt = time.perf_counter() - t0
+    m.emit("metrics", frames_per_sec=n_done / dt, wall_seconds=dt, resolution=f"{h}x{w}")
+    print(f"wrote {n_done} morph frames ({h}x{w}) to {args.out} in {dt:.2f}s")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="vmorph-torch", description="halfway-domain image/video morphing on PyTorch and CUDA"
@@ -467,6 +565,24 @@ def build_parser() -> argparse.ArgumentParser:
     p_proj.add_argument("--verbose", "-v", action="store_true")
     _add_runtime_flags(p_proj)
     p_proj.set_defaults(fn=cmd_project)
+
+    p_batch = sub.add_parser(
+        "batch", help="config-5 batch pipeline (manifest of pair jobs / streamed clip pair)"
+    )
+    p_batch.add_argument("--manifest", default=None,
+                         help="JSON: {jobs: [{a, b, points, n_frames, out}]} (a, b: images or .npy)")
+    p_batch.add_argument("--clip-a", default=None)
+    p_batch.add_argument("--clip-b", default=None)
+    p_batch.add_argument("--points", default=None)
+    p_batch.add_argument("--out", default="batch_out.vmc")
+    p_batch.add_argument("--frames", type=int, default=16, help="default n_frames for manifest jobs")
+    p_batch.add_argument(
+        "--multihost", action="store_true",
+        help="join a torch.distributed group (JAX_COORDINATOR_ADDRESS / "
+             "JAX_NUM_PROCESSES / JAX_PROCESS_ID) and shard the manifest by process",
+    )
+    _add_param_overrides(p_batch)
+    p_batch.set_defaults(fn=cmd_batch)
 
     p_imp = sub.add_parser(
         "import",

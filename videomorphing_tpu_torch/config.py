@@ -145,3 +145,41 @@ class VideoParams:
     warm_relin_every: int = 12
 
     dtype: str = "float32"
+
+
+def exact_configs() -> tuple[MorphParams, SynthParams, VideoParams]:
+    """The "paper-exact" slow configuration, the in-repo oracle (port of
+    ``videomorphing_tpu.config.exact_configs``): every speed default that
+    trades work for fidelity reverted to its exact setting. Re-warp every
+    iteration with no relinearization median, full iteration budgets,
+    full-resolution path inversion, flow and advection, exact warm warps
+    with the half-resolution warm level. The backend and ``fused_*`` flags
+    are set as the reference sets them; the port ignores them."""
+    mp = MorphParams(
+        backend="jnp",
+        fused_warp=False,
+        relin_every=1,
+        relin_median=False,
+        pack_dtype="float32",
+        iters_coarse=200,
+        iters_fine=50,
+    )
+    sp = SynthParams(
+        invert_multiscale=False,
+        fused_sampling=False,
+        invert_iters=10,
+    )
+    vp = VideoParams(
+        flow_iters=60,
+        flow_warps=3,
+        flow_scale=1.0,
+        advect_scale=1.0,
+        warm_iters_mid=30,
+        warm_iters_fine=20,
+        warm_relin_every=1,
+        warm_levels=2,
+        fused_occlusion=False,
+        fused_advect=False,
+        fused_flow=False,
+    )
+    return mp, sp, vp

@@ -5,9 +5,9 @@ A copy of ``videomorphing_tpu/io/clips.py`` (numpy only) with its imports
 pointed at this package. ``.vmc`` is a trivial raw frame store (16-byte
 header + contiguous uint8 frames) made for mmap-based streaming.
 ``open_clip_reader`` returns a block iterator so long clips never need to
-fit in host memory at once; it reads with numpy (the reference's native
-prefetching reader waits for the port's batch runner, ROADMAP queue 1
-item 16).
+fit in host memory at once; a ``.vmc`` store streams through the native
+prefetching reader (``utils.native.VmcStream``) when it builds, else
+through numpy blocks that round as it does.
 """
 
 from __future__ import annotations
@@ -84,18 +84,21 @@ def read_vmc_header(path: str) -> Tuple[int, int, int, int]:
     return t, h, w, c
 
 
-def read_vmc(path: str, start: int = 0, count: Optional[int] = None) -> np.ndarray:
-    """Read frames [start, start+count) as float32; mmap-backed, zero-copy
-    until the float conversion."""
+def _read_vmc_u8(path: str, start: int, count: Optional[int]) -> np.ndarray:
     t, h, w, c = read_vmc_header(path)
     count = t - start if count is None else min(count, t - start)
     frame_bytes = h * w * c
-    mm = np.memmap(
+    return np.memmap(
         path, dtype=np.uint8, mode="r",
         offset=_VMC_HEADER.size + start * frame_bytes,
         shape=(count, h, w, c),
     )
-    return to_float(np.asarray(mm))
+
+
+def read_vmc(path: str, start: int = 0, count: Optional[int] = None) -> np.ndarray:
+    """Read frames [start, start+count) as float32; mmap-backed, zero-copy
+    until the float conversion."""
+    return to_float(np.asarray(_read_vmc_u8(path, start, count)))
 
 
 def load_clip(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
@@ -144,26 +147,50 @@ def save_clip(path: str, frames: np.ndarray, fps: int = 30) -> None:
         save_image(os.path.join(path, f"frame_{k:05d}.png"), frames[k])
 
 
+class ClipBlocks:
+    """Iterator of ``(start_index, frames_block)``; ``kind`` names the
+    reader: ``"numpy"`` (.vmc without the native library), ``"y4m"`` or
+    ``"loaded"`` (a source read whole, then cut)."""
+
+    def __init__(self, blocks: Iterator[Tuple[int, np.ndarray]], kind: str):
+        self._blocks = blocks
+        self.kind = kind
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Tuple[int, np.ndarray]:
+        return next(self._blocks)
+
+
 def open_clip_reader(path: str, block: int = 8):
     """Iterate (start_index, frames_block) over a clip without loading it
-    all (.vmc and .y4m; other sources load whole and are cut into blocks)."""
+    all; the reader's ``kind`` says which one was chosen.
+
+    A ``.vmc`` store streams through the native prefetching ring buffer
+    (``utils.native.VmcStream``, kind ``"native"``) when the library builds,
+    else through numpy blocks with the same values (kind ``"numpy"``); both
+    convert uint8 as the library does, within one float32 ulp of
+    :func:`read_vmc`. ``.y4m`` streams too; other sources load whole and
+    are cut into blocks."""
     if path.endswith(".vmc"):
-        return _vmc_blocks(path, block)
+        from videomorphing_tpu_torch.utils import native
+
+        if native.ensure_built():
+            return native.VmcStream(path, block)
+        return ClipBlocks(_vmc_blocks(path, block), "numpy")
     if path.endswith(".y4m"):
-        return _y4m_blocks(path, block)
+        return ClipBlocks(_y4m_blocks(path, block), "y4m")
     clip = load_clip(path)
-
-    def gen():
-        for s in range(0, clip.shape[0], block):
-            yield s, clip[s : s + block]
-
-    return gen()
+    return ClipBlocks(((s, clip[s : s + block]) for s in range(0, clip.shape[0], block)), "loaded")
 
 
 def _vmc_blocks(path: str, block: int) -> Iterator[Tuple[int, np.ndarray]]:
+    from videomorphing_tpu_torch.utils.native import u8_to_f32_plain
+
     t, _, _, _ = read_vmc_header(path)
     for s in range(0, t, block):
-        yield s, read_vmc(path, s, block)
+        yield s, u8_to_f32_plain(_read_vmc_u8(path, s, block))
 
 
 def _y4m_blocks(path: str, block: int) -> Iterator[Tuple[int, np.ndarray]]:

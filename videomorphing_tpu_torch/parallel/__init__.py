@@ -12,11 +12,14 @@ counterpart of the reference's 8 virtual CPU devices in its tests).
   solve of one large frame; the ``psum`` of the energy partials is a
   fixed-order sum over the blocks;
 - ``frames.py``: frames and pairs split over the devices;
-- ``video_blocks.py``: the blocked clip solve.
+- ``video_blocks.py``: the blocked clip solve;
+- ``batch.py``: config 5's batch pipeline, pair jobs and streamed clip
+  pairs in mesh-sized blocks;
+- ``multihost.py``: one process per host over ``torch.distributed``, each
+  taking its share of a batch.
 
 Each device's share runs in turn from this process; across several cards
-the launches overlap as far as the host issues them. The multi-process
-tier (``batch.py``, ``multihost.py``) is not ported (ROADMAP item 16).
+the launches overlap as far as the host issues them.
 """
 
 from videomorphing_tpu_torch.parallel.mesh import make_mesh

@@ -106,15 +106,14 @@ def optimize_pairs_batched(
     axis: str = "batch",
 ) -> torch.Tensor:
     """Coarse-to-fine solves of a batch of pairs (B, H, W, C), B split over
-    the mesh (B must divide the axis size, as in the reference): each device
-    solves its pairs one after another. Returns (B, H, W, 2) fields on
-    ``i0s``' device."""
+    the mesh by :func:`shares`: each device solves its pairs one after
+    another. B need not divide over the devices (the reference's sharded
+    jit needs that; a short block leaves the last devices idle here).
+    Returns (B, H, W, 2) fields on ``i0s``' device."""
     from videomorphing_tpu_torch.solver.ctf import optimize_pair
 
     devs = as_mesh(mesh).axis_devices(axis)
     bsz = i0s.shape[0]
-    if bsz % len(devs):
-        raise ValueError(f"batch {bsz} must divide over {len(devs)} devices")
     out = []
     for dev, sl in zip(devs, shares(bsz, len(devs))):
         for j in range(sl.start, sl.stop):

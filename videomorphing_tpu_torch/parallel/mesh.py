@@ -34,7 +34,7 @@ class Mesh:
             raise ValueError(f"mesh has no axis {axis!r}; axes {self.axis_names}")
         if len(self.axis_names) != 1:
             raise NotImplementedError(
-                "only 1-D meshes are ported (the 2-D batch x rows layout is ROADMAP item 16)"
+                "only 1-D meshes are ported (the 2-D batch x rows layout is ROADMAP queue 1 item 8)"
             )
         return self.devices
 

@@ -110,7 +110,7 @@ def make_spatial_level_solver(
     device."""
     if batch_axis is not None:
         raise NotImplementedError(
-            "batch_axis: the 2-D pairs x rows layout is not ported (ROADMAP item 16)"
+            "batch_axis: the 2-D pairs x rows layout is not ported (ROADMAP queue 1 item 8)"
         )
     if p.pack_dtype != "float32":
         raise ValueError(

@@ -32,7 +32,7 @@ import torch
 
 from videomorphing_tpu_torch.config import MorphParams
 from videomorphing_tpu_torch.kernels.sweep import sweep_energy, sweep_grad
-from videomorphing_tpu_torch.kernels.warp import halfway_warp
+from videomorphing_tpu_torch.kernels.warp import bundle_from_planes, halfway_warp
 from videomorphing_tpu_torch.ops.ssim import dssim_grad_bundle, dssim_map
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, median3x3, separable_filter
 from videomorphing_tpu_torch.solver.energy import LevelData, quadratic_energies, tps_maps
@@ -106,6 +106,14 @@ class WarpBundle(NamedTuple):
     dw1: torch.Tensor    # (H, W, C, 2)
 
 
+def warp_bundle(v: torch.Tensor, data: LevelData) -> WarpBundle:
+    """Re-warp both images at ``v``: kernel 3 (``halfway_warp``) on the
+    card, its plain version (``bilinear_sample_with_grad`` at g -/+ v) on
+    the CPU. The bundle's fields are views of kernel 3's (6C, H, W) plane
+    stack; the level solver keeps that stack, which the sweeps read."""
+    return WarpBundle(v, *bundle_from_planes(halfway_warp(data.i0, data.i1, v)))
+
+
 def linearized_warps(wb: WarpBundle, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """First-order warped images at ``v`` around ``wb.v_lin`` (exact at v_lin)."""
     dv = v - wb.v_lin
@@ -164,6 +172,14 @@ def value_grad_precond_planes(w0, dw0, w1, dw1, v: torch.Tensor, data: LevelData
     e_tps, e_ui, e_tc = quadratic_energies(v, data, p)
     energy = bundle.energy + e_tps + e_ui + e_tc
     return energy, grad, precond
+
+
+def energy_value_grad_precond(v: torch.Tensor, data: LevelData, p: MorphParams):
+    """E(v), dE/dv and the Gauss-Newton diagonal preconditioner at ``v``
+    in one pass: the warps at ``v`` (kernel 3) and the sweep gradient on
+    them (kernel 1), exact since ``v_lin = v``; the level solver's first
+    iteration after each re-warp. ``E`` is a 0-d tensor on ``v``'s device."""
+    return sweep_grad(halfway_warp(data.i0, data.i1, v), v, v, data, p)
 
 
 def tps_adj_xx(a: torch.Tensor) -> torch.Tensor:
