@@ -31,9 +31,9 @@ Phases:
      the sampler, the device and call times of ``F.grid_sample`` on the same
      image and map as a yardstick; then the row-shard forms (the shard
      sweeps and the row-offset warp) on 4 row blocks of a 2160 x 3840,
-     C = 3 level against the whole-frame kernels' rows, and against their
-     plain versions there and on a ragged 132 x 241 split 4 ways (at
-     ``ssim_window`` 3, 5 and 7);
+     C = 3 level and on 2 (phase 16's blocks) against the whole-frame
+     kernels' rows, and against their plain versions there and on a
+     ragged 132 x 241 split 4 ways (at ``ssim_window`` 3, 5 and 7);
   3. the pair path: ``api.morph_pair`` on a 1024 x 1024 pair with 4 point
      constraints and 16 frames, with every kernel's launch count;
   4. the golden cases (``utils.golden.run_golden``: translation, rotation
@@ -76,12 +76,27 @@ Phases:
      byte for byte against the in-process calls;
  14. the stressor (``utils.stressor``): the robust-flow morph beats the
      cross-dissolve at 4 x 72 x 104, and the flow, occlusion and midframe
-     metrics at 8 x 480 x 854 (printed, no gate).
+     metrics at 8 x 480 x 854 (printed, no gate);
+ 15. the edit session at 1024 x 1024: ``edit.PointEditor`` on phase 3's
+     pair, driven by a script (4 points, a cold solve, a 3 px move and a
+     warm solve, a preview, a cursor session that places a fifth pair and
+     solves, a 16-frame ``.npz`` render, save) with ANSI previews of 160
+     columns; the warm solve launches fewer gradient kernels than the cold
+     one, the field equals an ``api.Session`` given the same edits, the
+     halfway view the plain sampler's and the frames ``Session.render``,
+     each bitwise;
+ 16. pairs x rows at 4K: ``make_spatial_level_solver(batch_axis="batch")``
+     on frame 0 of four 2160 x 3840 clip pairs (B = 4, 6 iterations, the
+     bench's points) over a (2, 2) ("batch", "y") mesh of the card, each
+     pair bitwise equal to the 1-D solver on a (2,) mesh, then a t = 0.5
+     render of each pair;
+ 17. the examples: both port demos' compute functions at their default
+     shapes on the card, their own checks and their ``.y4m`` files.
 
 A repeated-device mesh runs its blocks one after another on the card: a
 correctness path, not a speed-up. Any failure raises and exits non-zero.
 The card's name and power limit, then one JSON object with a record per
-kernel (launches summed over the paths of phases 3-5, 7, 8 and 10-14;
+kernel (launches summed over the paths of phases 3-5, 7, 8 and 10-17;
 ``ms`` and ``library_ms`` device times, ``plain_ms`` a call time), are the
 lines before the last; the last line is ``{"ok": true, "device":
 {...}}``. With no CUDA device it exits 1 and prints no result.
@@ -127,6 +142,11 @@ STREAM_THW = (6, 2160, 3840)
 CLI_BATCH_THW = (6, 270, 480)
 STRESSOR_GATE_THW = (4, 72, 104)
 STRESSOR_FULL_THW = (8, 480, 854)
+# the shapes of phases 15 and 16 (the editor and the pairs x rows layout:
+# PAIRS_ROWS_BLOCKS row blocks a pair, which phase 2 also holds)
+EDIT_N = 1024
+PAIRS_ROWS_HW = (2160, 3840)
+PAIRS_ROWS_BLOCKS = 2
 BASE = ("halfway_warp", "bilinear_sample", "bilinear_sample_batched", "sweep_grad", "sweep_energy")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -575,18 +595,20 @@ def _ext(a, row0: int, rows: int):
 
 
 def check_shard_forms(dev, compare, rec, t, p) -> None:
-    """Phase 2, the row-shard forms, on 4 row blocks with real halos
-    (2R + 2 rows) of a 2160 x 3840, C = 3 level and of a ragged 132 x 241
-    one (the latter at ``ssim_window`` 3, 5 and 7): each
+    """Phase 2, the row-shard forms, on row blocks with real halos (2R + 2
+    rows): 4 blocks of a 2160 x 3840, C = 3 level; ``PAIRS_ROWS_BLOCKS``
+    blocks of a ``PAIRS_ROWS_HW`` level (phase 16's block shape); and 4
+    blocks of a ragged 132 x 241 one at ``ssim_window`` 3, 5 and 7. Each
     block's row-offset warp, (partials, grad, precond) and energy partials
     against their plain versions on the same inputs (the warp 1e-6
     absolute; grad and precond kernel 1's gate, 1e-5 of max|ref|; each raw
-    partial 1e-5 of its own size). At 4K also: the row-offset warp equals
-    the whole-frame warp's rows bitwise (zero planes outside the frame),
-    each block's grad and precond equal the whole-frame kernel's rows
-    (bitwise expected, else within 1e-6 of max|ref|), and the shard-summed
-    energies are within 1e-6 relative of the whole-frame energy. Then the
-    times, bounds and plain times of the forms at the 4K block shape."""
+    partial 1e-5 of its own size). At the two 4K splits also: the
+    row-offset warp equals the whole-frame warp's rows bitwise (zero planes
+    outside the frame), each block's grad and precond equal the
+    whole-frame kernel's rows (bitwise expected, else within 1e-6 of
+    max|ref|), and the shard-summed energies are within 1e-6 relative of
+    the whole-frame energy. Then the times, bounds and plain times of the
+    forms at the 4-block 4K block shape."""
     import torch
 
     from videomorphing_tpu_torch.kernels import sweep as ks
@@ -601,13 +623,13 @@ def check_shard_forms(dev, compare, rec, t, p) -> None:
 
     from videomorphing_tpu_torch.config import MorphParams
 
-    n = 4
-    # the ragged split at every window radius the kernels instantiate
-    cases = [(SHARD_SHAPES[0], p)] + [(SHARD_SHAPES[1], pw) for pw in (
-        MorphParams(ssim_window=3), p, MorphParams(ssim_window=7, ssim_sigma=1.5))]
-    for (h, w), p in cases:
+    # (shape, params, blocks, whole-frame checks, timed): the ragged split
+    # at every window radius the kernels instantiate
+    cases = [(SHARD_SHAPES[0], p, 4, True, True), (PAIRS_ROWS_HW, p, PAIRS_ROWS_BLOCKS, True, False)] + [
+        (SHARD_SHAPES[1], pw, 4, False, False)
+        for pw in (MorphParams(ssim_window=3), p, MorphParams(ssim_window=7, ssim_sigma=1.5))]
+    for (h, w), p, n, big, timed in cases:
         halo = exchange_halo(p)
-        big = (h, w) == SHARD_SHAPES[0]
         rng = np.random.default_rng(h + w + 1)
         i0 = t(rng.random((h, w, 3), dtype=np.float32))
         i1 = t(rng.random((h, w, 3), dtype=np.float32))
@@ -671,6 +693,11 @@ def check_shard_forms(dev, compare, rec, t, p) -> None:
             rel = abs(e_sh - float(e_ref)) / abs(float(e_ref))
             log(f"  {name}: shard-summed energy {e_sh:.9g}, whole frame {float(e_ref):.9g}, rel {rel:.3e} (limit 1e-6)")
             require(rel <= 1e-6, f"{name}: shard-summed energy off by {rel}")
+        del planes, g_whole, p_whole
+        if not timed:
+            del data, i0, i1
+            torch.cuda.empty_cache()
+            continue
         # times at block 1's shape (an interior block with both halos)
         k, row0, rows = _blocks(h, n, halo)[1]
         he = rows.stop - rows.start + 2 * halo
@@ -697,7 +724,7 @@ def check_shard_forms(dev, compare, rec, t, p) -> None:
             rec[name]["bound"] = bnd
             log(f"  {name} {he}x{w} block time: kernel {k1:.4f}/{k2:.4f} ms (device), {call:.4f} ms (call), "
                 f"plain {pl1:.4f}/{pl2:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
-        del planes, g_whole, p_whole, pl_k, data, data_k, i0, i1
+        del pl_k, data, data_k, i0, i1
         torch.cuda.empty_cache()
 
 
@@ -1541,6 +1568,231 @@ def stressor_path(dev, card: str) -> dict:
     return launches
 
 
+def cursor_events(n: int, x_a: int, x_b: int) -> list:
+    """Cursor-mode events that place a pair from the view's centre: A at
+    (n / 2, x_a), B at (n / 2, x_b), then solve and leave (10 px steps,
+    then 1 px steps)."""
+    def walk(dx):
+        big, small = ("RIGHT", "right") if dx > 0 else ("LEFT", "left")
+        return [big] * (abs(dx) // 10) + [small] * (abs(dx) % 10)
+
+    return walk(x_a - n // 2) + ["place"] + walk(x_b - x_a) + ["place", "solve", "quit"]
+
+
+def edit_session(dev, card: str) -> dict:
+    """Phase 15: ``edit.PointEditor`` on ``make_pair(EDIT_N)`` with ANSI
+    previews of 160 columns, driven command by command: add the 4 bench
+    points, solve (cold), move pair 0's B point by 3 px, solve (warm, from
+    the middle level), preview t = 0.5, a cursor session that places a
+    fifth pair and solves, render 16 frames to an ``.npz``, save. Then an
+    ``api.Session`` given the same point edits directly: its field must
+    equal the editor's bitwise, and its ``render(16)`` the ``.npz``
+    frames; the halfway view must equal the plain sampler's average on the
+    same card tensors bitwise."""
+    import io
+
+    import torch
+
+    from videomorphing_tpu_torch import api
+    from videomorphing_tpu_torch.edit import PointEditor
+    from videomorphing_tpu_torch.io.images import to_uint8
+    from videomorphing_tpu_torch.kernels import warp as kw
+    from videomorphing_tpu_torch.ops.resample import grid_coords
+    from videomorphing_tpu_torch.viewer import halfway_image
+
+    n = EDIT_N
+    i0, i1, pts = make_pair(n)
+    moved = pts.copy()
+    moved[0, 1, 1] += np.float32(3.0)
+    x_a, x_b = int(round(0.45 * n)), int(round(0.55 * n))
+    fifth = np.array([[[n / 2, x_a], [n / 2, x_b]]], np.float32)
+    out = io.StringIO()
+    walls, steps = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        npz, saved = os.path.join(tmp, "frames.npz"), os.path.join(tmp, "points.json")
+        counters = reset_counters()
+        t_all = time.perf_counter()
+        ed = PointEditor(i0, i1, stream=out, preview_cols=160, show_images=True, device=dev)
+
+        def step(name, fn):
+            before = read_counters(counters)
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            walls[name] = time.perf_counter() - t0
+            after = read_counters(counters)
+            steps[name] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+
+        for (a, b) in pts:
+            ed.cmd_add(*a, *b)
+        step("cold_solve", ed.cmd_solve)
+        ed.cmd_move(0, *moved[0, 0], *moved[0, 1])
+        step("warm_solve", ed.cmd_solve)
+        step("preview", lambda: ed.cmd_preview(0.5))
+        step("cursor", lambda: ed.cmd_cursor(cursor_events(n, x_a, x_b)))
+        step("render", lambda: ed.cmd_render(npz, 16))
+        ed.cmd_save(saved)
+        wall = time.perf_counter() - t_all
+        launches = read_counters(counters)
+        peak = peak_gib(dev)
+        npz_frames = np.load(npz)["frames"]
+        with open(saved) as f:
+            saved_pts = np.asarray(json.load(f)["points"], np.float32)
+    text = out.getvalue()
+    log("  editor lines: " + json.dumps([ln for ln in text.splitlines() if "\x1b" not in ln]))
+    log(f"  launches in the edit session: {launches}")
+    for name, k in steps.items():
+        log(f"  {name}: wall {walls[name]:.3f} s, launches {k}")
+    log(f"  edit_1k: wall {wall:.3f} s (cold solve {walls['cold_solve']:.3f}, warm solve {walls['warm_solve']:.3f}, "
+        f"preview {walls['preview']:.3f}, cursor + solve {walls['cursor']:.3f}, render 16 frames "
+        f"{walls['render']:.3f}), {len(text) / 2**20:.1f} MiB of ANSI text, peak device memory {peak} on {card}")
+    cold, warm = steps["cold_solve"].get("sweep_grad", 0), steps["warm_solve"].get("sweep_grad", 0)
+    if torch.device(dev).type == "cuda":  # CPU tensors run the plain versions and count nothing
+        for name in ("halfway_warp", "bilinear_sample", "sweep_grad", "sweep_energy"):
+            require(launches[name] > 0, f"kernel {name} was not launched in the edit session")
+        require(0 < warm < cold, f"the warm solve launched {warm} gradient kernels, the cold one {cold}")
+    require(ed.solves == 3 and len(ed.pairs) == 5, f"{ed.solves} solves and {len(ed.pairs)} pairs")
+    require(np.array_equal(saved_pts, np.concatenate([moved, fifth])), "the saved points are not the edits")
+    require("▀" in text and text.count("solved in") == 3, "the editor printed no preview or not three solves")
+
+    sess = api.Session(i0, i1, device=dev)
+    for p in (pts, moved, np.concatenate([moved, fifth])):
+        sess.update_points(p)
+    v = ed.session.art.v
+    require(torch.equal(sess.art.v, v), "the editor's field differs from api.Session given the same edits")
+    ref = to_uint8(sess.render(16).cpu().numpy())
+    require(npz_frames.shape == (16, n, n, 3) and np.array_equal(npz_frames, ref),
+            f"the rendered .npz ({npz_frames.shape}) differs from Session.render(16)")
+    hw = halfway_image(ed.session.i0, ed.session.i1, v, dev)
+    g = grid_coords(n, n, v.dtype, v.device)
+    plain = (0.5 * (kw.bilinear_sample_plain(ed.session.i0, g - v)
+                    + kw.bilinear_sample_plain(ed.session.i1, g + v))).cpu().numpy()
+    require(np.array_equal(hw, plain), f"halfway_image differs from the plain sampler by {np.abs(hw - plain).max()}")
+    log(f"  the field equals api.Session's, the .npz Session.render(16)'s and the halfway view the plain "
+        f"sampler's, bitwise; gradient launches cold {cold} > warm {warm}")
+    return launches
+
+
+def pairs_by_rows(dev, card: str) -> dict:
+    """Phase 16: frame 0 of ``make_clips(1, *PAIRS_ROWS_HW, seed=s)``, s =
+    0..3, with the bench's points rasterized at full resolution and a zero
+    field, through ``make_spatial_level_solver(MorphParams(), 6, mesh,
+    batch_axis="batch")`` on a (2, PAIRS_ROWS_BLOCKS) ("batch", "y") mesh
+    of the card (two pairs a batch block, each pair's rows in
+    PAIRS_ROWS_BLOCKS blocks; phase 2 holds the shard kernels at that
+    block shape against their plain versions), then a t = 0.5
+    render of each pair (linear blend, straight paths, as
+    ``dryrun_multichip``). Each pair's field and stats must equal the 1-D
+    solver's on a (PAIRS_ROWS_BLOCKS,) mesh for that pair alone, bitwise."""
+    import torch
+
+    from videomorphing_tpu_torch.config import MorphParams, SynthParams
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+    from videomorphing_tpu_torch.parallel.spatial import make_spatial_level_solver
+    from videomorphing_tpu_torch.solver.constraints import rasterize_point_constraints
+    from videomorphing_tpu_torch.solver.energy import LevelData, make_level_data
+    from videomorphing_tpu_torch.synth.render import render_frame
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
+
+    (h, w), bsz, n_iters = PAIRS_ROWS_HW, 4, 6
+    mp = MorphParams()
+    pts = torch.from_numpy(bench_points(h, w)).to(dev)
+    ui_w, ui_v = rasterize_point_constraints(pts, (h, w), mp.ui_sigma, torch.float32, dev)
+    pairs = []
+    for seed in range(bsz):
+        clip_a, clip_b = make_clips(1, h, w, seed=seed)
+        pairs.append(make_level_data(torch.from_numpy(clip_a[0]).to(dev), torch.from_numpy(clip_b[0]).to(dev),
+                                     ui_w, ui_v))
+    del clip_a, clip_b
+    data = LevelData(*(torch.stack(f) for f in zip(*pairs)))
+    nb = PAIRS_ROWS_BLOCKS
+    mesh = make_mesh((2, nb), ("batch", "y"), devices=[dev] * (2 * nb))
+    sp = SynthParams(blend_mode="linear", quadratic_paths=False)
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    v, st = make_spatial_level_solver(mp, n_iters, mesh, batch_axis="batch")(
+        torch.zeros((bsz, h, w, 2), device=dev), data)
+    sync(dev)
+    t_solve = time.perf_counter() - t0
+    frames = torch.stack([render_frame(d.i0, d.i1, v[i], None, 0.5, sp) for i, d in enumerate(pairs)])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    peak = peak_gib(dev)
+    log(f"  launches in the pairs x rows path: {launches}")
+    shard = {k: launches[k] for k in ("sweep_grad_shard", "sweep_energy_shard", "halfway_warp_rows")}
+    log(f"  pairs_rows_4k: wall {wall:.3f} s (solve {t_solve:.3f} s for {bsz} pairs x {n_iters} iterations, "
+        f"renders {wall - t_solve:.3f} s), shard launches {shard}, peak device memory {peak}, "
+        f"a (2, {nb}) mesh of one card (in turn) on {card}")
+    for name in shard if torch.device(dev).type == "cuda" else ():
+        require(launches[name] > 0, f"kernel {name} was not launched on the pairs x rows path")
+    require(tuple(v.shape) == (bsz, h, w, 2) and tuple(st.iters.shape) == (bsz,), f"v {tuple(v.shape)}")
+    check_frames(frames, (bsz, h, w, 3))
+    solve1 = make_spatial_level_solver(mp, n_iters, make_mesh((nb,), ("y",), devices=[dev] * nb))
+    for i, d in enumerate(pairs):
+        v1, st1 = solve1(torch.zeros((h, w, 2), device=dev), d)
+        same = (torch.equal(v[i], v1) and int(st.iters[i]) == st1.iters
+                and all(float(getattr(st, f)[i]) == getattr(st1, f) for f in ("e0", "e_final", "step")))
+        log(f"  pair {i}: iters {int(st.iters[i])}, e0 {float(st.e0[i]):.6f}, e_final {float(st.e_final[i]):.6f}; "
+            f"max |dv| against the 1-D solver {float((v[i] - v1).abs().max()):.3e} (bitwise required)")
+        require(same, f"pair {i} of the pairs x rows solve differs from the 1-D solver")
+        require(float(st.e_final[i]) < float(st.e0[i]), f"pair {i}: energy did not decrease")
+    del v, frames, data, pairs
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_path(dev, card: str) -> dict:
+    """Phase 17: ``compute`` of both port demos at their default shapes
+    (the pair at 128 x 160, the video at 8 x 120 x 168): each demo's own
+    check (the pair's disk centroid sweeps > 20 px towards B; the video's
+    mid frame lands within 6 px of the takes' midpoint) and its ``.y4m``
+    outputs, written by ``io.clips.save_clip`` (no PIL), starting with the
+    YUV4MPEG2 magic."""
+    from videomorphing_tpu_torch.io.clips import save_clip
+
+    pair, video = load_example("demo_pair_torch"), load_example("demo_video_torch")
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    out_p = pair.compute(dev)
+    sync(dev)
+    t_pair = time.perf_counter() - t0
+    out_v = video.compute((8, 120, 168), dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    log(f"  launches in the examples: {launches}")
+    cs = out_p["centroids"]
+    log(f"  demo_pair: {t_pair:.3f} s; disk centroid {np.round(cs, 2).tolist()}, max displacement "
+        f"{out_p['disp']:.2f} px; demo_video: {wall - t_pair:.3f} s, mid-frame centroid "
+        f"{out_v['mid_err']:.3f} px off the takes' midpoint (limit 6); on {card}")
+    require(out_p["ok"], f"demo_pair: the disk centroid sweeps {cs[-1] - cs[0]} px (at least 20 required)")
+    require(out_v["ok"], f"demo_video: the mid frame is {out_v['mid_err']} px off the takes' midpoint")
+    for frames in (out_p["frames"], out_v["frames"], out_v["layered"]):
+        require(np.isfinite(frames).all() and frames.min() >= 0.0 and frames.max() <= 1.0, "demo frames")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, frames in (("pair.y4m", out_p["frames"]), ("morph.y4m", out_v["frames"]),
+                             ("layered.y4m", out_v["layered"])):
+            path = os.path.join(tmp, name)
+            save_clip(path, frames, fps=8)
+            with open(path, "rb") as fh:
+                require(fh.read(9) == b"YUV4MPEG2", f"{name} does not start with YUV4MPEG2")
+    for name in BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched by the examples")
+    return launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -1614,9 +1866,18 @@ def main(argv) -> int:
     log("phase 14: stressor (utils.stressor: the gate at {}x{}x{}, metrics at {}x{}x{})".format(
         *STRESSOR_GATE_THW, *STRESSOR_FULL_THW))
     stressor_launches = stressor_path(dev, card)
+    log(f"phase 15: edit session (edit.PointEditor, {EDIT_N}x{EDIT_N}, 4 + 1 points, cold and warm solves, "
+        "preview, cursor, 16-frame render)")
+    edit_launches = edit_session(dev, card)
+    log("phase 16: pairs x rows (make_spatial_level_solver(batch_axis='batch'), 4 pairs of {}x{}, "
+        "a (2, {}) mesh of one card)".format(*PAIRS_ROWS_HW, PAIRS_ROWS_BLOCKS))
+    rows_launches = pairs_by_rows(dev, card)
+    log("phase 17: examples (demo_pair_torch, demo_video_torch compute functions)")
+    examples_launches = examples_path(dev, card)
 
     paths = (launches, golden_launches, video_launches, layered_launches, layered_video_launches, spatial_launches,
-             mesh_launches, manifest_launches, stream_launches, stressor_launches)
+             mesh_launches, manifest_launches, stream_launches, stressor_launches, edit_launches, rows_launches,
+             examples_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]

@@ -93,8 +93,7 @@ def test_make_mesh_lists_devices():
     assert mesh.shape == {"batch": 2, "y": 2} and len(mesh.devices) == 4
     assert all(d == torch.device("cpu") for d in mesh.devices)
     assert _cpu_mesh().axis_devices("y") == (torch.device("cpu"),) * N_DEV
-    with pytest.raises(NotImplementedError, match="1-D"):
-        mesh.axis_devices("y")
+    assert mesh.axis_devices("y") == mesh.axis_devices("batch") == (torch.device("cpu"),) * 2
     with pytest.raises(ValueError, match="need 4 devices"):
         pm.make_mesh((4,), devices=["cpu"] * 3)
     with pytest.raises(TypeError, match="Mesh"):
@@ -313,13 +312,131 @@ def test_spatial_level_solver_matches_single_device(pair, case):
     _check_level(v_ref, st_ref, v, st)
 
 
-def test_spatial_level_solver_rejects_short_blocks_and_batch_axis(pair):
-    with pytest.raises(NotImplementedError, match="batch_axis"):
-        make_spatial_level_solver(MorphParams(), 2, _cpu_mesh(), batch_axis="batch")
+def test_spatial_level_solver_rejects_short_blocks(pair):
     i0, i1 = pair
     data = level_data_from_numpy(i0[:20], i1[:20])
     with pytest.raises(ValueError, match="blocks"):
         make_spatial_level_solver(MorphParams(), 2, _cpu_mesh())(torch.zeros((20, W, 2)), data)
+
+
+# ------------------------------------------- the 2-D pairs x rows layout
+
+
+def test_axis_devices_on_a_2d_mesh():
+    """Along an axis at index 0 of the others (the reference's ``P(axis)``
+    with replicas on the other axes), or at a given index."""
+    devs = ["cpu", "meta", "cpu", "meta", "cpu", "meta"]
+    mesh = pm.make_mesh((2, 3), ("batch", "y"), devices=devs)
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    assert mesh.axis_devices("y") == (cpu, meta, cpu)
+    assert mesh.devices_along("y", "batch", 1) == (meta, cpu, meta)
+    assert mesh.axis_devices("batch") == (cpu, meta)
+    assert mesh.devices_along("batch", "y", 2) == (cpu, meta)
+    for bad in (("y", "batch", 2), ("y", "z", 0), ("y", "y", 0), ("z", "batch", 0)):
+        with pytest.raises(ValueError):
+            mesh.devices_along(*bad)
+    with pytest.raises(ValueError):
+        mesh.axis_devices("z")
+
+
+B_PAIRS = 4
+
+
+def _mesh_2d():
+    return pm.make_mesh((2, 2), ("batch", "y"), devices=["cpu"] * 4)
+
+
+@pytest.fixture(scope="module")
+def batch_case(pair):
+    """B = 4 pairs at H x W: two textures, a shifted copy, and an identical
+    pair whose one point constraint sits on the corner pixel, where the
+    boundary lock holds both components: a non-zero energy and a zero
+    descent direction, so that pair stalls after n_colors + 1 iterations
+    and the pairs stop at different counts. The reference solves them on
+    ``jax_make_mesh((2, 2), ("batch", "y"))``."""
+    i0, i1 = pair
+    pairs = [(i0, i1), (i1, i0), (i0, np.roll(i0, 2, axis=1)), (i0, i0)]
+    ui_w = np.zeros((B_PAIRS, H, W, 1), np.float32)
+    ui_v = np.zeros((B_PAIRS, H, W, 2), np.float32)
+    ui_w[3, 0, 0] = 1.0
+    ui_v[3, 0, 0] = 10.0
+    p_kw = dict(lambda_tps=0.01, backend="jnp")
+    v0 = np.zeros((B_PAIRS, H, W, 2), np.float32)
+    jdata = [jax_level_data(jnp.asarray(a), jnp.asarray(b), jnp.asarray(w), jnp.asarray(u))
+             for (a, b), w, u in zip(pairs, ui_w, ui_v)]
+    jdata = type(jdata[0])(*(jnp.stack(f) for f in zip(*jdata)))
+    solve = jax_spatial_solver(JaxMorphParams(**p_kw), 6, jax_make_mesh((2, 2), ("batch", "y")),
+                               axis="y", batch_axis="batch")
+    v_ref, st_ref = solve(jnp.asarray(v0), jdata)
+    data = [level_data_from_numpy(a, b, w, u) for (a, b), w, u in zip(pairs, ui_w, ui_v)]
+    p = MorphParams(**p_kw)
+    v, st = make_spatial_level_solver(p, 6, _mesh_2d(), batch_axis="batch")(
+        torch.from_numpy(v0), LevelData(*(torch.stack(f) for f in zip(*data))))
+    return dict(ref=(np.asarray(v_ref), st_ref), got=(v, st), data=data, p=p)
+
+
+def test_batch_axis_solver_output_shapes(batch_case):
+    v, st = batch_case["got"]
+    assert tuple(v.shape) == (B_PAIRS, H, W, 2)
+    assert tuple(st.energy_history.shape) == (B_PAIRS, 6)
+    for f in ("e0", "e_final", "iters", "step"):
+        assert tuple(getattr(st, f).shape) == (B_PAIRS,), f
+    iters = st.iters.tolist()
+    assert iters == np.asarray(batch_case["ref"][1].iters).tolist()
+    assert len(set(iters)) > 1 and iters[3] == MorphParams().n_colors + 1, iters
+
+
+@pytest.mark.parametrize("i", range(B_PAIRS))
+def test_batch_axis_solver_matches_reference(batch_case, i):
+    """Each pair within ``_check_level``'s tolerances of the reference's
+    vmapped ``shard_map`` on its (2, 2) mesh (v within 2e-3, e0 within 1e-5
+    relative, e_final within 1e-4 relative)."""
+    v_ref, st_ref = batch_case["ref"]
+    v, st = batch_case["got"]
+    ref_i = type(st_ref)(*(np.asarray(f)[i] for f in st_ref))
+    assert int(st.iters[i]) == int(ref_i.iters)
+    _check_level(v_ref[i], ref_i, v[i], type(st)(*(f[i] for f in st)))
+
+
+@pytest.mark.parametrize("i", range(B_PAIRS))
+def test_batch_axis_solver_is_the_1d_solver_per_pair(batch_case, i):
+    """Pair i bitwise equal to the 1-D solver on a (2,) mesh for it alone."""
+    v, st = batch_case["got"]
+    v1, st1 = make_spatial_level_solver(batch_case["p"], 6, pm.make_mesh((2,), ("y",), devices=["cpu"] * 2))(
+        torch.zeros((H, W, 2)), batch_case["data"][i])
+    assert torch.equal(v[i], v1)
+    assert int(st.iters[i]) == st1.iters
+    for f in ("e0", "e_final", "step"):
+        assert float(getattr(st, f)[i]) == getattr(st1, f), f
+    assert torch.equal(st.energy_history[i].isnan(), st1.energy_history.isnan())
+    assert torch.equal(st.energy_history[i].nan_to_num(), st1.energy_history.nan_to_num())
+
+
+def test_batch_axis_solver_checks_its_batch(pair):
+    i0, i1 = pair
+    data = level_data_from_numpy(i0, i1)
+    three = LevelData(*(torch.stack([f] * 3) for f in data))
+    solve = make_spatial_level_solver(MorphParams(), 2, _mesh_2d(), batch_axis="batch")
+    with pytest.raises(ValueError, match="does not divide"):
+        solve(torch.zeros((3, H, W, 2)), three)
+    with pytest.raises(ValueError, match="batch_axis"):
+        make_spatial_level_solver(MorphParams(), 2, _mesh_2d(), batch_axis="y")
+
+
+def test_1d_entry_point_on_a_2d_mesh():
+    """``render_video_frames_sharded`` over "batch" of a (2, 2) mesh equals
+    the same call on the (2,) mesh: the "y" axis holds replicas."""
+    from videomorphing_tpu_torch.parallel.frames import render_video_frames_sharded
+
+    rng = np.random.default_rng(4)
+    clip_a = torch.from_numpy(rng.random((4, 16, 20, 3), dtype=np.float32))
+    clip_b = torch.from_numpy(rng.random((4, 16, 20, 3), dtype=np.float32))
+    fields = torch.from_numpy((0.5 * rng.standard_normal((4, 16, 20, 2))).astype(np.float32))
+    times = np.linspace(0.0, 1.0, 4, dtype=np.float32)
+    flat = pm.make_mesh((2,), ("batch",), devices=["cpu"] * 2)
+    b1, f1 = render_video_frames_sharded(clip_a, clip_b, fields, times, flat)
+    b2, f2 = render_video_frames_sharded(clip_a, clip_b, fields, times, _mesh_2d())
+    assert torch.equal(f1, f2) and torch.equal(b1, b2)
 
 
 def test_optimize_pair_spatial_matches_reference(pair, jmesh):

@@ -1,4 +1,4 @@
-"""Command-line interface of the port: ``vmorph-torch pair | video | project | batch | import``.
+"""Command-line interface of the port: ``vmorph-torch pair | video | project | batch | edit | import``.
 
 Port of ``videomorphing_tpu/cli.py``. Every run emits the metrics
 (frames/s, optimizer iterations/s/Mpixel, endpoint and halfway-agreement
@@ -13,13 +13,16 @@ the CUDA device raises, it does not fall back to the CPU.
     python -m videomorphing_tpu_torch.cli project job.json
     python -m videomorphing_tpu_torch.cli batch --manifest jobs.json
     python -m videomorphing_tpu_torch.cli batch --clip-a a.vmc --clip-b b.vmc --out out.vmc
+    python -m videomorphing_tpu_torch.cli edit a.png b.png --points p.json --out p.json
 
 ``pair --spatial-shards N`` solves one large frame with its rows split
 over ``min(N, devices)`` devices (``parallel.spatial``; the devices are the
 cards for ``--device cuda``, one for the CPU), ``video`` splits the clip
 over every card when there is more than one, and ``batch`` spreads its
-pairs over the same devices (``parallel.batch``). ``edit`` and ``bench``
-are not ported yet (ROADMAP queue 1 items 6 and 2).
+pairs over the same devices (``parallel.batch``). ``edit`` is the terminal
+point editor (``edit.PointEditor``: edit, warm re-solve, ANSI preview; a
+``--script`` file in place of stdin). ``bench`` is not ported yet (ROADMAP
+queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -194,6 +197,12 @@ def _sync(dev: torch.device) -> None:
 
 def _numpy(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+def cmd_edit(args) -> int:
+    from videomorphing_tpu_torch.edit import run_editor_cli
+
+    return run_editor_cli(args)
 
 
 def cmd_pair(args) -> int:
@@ -583,6 +592,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_param_overrides(p_batch)
     p_batch.set_defaults(fn=cmd_batch)
+
+    p_edit = sub.add_parser(
+        "edit", help="interactive terminal point editor (edit -> warm re-solve -> preview)"
+    )
+    p_edit.add_argument("image_a")
+    p_edit.add_argument("image_b")
+    p_edit.add_argument("--points", default=None, help="initial points JSON")
+    p_edit.add_argument("--out", default="points.json", help="where `save` writes")
+    p_edit.add_argument("--script", default=None, help="command file instead of stdin")
+    p_edit.add_argument("--cols", type=int, default=0, help="preview width (0 = terminal)")
+    p_edit.add_argument("--no-preview", action="store_true", help="suppress ANSI previews")
+    _add_param_overrides(p_edit)
+    p_edit.set_defaults(fn=cmd_edit)
 
     p_imp = sub.add_parser(
         "import",

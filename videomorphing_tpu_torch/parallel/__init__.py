@@ -10,7 +10,8 @@ counterpart of the reference's 8 virtual CPU devices in its tests).
   block tensors;
 - ``spatial.py``: the row-sharded level solve and the coarse-to-fine pair
   solve of one large frame; the ``psum`` of the energy partials is a
-  fixed-order sum over the blocks;
+  fixed-order sum over the blocks; with ``batch_axis`` a batch of pairs
+  over a 2-D ("batch", "y") mesh;
 - ``frames.py``: frames and pairs split over the devices;
 - ``video_blocks.py``: the blocked clip solve;
 - ``batch.py``: config 5's batch pipeline, pair jobs and streamed clip

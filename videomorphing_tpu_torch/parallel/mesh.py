@@ -2,7 +2,9 @@
 
 A :class:`Mesh` holds a tuple of ``torch.device``s (repeats allowed), the
 names of its axes and their sizes. ``make_mesh`` takes the reference's
-arguments; by default it spans every visible card.
+arguments; by default it spans every visible card. A 1-D path given a mesh
+of more axes runs along its axis at index 0 of the others (the replicas of
+the reference's ``P(axis)``); the pairs x rows solve walks both axes.
 """
 
 from __future__ import annotations
@@ -29,14 +31,27 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names, sizes))
 
     def axis_devices(self, axis: str) -> Tuple[torch.device, ...]:
-        """The devices along ``axis`` of a 1-D mesh, in order."""
+        """The devices along ``axis``, in order, at index 0 of every other
+        axis: the port's reading of the reference's ``P(axis)``, whose other
+        axes hold replicas that compute the same thing."""
+        return self._along(axis, None, 0)
+
+    def devices_along(self, axis: str, other: str, index: int) -> Tuple[torch.device, ...]:
+        """The devices along ``axis``, in order, at ``index`` of the axis
+        ``other`` and index 0 of any further axes. On a ("batch", "y") mesh,
+        ``devices_along("y", "batch", k)`` is batch block k's row devices."""
+        if other == axis or other not in self.shape:
+            raise ValueError(f"{other!r} is not another axis of the mesh; axes {self.axis_names}")
+        if not 0 <= index < self.shape[other]:
+            raise ValueError(f"index {index} is outside axis {other!r} of size {self.shape[other]}")
+        return self._along(axis, other, index)
+
+    def _along(self, axis: str, other: Optional[str], index: int) -> Tuple[torch.device, ...]:
         if axis not in self.shape:
             raise ValueError(f"mesh has no axis {axis!r}; axes {self.axis_names}")
-        if len(self.axis_names) != 1:
-            raise NotImplementedError(
-                "only 1-D meshes are ported (the 2-D batch x rows layout is ROADMAP queue 1 item 8)"
-            )
-        return self.devices
+        at = tuple(slice(None) if n == axis else (index if n == other else 0) for n in self.axis_names)
+        grid = np.arange(len(self.devices)).reshape(tuple(self.shape.values()))
+        return tuple(self.devices[i] for i in grid[at])
 
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]}, {self.shape})"

@@ -22,8 +22,8 @@ own edge row substituted at its top and bottom), the foldover clamp on the
 extended block and the Armijo arithmetic (numpy float32 on the host) are
 the reference's. The blocks run one after another from this process, so on
 a mesh that repeats one card the sharded solve is a correctness path, not a
-speed-up. ``batch_axis`` (the reference's 2-D validation layout) is not
-ported.
+speed-up. With ``batch_axis`` a 2-D mesh solves a batch of pairs, one
+row-sharded solve per pair on its batch block's devices.
 """
 
 from __future__ import annotations
@@ -107,24 +107,34 @@ def make_spatial_level_solver(
     ``solve(v, data) -> (v', LevelStats)`` with ``v`` and ``data`` whole
     frames on one device; the frame's H must divide the axis size and leave
     every block at least the exchange halo. The result lands on ``v``'s
-    device."""
-    if batch_axis is not None:
-        raise NotImplementedError(
-            "batch_axis: the 2-D pairs x rows layout is not ported (ROADMAP queue 1 item 8)"
-        )
+    device.
+
+    With ``batch_axis`` (the reference's pairs x rows layout on a 2-D
+    mesh), every input carries a leading batch dimension B that divides
+    over ``mesh.shape[batch_axis]``: pair i goes to batch block
+    ``i // (B // n_batch)`` and runs the row-sharded solve on that block's
+    devices along ``axis`` (``Mesh.devices_along``). ``v'`` is
+    (B, H, W, 2) and every ``LevelStats`` field is stacked over B (CPU
+    tensors). The reference ``vmap``s its loop, freezing the carry of a
+    pair that has stopped, so each pair's result, ``iters`` included, is
+    its independent solve's: a loop over the pairs gives the same. The
+    reference keeps this layout on its jnp backend (a vmap of a
+    ``pallas_call`` risked Mosaic's compiler); the port has no such risk
+    and runs the shard kernels here too.
+    """
     if p.pack_dtype != "float32":
         raise ValueError(
             f"pack_dtype={p.pack_dtype!r} changes the output; the port computes in float32 only"
         )
-    devs = as_mesh(mesh).axis_devices(axis)
-    n_dev = len(devs)
+    mesh = as_mesh(mesh)
     halo = exchange_halo(p)
     armijo_c, shrink, grow = f32(p.armijo_c), f32(p.step_shrink), f32(p.step_grow)
     min_step, tol = f32(p.min_step), f32(p.tol)
     if p.n_colors not in (1, 2, 4):
         raise ValueError(f"n_colors must be 1, 2 or 4, got {p.n_colors}")
 
-    def solve(v: torch.Tensor, data: LevelData):
+    def solve_rows(devs, v: torch.Tensor, data: LevelData):
+        n_dev = len(devs)
         h, w = v.shape[0], v.shape[1]
         if h % n_dev or h // n_dev < halo:
             raise ValueError(
@@ -240,7 +250,29 @@ def make_spatial_level_solver(
         return v_out, LevelStats(e0=float(e0), e_final=float(e), iters=it, step=float(step),
                                  energy_history=hist)
 
-    return solve
+    if batch_axis is None:
+        devs = mesh.axis_devices(axis)
+        return lambda v, data: solve_rows(devs, v, data)
+    if batch_axis == axis or batch_axis not in mesh.shape:
+        raise ValueError(f"batch_axis {batch_axis!r} must be another axis of {mesh.axis_names}")
+    n_batch = mesh.shape[batch_axis]
+    row_devs = [mesh.devices_along(axis, batch_axis, k) for k in range(n_batch)]
+
+    def solve_batch(v: torch.Tensor, data: LevelData):
+        bsz = v.shape[0]
+        if bsz % n_batch:
+            raise ValueError(f"a batch of {bsz} pairs does not divide over {n_batch} batch blocks")
+        per = bsz // n_batch
+        outs = [solve_rows(row_devs[i // per], v[i], LevelData(*(x[i] for x in data))) for i in range(bsz)]
+        stats = [st for _, st in outs]
+        column = lambda name, dtype: torch.tensor([getattr(st, name) for st in stats], dtype=dtype)
+        return torch.stack([vi for vi, _ in outs]), LevelStats(
+            e0=column("e0", torch.float32), e_final=column("e_final", torch.float32),
+            iters=column("iters", torch.int32), step=column("step", torch.float32),
+            energy_history=torch.stack([st.energy_history for st in stats]),
+        )
+
+    return solve_batch
 
 
 def _as_tensor(x, device) -> torch.Tensor:
