@@ -9,12 +9,15 @@ Phases:
   1. build the CUDA kernels of ``videomorphing_tpu_torch/csrc`` with nvcc;
      print ptxas's registers and spills per kernel (``-Xptxas -v``, from
      ``build.log``) and each sweep kernel's registers, shared memory and
-     resident blocks per SM (``vm_sweep_kernel_info``), and check the
-     partials counts the wrapper sizes against ``vm_sweep_n_partials``;
+     resident blocks per SM (``vm_sweep_kernel_info``: every tiled
+     radius, 1-6, and the wide path), and check the partials counts the
+     wrapper sizes against ``vm_sweep_n_partials`` at every radius;
   2. each kernel against its plain PyTorch version on the card, at the
      slices' shapes (1024 x 1024, 1080 x 1920 and a ragged 135 x 241,
-     C = 3; kernels 1-2 also at ``ssim_window`` 3 and 7 on the ragged shape,
-     every instantiated radius, each rerun bitwise; the sampler, bitwise, also at C = 4 on
+     C = 3; kernels 1-2 also at every ``ssim_window`` of ``WINDOW_SIGMA``,
+     1-15, on the ragged shape (every tiled radius and the wide path) and
+     at ``WIDE_WINDOWS`` (9, 11, 15) at 1024^2, timed, each rerun bitwise;
+     the sampler, bitwise, also at C = 4 on
      the stacked [disp, v] planes, on a grey 540 x 960 image, at 4 points,
      and batched: 29 and 58 grey 540 x 960 images as the flow warps take
      them, 29 two-channel 540 x 960 and 1080 x 1920 flows as the occlusion
@@ -33,7 +36,8 @@ Phases:
      sweeps and the row-offset warp) on 4 row blocks of a 2160 x 3840,
      C = 3 level and on 2 (phase 16's blocks) against the whole-frame
      kernels' rows, and against their plain versions there and on a
-     ragged 132 x 241 split 4 ways (at ``ssim_window`` 3, 5 and 7);
+     ragged 132 x 241 split 4 ways (at every window); the 4-block split
+     also at ``WIDE_WINDOWS``, timed;
   3. the pair path: ``api.morph_pair`` on a 1024 x 1024 pair with 4 point
      constraints and 16 frames, with every kernel's launch count;
   4. the golden cases (``utils.golden.run_golden``: translation, rotation
@@ -91,12 +95,16 @@ Phases:
      pair bitwise equal to the 1-D solver on a (2,) mesh, then a t = 0.5
      render of each pair;
  17. the examples: both port demos' compute functions at their default
-     shapes on the card, their own checks and their ``.y4m`` files.
+     shapes on the card, their own checks and their ``.y4m`` files;
+ 18. the wide windows: ``api.morph_pair`` on phase 3's inputs and
+     ``run_golden`` at ``ssim_window`` 11, and phase 10's 4K pair through
+     ``optimize_pair_spatial`` on 4 row blocks at window 9, its field
+     bitwise equal to the single-device ``api.solve_pair``.
 
 A repeated-device mesh runs its blocks one after another on the card: a
 correctness path, not a speed-up. Any failure raises and exits non-zero.
 The card's name and power limit, then one JSON object with a record per
-kernel (launches summed over the paths of phases 3-5, 7, 8 and 10-17;
+kernel (launches summed over the paths of phases 3-5, 7, 8 and 10-18;
 ``ms`` and ``library_ms`` device times, ``plain_ms`` a call time), are the
 lines before the last; the last line is ``{"ok": true, "device":
 {...}}``. With no CUDA device it exits 1 and prints no result.
@@ -147,6 +155,16 @@ STRESSOR_FULL_THW = (8, 480, 854)
 EDIT_N = 1024
 PAIRS_ROWS_HW = (2160, 3840)
 PAIRS_ROWS_BLOCKS = 2
+# the SSIM windows (ssim_window: ssim_sigma) that phase 2 holds the sweeps
+# at on its ragged shapes: every tiled radius (1-6) and the wide path's R = 0
+# and R = 7; WIDE_WINDOWS are also held and timed at 1024^2 and on 4 row
+# blocks of the 4K level; phase 18 runs the pair and the golden cases at
+# WIDE_PAIR_WINDOW and the 4K spatial solve at WIDE_SPATIAL_WINDOW
+WINDOW_SIGMA = {1: 1.0, 3: 1.0, 5: 1.0, 7: 1.5, 9: 1.5, 11: 1.5, 13: 2.0, 15: 2.5}
+WIDE_WINDOWS = (9, 11, 15)
+WIDE_PAIR_WINDOW = 11
+WIDE_SPATIAL_WINDOW = 9
+WIDE_PAIR_N = 1024
 BASE = ("halfway_warp", "bilinear_sample", "bilinear_sample_batched", "sweep_grad", "sweep_energy")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -340,8 +358,9 @@ def check_kernels(dev) -> dict:
         require(float(ks.sweep_energy(planes, v_lin, v, data, pw)) == float(e2_k),
                 f"{shape}: sweep_energy rerun is not bitwise identical")
 
-    # every window radius the kernels instantiate (ssim_window 3, 5, 7) on the ragged shape
-    windows = {3: MorphParams(ssim_window=3), 5: p, 7: MorphParams(ssim_window=7, ssim_sigma=1.5)}
+    # every tiled radius and the wide path on the ragged shape; the wide windows also at 1024^2
+    windows = {k: p if k == p.ssim_window else MorphParams(ssim_window=k, ssim_sigma=sg)
+               for k, sg in WINDOW_SIGMA.items()}
     for h, w in ((1024, 1024), (1080, 1920), (135, 241)):
         full = (h, w) == (1024, 1024)
         rng = np.random.default_rng(h + w)
@@ -378,8 +397,15 @@ def check_kernels(dev) -> dict:
             v + t(0.5 * rng.standard_normal((h, w, 2)).astype(np.float32)),
         )
         ragged = (h, w) == (135, 241)
-        for win, pw in (windows.items() if ragged else ((5, p),)):
+        held = windows if ragged else {k: windows[k] for k in (5,) + (WIDE_WINDOWS if full else ())}
+        for win, pw in held.items():
             check_sweeps(planes, v_lin, v, data, pw, f"{shape} window {win}")
+            if full and win in WIDE_WINDOWS:
+                time_wide_window(h, w, pw,
+                                 lambda: ks.sweep_grad(planes, v_lin, v, data, pw),
+                                 lambda: ks.sweep_grad_plain(planes, v_lin, v, data, pw),
+                                 lambda: ks.sweep_energy(planes, v_lin, v, data, pw),
+                                 lambda: ks.sweep_energy_plain(planes, v_lin, v, data, pw))
 
         if (h, w) == (1080, 1920):
             # the warm loop's level: kernels 1-2 timed beside the 1024^2 shape
@@ -427,6 +453,29 @@ def check_kernels(dev) -> dict:
     check_sampler_forms(dev, compare, rec, t)
     check_shard_forms(dev, compare, rec, t, p)
     return rec
+
+
+def time_wide_window(h: int, w: int, pw, grad, grad_plain, energy, energy_plain, rows: int = 0,
+                     shard: bool = False) -> None:
+    """Kernels 1 and 2 (or their shard forms, ``shard``) at a window past
+    radius 3 on an h x w whole frame or on a row block of ``rows`` owned
+    rows: device time (``graph_ms``, twice), call time, the plain version's
+    call time and the bound, logged (the kernels' result line stays at the
+    default window)."""
+    c, k = 3, int(pw.ssim_window)
+    own = rows or h
+    for name, kern, plain, with_grad in (("sweep_grad", grad, grad_plain, True),
+                                         ("sweep_energy", energy, energy_plain, False)):
+        name = name + ("_shard" if shard else "")
+        if shard:  # the extended block's planes, v and v_lin; the owned rows' maps and outputs
+            nbytes = 4 * (h * w * (6 * c + 4) + own * w * ((6 + 4) if with_grad else 6))
+        else:
+            nbytes = 4 * h * w * (6 * c + 10 + (4 if with_grad else 0))
+        b_ms, b_by = bound(nbytes, own * w * sweep_ops_per_pixel(c, k, with_grad))
+        ms, _, (k1, k2, pl1, pl2), call = timed_pair(kern, plain, 10)
+        shape = f"{h}x{w}" + (" block" if shard else "")
+        log(f"  {name} {shape} window {k} time: kernel {k1:.4f}/{k2:.4f} ms (device), {call:.4f} ms (call), "
+            f"plain {pl1:.4f}/{pl2:.4f} ms; bound {b_ms:.4f} ms ({b_by}), share {b_ms / ms:.0%}")
 
 
 def timed_pair(kern, plain, reps: int = 20):
@@ -594,11 +643,12 @@ def _ext(a, row0: int, rows: int):
     return out
 
 
-def check_shard_forms(dev, compare, rec, t, p) -> None:
+def check_shard_forms(dev, compare, rec, t, p_default) -> None:
     """Phase 2, the row-shard forms, on row blocks with real halos (2R + 2
-    rows): 4 blocks of a 2160 x 3840, C = 3 level; ``PAIRS_ROWS_BLOCKS``
-    blocks of a ``PAIRS_ROWS_HW`` level (phase 16's block shape); and 4
-    blocks of a ragged 132 x 241 one at ``ssim_window`` 3, 5 and 7. Each
+    rows): 4 blocks of a 2160 x 3840, C = 3 level, at the default window and
+    at ``WIDE_WINDOWS``; ``PAIRS_ROWS_BLOCKS`` blocks of a ``PAIRS_ROWS_HW``
+    level (phase 16's block shape); and 4 blocks of a ragged 132 x 241 one
+    at every window of ``WINDOW_SIGMA``. Each
     block's row-offset warp, (partials, grad, precond) and energy partials
     against their plain versions on the same inputs (the warp 1e-6
     absolute; grad and precond kernel 1's gate, 1e-5 of max|ref|; each raw
@@ -608,7 +658,8 @@ def check_shard_forms(dev, compare, rec, t, p) -> None:
     whole-frame kernel's rows (bitwise expected, else within 1e-6 of
     max|ref|), and the shard-summed energies are within 1e-6 relative of
     the whole-frame energy. Then the times, bounds and plain times of the
-    forms at the 4-block 4K block shape."""
+    forms at the 4-block 4K block shape (at the wide windows logged
+    only)."""
     import torch
 
     from videomorphing_tpu_torch.kernels import sweep as ks
@@ -623,11 +674,13 @@ def check_shard_forms(dev, compare, rec, t, p) -> None:
 
     from videomorphing_tpu_torch.config import MorphParams
 
-    # (shape, params, blocks, whole-frame checks, timed): the ragged split
-    # at every window radius the kernels instantiate
-    cases = [(SHARD_SHAPES[0], p, 4, True, True), (PAIRS_ROWS_HW, p, PAIRS_ROWS_BLOCKS, True, False)] + [
-        (SHARD_SHAPES[1], pw, 4, False, False)
-        for pw in (MorphParams(ssim_window=3), p, MorphParams(ssim_window=7, ssim_sigma=1.5))]
+    # (shape, params, blocks, whole-frame checks, timed): the 4K split also
+    # at the wide windows, the ragged split at every window
+    at = lambda k: p_default if k == p_default.ssim_window else MorphParams(ssim_window=k, ssim_sigma=WINDOW_SIGMA[k])
+    cases = ([(SHARD_SHAPES[0], p_default, 4, True, True),
+              (PAIRS_ROWS_HW, p_default, PAIRS_ROWS_BLOCKS, True, False)]
+             + [(SHARD_SHAPES[0], at(k), 4, True, True) for k in WIDE_WINDOWS]
+             + [(SHARD_SHAPES[1], at(k), 4, False, False) for k in WINDOW_SIGMA])
     for (h, w), p, n, big, timed in cases:
         halo = exchange_halo(p)
         rng = np.random.default_rng(h + w + 1)
@@ -705,6 +758,16 @@ def check_shard_forms(dev, compare, rec, t, p) -> None:
         vl_e, v_e = _ext(v_lin, row0, he), _ext(v, row0, he)
         data_k = LevelData(i0, i1, *(m[rows].contiguous() for m in (data.ui_w, data.ui_v, data.tc_w, data.tc_v)))
         pl_k = kw.halfway_warp_rows(i0, i1, vl_e, row0)
+        if p is not p_default:
+            time_wide_window(he, w, p,
+                             lambda: ks.sweep_grad_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                             lambda: ks.sweep_grad_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                             lambda: ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                             lambda: ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                             rows=bh, shard=True)
+            del pl_k, data, data_k, i0, i1
+            torch.cuda.empty_cache()
+            continue
         c, kt = 3, int(p.ssim_window)
         forms = {
             "halfway_warp_rows": (lambda: kw.halfway_warp_rows(i0, i1, vl_e, row0),
@@ -1793,6 +1856,116 @@ def examples_path(dev, card: str) -> dict:
     return launches
 
 
+def wide_windows(dev, card: str) -> dict:
+    """Phase 18: SSIM windows past radius 3 through the entry points.
+    ``api.morph_pair`` on the pair_1k inputs (4 points, 16 frames) at
+    ``ssim_window`` ``WIDE_PAIR_WINDOW`` (sigma 1.5, the tiled kernels at
+    R = 5): endpoints within 0.02, a monotone centroid, a bitwise rerun,
+    every base kernel launched; ``utils.golden.run_golden`` at that window
+    (midpoint SSIM >= 0.99 each); frame 0 of the bench's 2160 x 3840 pair
+    through ``optimize_pair_spatial`` on 4 row blocks of the card at
+    ``WIDE_SPATIAL_WINDOW`` (reach 2R = 8 rows, exchange halo 10), its field
+    bitwise equal to the single-device ``api.solve_pair`` at that window.
+    Returns the launches of the three runs (the rerun and the single-device
+    solve left out), summed."""
+    import torch
+
+    from videomorphing_tpu_torch import api
+    from videomorphing_tpu_torch.config import MorphParams
+    from videomorphing_tpu_torch.kernels import sweep as ks
+    from videomorphing_tpu_torch.ops.pyramid import pyramid_shapes
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+    from videomorphing_tpu_torch.parallel.spatial import exchange_halo, level_is_sharded, optimize_pair_spatial
+    from videomorphing_tpu_torch.utils.golden import run_golden
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
+
+    total: dict = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    # the pair at window 11
+    n, n_frames, win = WIDE_PAIR_N, 16, WIDE_PAIR_WINDOW
+    mp = MorphParams(ssim_window=win, ssim_sigma=1.5)
+    i0, i1, pts = make_pair(n)
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    frames = api.morph_pair(i0, i1, pts, n_frames=n_frames, mp=mp, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    log(f"  launches in the window-{win} pair path: {launches}")
+    check_frames(frames, (n_frames, n, n, 3))
+    for name in BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched on the window-{win} pair path")
+    check_endpoints(frames.cpu().numpy(), i0, i1, f"window-{win} pair")
+    cx = centroids_x(frames)
+    ca, cb = centroids_x(torch.from_numpy(np.stack([i0, i1])).to(dev))
+    log(f"  centroid x per frame: {np.round(cx, 2).tolist()} (A {ca:.2f}, B {cb:.2f})")
+    require(np.all(np.diff(cx) >= 0.0), f"window {win}: centroid does not move monotonically")
+    require(abs(cx[0] - ca) < 0.01 * n and abs(cx[-1] - cb) < 0.01 * n, f"window {win}: centroid misses A or B")
+    again = api.morph_pair(i0, i1, pts, n_frames=n_frames, mp=mp, device=dev)
+    require(torch.equal(frames, again), f"window {win}: the pair morph's rerun is not bitwise identical")
+    log(f"  pair_1k at window {win}: wall {wall:.3f} s for solve + {n_frames} frames (first call), "
+        f"rerun bitwise equal, on {card}")
+    add(launches)
+    del frames, again
+
+    # the golden cases at window 11
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    for case in ("translation", "rotation", "scale"):
+        r = run_golden(case, hw=GOLDEN_HW, mp=mp, device=dev)
+        log(f"  golden {case} {GOLDEN_HW[0]}x{GOLDEN_HW[1]} window {win}: ssim_mid {r['ssim_mid']}, "
+            f"v_err_mean {r['v_err_mean']} px, v_err_p99 {r['v_err_p99']} px")
+        require(r["ssim_mid"] >= 0.99, f"golden {case} at window {win}: midpoint SSIM {r['ssim_mid']} < 0.99")
+    torch.cuda.synchronize()
+    launches = read_counters(counters)
+    log(f"  golden at window {win}: wall {time.perf_counter() - t0:.3f} s for 3 cases; launches {launches}")
+    add(launches)
+
+    # the 4K spatial solve at window 9 against the single-device solve
+    (h, w), n_blocks, win = SPATIAL_HW, 4, WIDE_SPATIAL_WINDOW
+    mp = MorphParams(ssim_window=win, ssim_sigma=1.5)
+    clip_a, clip_b = make_clips(1, h, w, seed=0)
+    i0 = torch.from_numpy(clip_a[0]).to(dev)
+    i1 = torch.from_numpy(clip_b[0]).to(dev)
+    del clip_a, clip_b
+    pts = bench_points(h, w)
+    mesh = make_mesh((n_blocks,), ("y",), devices=[dev] * n_blocks)
+    t0 = time.perf_counter()
+    single = api.solve_pair(i0, i1, pts, mp, device=dev)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    res = optimize_pair_spatial(i0, i1, pts, mp, mesh)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = read_counters(counters)
+    log(f"  launches in the window-{win} spatial path: {launches}")
+    for name in ("sweep_grad_shard", "sweep_energy_shard", "halfway_warp_rows"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the window-{win} spatial path")
+    require(ks.shard_reach(mp) == 2 * (win // 2) and exchange_halo(mp) == 2 * (win // 2) + 2,
+            f"window {win}: reach {ks.shard_reach(mp)}, exchange halo {exchange_halo(mp)}")
+    shapes = pyramid_shapes(h, w, res.n_levels)
+    for li, st in enumerate(res.level_stats):
+        lh, lw = shapes[res.n_levels - 1 - li]
+        kind = "sharded" if level_is_sharded(lh, n_blocks, mp) else "local"
+        log(f"  level {lh}x{lw} {kind}: iters={st.iters} e0={st.e0:.6f} e_final={st.e_final:.6f}")
+        require(st.e_final < st.e0, f"level {lh}x{lw}: energy did not decrease")
+    dv = float((single.v - res.v).abs().max())
+    log(f"  spatial_4k at window {win}: sharded solve {t_solve:.3f} s after a single-device solve of "
+        f"{t_single:.3f} s; reach {ks.shard_reach(mp)} rows, exchange halo {exchange_halo(mp)}; "
+        f"max |dv| against the single-device field {dv:.3e} px; peak {peak_gib(dev)}")
+    require(torch.equal(single.v, res.v), f"window {win}: the sharded 4K field differs from the single-device one")
+    add(launches)
+    del single, res, i0, i1
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv) -> int:
     import torch
 
@@ -1803,6 +1976,7 @@ def main(argv) -> int:
     from videomorphing_tpu_torch.kernels import build
 
     kernels_only = "--kernels" in argv
+    t_start = time.perf_counter()
     dev = require_cuda()
     card = card_line()
     log(f"phase 0: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1816,21 +1990,27 @@ def main(argv) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
     lib = build.load()
+    from videomorphing_tpu_torch.kernels import sweep as ks
     info = (ctypes.c_int * 5)()
+    tiled_radii = [r for r in range(1, 16) if ks.tiled(r)]
     for with_grad, kname in ((1, "sweep_grad_kernel"), (0, "sweep_energy_kernel")):
-        for r in (1, 2, 3):
+        # every tiled instantiation, then the wide path (its kernels' extremes; R = 0 and R > the tiled ones)
+        for r in tiled_radii + [tiled_radii[-1] + 1]:
             build.check(lib.vm_sweep_kernel_info(r, with_grad, info), "vm_sweep_kernel_info")
-            log(f"  {kname}<{r}>: {info[0]} registers, {info[1]} B static + {info[2]} B dynamic shared memory, "
+            what = f"{kname}<{r}>" if ks.tiled(r) else f"wide path ({'gradient' if with_grad else 'energy'})"
+            log(f"  {what}: {info[0]} registers, {info[1]} B static + {info[2]} B dynamic shared memory, "
                 f"{info[3]} B local, {info[4]} resident blocks of "
                 f"{256} threads per SM ({info[4] * 8} warps)")
-            require(info[4] >= 1, f"{kname}<{r}> cannot be resident on an SM")
-    from videomorphing_tpu_torch.kernels import sweep as ks
+            require(info[4] >= 1, f"{what} cannot be resident on an SM")
     for with_grad in (True, False):
-        for w, nown in ((1024, 1024), (1920, 1080), (241, 135), (3840, 540), (30, 17), (1, 1)):
-            got, sized = lib.vm_sweep_n_partials(w, nown, int(with_grad)), ks.n_partials(w, nown, with_grad)
-            require(got == sized, f"partials of {nown}x{w} (with_grad={with_grad}): {got} on the card, {sized} sized")
-        log(f"  {'gradient' if with_grad else 'energy'} tile {ks.sweep_tile(with_grad)} (rows, columns): "
-            "partials counts agree with vm_sweep_n_partials")
+        for r in [0] + tiled_radii + [7, 10]:
+            for w, nown in ((1024, 1024), (1920, 1080), (241, 135), (3840, 540), (30, 17), (1, 1)):
+                got, sized = lib.vm_sweep_n_partials(w, nown, int(with_grad), r), ks.n_partials(w, nown, with_grad, r)
+                require(got == sized,
+                        f"partials of {nown}x{w} (with_grad={with_grad}, R = {r}): {got} on the card, {sized} sized")
+        log(f"  {'gradient' if with_grad else 'energy'} tiles (rows, columns) by radius: "
+            + ", ".join(f"R = {r}: {ks.sweep_tile(with_grad, r)}" for r in [0] + tiled_radii + [7])
+            + "; partials counts agree with vm_sweep_n_partials")
 
     log("phase 2: kernels against their plain versions")
     rec = check_kernels(dev)
@@ -1874,10 +2054,13 @@ def main(argv) -> int:
     rows_launches = pairs_by_rows(dev, card)
     log("phase 17: examples (demo_pair_torch, demo_video_torch compute functions)")
     examples_launches = examples_path(dev, card)
+    log(f"phase 18: wide windows (api.morph_pair and run_golden at ssim_window {WIDE_PAIR_WINDOW}, "
+        f"optimize_pair_spatial at {SPATIAL_HW[0]}x{SPATIAL_HW[1]} on 4 row blocks at ssim_window {WIDE_SPATIAL_WINDOW})")
+    wide_launches = wide_windows(dev, card)
 
     paths = (launches, golden_launches, video_launches, layered_launches, layered_video_launches, spatial_launches,
              mesh_launches, manifest_launches, stream_launches, stressor_launches, edit_launches, rows_launches,
-             examples_launches)
+             examples_launches, wide_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]
@@ -1888,6 +2071,7 @@ def main(argv) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"],
         })
+    log(f"script: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 """Times of the PyTorch port's hand-written kernels at the main paths'
 shapes, on one CUDA card, for one checkout of the port.
 
-    python3 scripts/time_torch_kernels.py [--root DIR] [--label NAME] [--only K1,K2]
+    python3 scripts/time_torch_kernels.py [--root DIR] [--label NAME] [--only K1,K2] [--window K]
 
 Imports ``videomorphing_tpu_torch`` from ``DIR`` (default: this checkout;
 an unpacked older commit builds its own kernels into its own ``build/``)
@@ -17,18 +17,25 @@ For every kernel and shape it prints one JSON line with
   the method of the port's earlier kernel records), which counts the
   wrapper's host work before its launch;
 - for kernel 4 the same two times of ``F.grid_sample`` on the same inputs;
-- the bound of ``chip_smoke.bound``.
+- the bound of ``chip_smoke.bound``;
+- ``window``, and ``digest``: a SHA-256 of one call's outputs (bytes of
+  every returned tensor), so two checkouts' kernels can be held to
+  bitwise equal outputs on the same inputs.
 
 The shapes: kernel 4 at the path inversion's 1024^2, C = 4, the flow
 warps' 58 x 540 x 960 x 1 and the render's 2 x 1080 x 1920 x 4; kernels 1-2
 at 1024^2 and 1080 x 1920 (C = 3, default parameters); their shard forms on
-block 1 of 4 row blocks of 2160 x 3840; kernel 3 at 1024^2. The last line
-is the card's name and power limit.
+block 1 of 4 row blocks of 2160 x 3840; kernel 3 at 1024^2. Kernels 1-2
+and their shard forms run at ``ssim_window`` K (default 5, the default
+parameters; other windows take ``chip_smoke.WINDOW_SIGMA``'s sigma), the
+block's halo following the window. The last line is the card's name and
+power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -43,6 +50,7 @@ def main() -> int:
     ap.add_argument("--root", default=HERE, help="checkout whose videomorphing_tpu_torch is timed")
     ap.add_argument("--label", default=None)
     ap.add_argument("--only", default="", help="comma-separated kernel names to time (default: all)")
+    ap.add_argument("--window", type=int, default=5, help="ssim_window of kernels 1-2 (default 5)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
     root = os.path.abspath(args.root)
@@ -73,13 +81,20 @@ def main() -> int:
         raise RuntimeError(f"imported the port from {pkg}, not {root}")
     label = args.label or root
     dev = torch.device("cuda")
-    p = MorphParams()
+    p = MorphParams() if args.window == MorphParams().ssim_window else MorphParams(
+        ssim_window=args.window, ssim_sigma=cs.WINDOW_SIGMA.get(args.window, 1.5))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    def digest(out) -> str:
+        h = hashlib.sha256()
+        for x in out if isinstance(out, (tuple, list)) else (out,):
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
 
     def emit(kernel, shape, fn, nbytes, ops, library=None):
         if only and kernel not in only:
             return
-        rec = {"label": label, "kernel": kernel, "shape": shape,
+        rec = {"label": label, "kernel": kernel, "shape": shape, "window": args.window, "digest": digest(fn()),
                "device_ms": [cs.graph_ms(fn, 10), cs.graph_ms(fn, 10)], "call_ms": cs.cuda_ms(fn, 10)}
         rec["bound_ms"], rec["bound_by"] = cs.bound(nbytes, ops)
         if library is not None:

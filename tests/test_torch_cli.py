@@ -167,6 +167,25 @@ def test_pair_writes_the_library_frames(tmp_path, capsys):
     np.testing.assert_array_equal(load_clip(out2), load_clip(out))
 
 
+def test_pair_spatial_shards_at_a_wide_window(tmp_path, capsys):
+    """``pair --spatial-shards 2 --set morph.ssim_window=9`` runs and
+    writes the frames of the same command without shards (on the CPU the
+    shards clamp to one device, every level local)."""
+    clip_a, clip_b = bench._make_clips(1, H, W, seed=2)
+    save_image(str(tmp_path / "a.png"), clip_a[0])
+    save_image(str(tmp_path / "b.png"), clip_b[0])
+    base = ["pair", str(tmp_path / "a.png"), str(tmp_path / "b.png"), "--frames", "3", "-v", "--device", "cpu",
+            "--iters", "8", "--set", "morph.ssim_window=9", "--set", "morph.ssim_sigma=1.5"]
+    out, out2 = str(tmp_path / "m.vmc"), str(tmp_path / "m2.vmc")
+    assert cli.main(base + ["--out", out2, "--spatial-shards", "2"]) == 0
+    spatial = [e for e in _events(capsys.readouterr().err) if e["event"] == "spatial"]
+    assert len(spatial) == 1 and spatial[0]["shards"] == 1
+    frames = load_clip(out2)
+    assert frames.shape == (3, H, W, 3) and np.isfinite(frames).all()
+    assert cli.main(base + ["--out", out]) == 0
+    np.testing.assert_array_equal(frames, load_clip(out))
+
+
 def test_layered_clip_project(clip_files, tmp_path):
     d, ca, cb, pts = clip_files
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)

@@ -8,7 +8,13 @@
 - the functions that export brought into the port, each against the
   reference on the CPU with numpy-seeded inputs;
 - ``utils.synthetic.make_clips`` equals the reference benchmark's
-  ``bench._make_clips``.
+  ``bench._make_clips``;
+- the kernel layer: every public name of the reference's
+  ``pallas/{__init__,sweep,warp}.py`` maps, in
+  ``kernels.REFERENCE_COUNTERPARTS``, to a port function that exists or to
+  a reason from ROADMAP "Not ported"; ``solver.descent.warp_bundle_fused``,
+  ``synth.paths.jitted_bulge_field`` and ``synth.render.jitted_render_clip``
+  against the reference's on one small case.
 
 Tolerances: sampling, gradients and box filters are the same float32
 operations in the same order as the reference's, so 1e-6 of max|ref|;
@@ -171,3 +177,91 @@ def test_make_clips_is_the_bench_copy():
     got_a, got_b = make_clips(3, 24, 32, seed=4)
     assert got_a.dtype == ref_a.dtype and got_a.shape == (3, 24, 32, 3)
     assert np.array_equal(got_a, ref_a) and np.array_equal(got_b, ref_b)
+
+
+def _public_names(mod):
+    """Functions, classes and constants a module defines, without a
+    leading underscore (imported modules and names excluded)."""
+    import inspect
+
+    names = set(getattr(mod, "__all__", ()))
+    for name, obj in vars(mod).items():
+        if name.startswith("_") or name == "annotations" or inspect.ismodule(obj):
+            continue
+        if getattr(obj, "__module__", mod.__name__) == mod.__name__ or not callable(obj):
+            names.add(name)
+    return names
+
+
+def test_kernel_layer_names_have_counterparts():
+    """Each public name of the reference's kernel layer has a port function
+    (a dotted path that resolves to a callable) or a stated reason from
+    ROADMAP "Not ported"; the port's kernel package exports its wrappers."""
+    import pathlib
+
+    import videomorphing_tpu.pallas as jpallas
+    import videomorphing_tpu.pallas.sweep as jsweep
+    import videomorphing_tpu.pallas.warp as jwarp
+    import videomorphing_tpu_torch.kernels as tk
+
+    ref = set().union(*(_public_names(m) for m in (jpallas, jsweep, jwarp)))
+    assert {"fused_value_grad_precond", "fused_sample", "WarpSource", "LANE"} <= ref
+    assert ref == set(tk.REFERENCE_COUNTERPARTS)
+    roadmap = (pathlib.Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    not_ported = roadmap[roadmap.index("**Not ported: code the port does not need.**"):]
+    for name, target in tk.REFERENCE_COUNTERPARTS.items():
+        if target.startswith("videomorphing_tpu_torch."):
+            mod, _, attr = target.rpartition(".")
+            assert callable(getattr(importlib.import_module(mod), attr)), (name, target)
+        else:
+            assert target.startswith("not ported: "), (name, target)
+    for key in ("pallas_available", "the split sweep mode", "fused_warp_planes_packed", "WarpSource", "sweep._pack"):
+        assert key in not_ported, key
+    assert tk.REFERENCE_COUNTERPARTS["fused_value_grad_precond"].endswith("solver.descent.energy_value_grad_precond")
+    assert tk.REFERENCE_COUNTERPARTS["fused_sample"].endswith("kernels.warp.bilinear_sample_batched")
+    for name in tk.__all__:
+        assert getattr(tk, name) is not None
+    assert tk.sweep_grad.launches == 0 and tk.halfway_warp is importlib.import_module(
+        "videomorphing_tpu_torch.kernels.warp").halfway_warp
+
+
+def test_warp_bundle_fused():
+    """The port's ``warp_bundle_fused`` (kernel 3's plain version here)
+    against the reference's (its Pallas warp, interpret mode on the CPU):
+    the bundle's warps and derivatives within 1e-5 of max|ref|."""
+    from videomorphing_tpu.solver import descent as jde
+    from videomorphing_tpu_torch.solver import descent as tde
+
+    i0, i1 = _img(20, h=24, w=40), _img(21, h=24, w=40)
+    rng = np.random.default_rng(22)
+    v = (1.5 * rng.standard_normal((24, 40, 2))).astype(np.float32)
+    ref = jde.warp_bundle_fused(jnp.asarray(v), jnp.asarray(i0), jnp.asarray(i1))
+    got = tde.warp_bundle_fused(_t(v), _t(i0), _t(i1))
+    assert torch.equal(got.v_lin, _t(v))
+    for name in ("w0", "dw0", "w1", "dw1"):
+        assert _rel(getattr(ref, name), getattr(got, name)) <= 1e-5, name
+
+
+def test_jitted_bulge_field_and_render_clip():
+    """``synth.paths.jitted_bulge_field(sp)`` and
+    ``synth.render.jitted_render_clip(sp)`` are cached plain callables that
+    give the reference's jitted results (1e-5 of max|ref|; rendered pixels
+    1e-4 absolute)."""
+    from videomorphing_tpu.synth import paths as jpaths
+    from videomorphing_tpu_torch.synth import paths as tpaths
+    from videomorphing_tpu_torch.synth import render as trender
+
+    sp, jsp = SynthParams(), JaxSynthParams()
+    rng = np.random.default_rng(23)
+    v = (2.0 * rng.standard_normal((20, 28, 2))).astype(np.float32)
+    assert tpaths.jitted_bulge_field(sp) is tpaths.jitted_bulge_field(SynthParams())
+    b_ref = jpaths.jitted_bulge_field(jsp)(jnp.asarray(v))
+    b = tpaths.jitted_bulge_field(sp)(_t(v))
+    assert _rel(b_ref, b) <= 1e-5
+    i0, i1 = _img(24, h=20, w=28), _img(25, h=20, w=28)
+    ts = np.array([0.0, 0.4, 1.0], np.float32)
+    assert trender.jitted_render_clip(sp) is trender.jitted_render_clip(SynthParams())
+    ref = jrender.jitted_render_clip(jsp)(jnp.asarray(i0), jnp.asarray(i1), jnp.asarray(v), b_ref, jnp.asarray(ts))
+    got = trender.jitted_render_clip(sp)(_t(i0), _t(i1), _t(v), b, ts)
+    assert got.shape == (3, 20, 28, 3)
+    assert float(np.max(np.abs(np.asarray(ref) - got.numpy()))) <= 1e-4

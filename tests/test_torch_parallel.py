@@ -453,6 +453,29 @@ def test_optimize_pair_spatial_matches_reference(pair, jmesh):
     assert [s.iters for s in res.level_stats] == [int(s.iters) for s in ref.level_stats]
 
 
+@pytest.mark.parametrize("window", [9, 11])
+def test_spatial_solve_matches_reference_at_wide_windows(jmesh, window):
+    """Windows past 7 (sigma 1.5) on the bench's 64 x 48 frame and its copy
+    rolled by 2 columns: the shard forms' reach follows the window (2R
+    rows, exchange halo 2R + 2), so the row-sharded fine level solves as
+    the reference's does; tolerances as at the default window."""
+    import bench
+
+    clip_a, _ = bench._make_clips(1, H, W, seed=0)
+    i0 = np.asarray(clip_a[0])
+    i1 = np.roll(i0, 2, axis=1)
+    kw_ = dict(n_levels=2, iters_coarse=20, iters_fine=10, backend="jnp", ssim_window=window, ssim_sigma=1.5)
+    ref = jax_optimize_pair_spatial(jnp.asarray(i0), jnp.asarray(i1), params=JaxMorphParams(**kw_), mesh=jmesh)
+    p = MorphParams(**kw_)
+    res = optimize_pair_spatial(i0, i1, params=p, mesh=_cpu_mesh())
+    assert ks.shard_reach(p) == window - 1 and exchange_halo(p) == window + 1
+    assert level_is_sharded(H, N_DEV, p)
+    err = np.abs(res.v.numpy() - np.asarray(ref.v))
+    assert np.percentile(err, 99) < 5e-3, np.percentile(err, 99)
+    assert err.max() < 0.05, err.max()
+    assert [s.iters for s in res.level_stats] == [int(s.iters) for s in ref.level_stats]
+
+
 def test_optimize_pair_spatial_solves_undividing_levels_locally():
     rng = np.random.default_rng(1)
     h = 72  # levels 72, 36, 18: the last does not divide over 4 blocks

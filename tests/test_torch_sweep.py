@@ -5,8 +5,12 @@ behind ``kernels.sweep.sweep_grad``) and kernel 2's (``total_energy_planes``
 behind ``sweep_energy``) against the JAX reference's oracles, on warps
 linearized around ``v_lin != v`` with non-zero UI and TC maps.
 Tolerances: energy relative error <= 1e-5; grad and precond max abs
-<= 1e-5 * max|ref|. The CUDA kernels themselves are held to these plain
-versions on the card by ``chip_smoke.py``.
+<= 1e-5 * max|ref|. The windows run from 3 to 15 (the kernels' tiled
+radii and the wide path past radius 6); the row-shard forms sum to the
+reference's whole-frame energy and, on their owned rows, give its
+gradient. The CUDA kernels themselves are held to these plain versions on
+the card by ``chip_smoke.py``; here also the tiles that size their
+partials and the even-window rule.
 """
 
 import dataclasses
@@ -77,6 +81,9 @@ PARAMS = [
     JaxMorphParams(),
     JaxMorphParams(ssim_use_luminance=False, lambda_tps=0.05, gamma_ui=5.0),
     JaxMorphParams(ssim_window=7, ssim_sigma=1.5),
+    JaxMorphParams(ssim_window=9, ssim_sigma=1.5),
+    JaxMorphParams(ssim_window=11, ssim_sigma=1.5),
+    JaxMorphParams(ssim_window=15, ssim_sigma=2.5),
 ]
 
 
@@ -120,9 +127,9 @@ def test_sweep_tile_comes_from_the_source(with_grad):
     assert not re.search(r"\bTILE\s*=\s*16\b", (build.PACKAGE_DIR / "kernels" / "sweep.py").read_text())
 
 
-def _blocks_by_origin(w, nown, with_grad):
+def _blocks_by_origin(w, nown, with_grad, radius=1):
     """Blocks of a launch, counted from the tile origins of the owned rows."""
-    rows, cols = ks.sweep_tile(with_grad)
+    rows, cols = ks.sweep_tile(with_grad, radius)
     return len({(y // rows, x // cols) for y in range(nown) for x in range(w)})
 
 
@@ -139,18 +146,20 @@ def test_n_partials_covers_every_tile(w, nown, with_grad):
     assert ks.n_partials(w, nown, with_grad) == _blocks_by_origin(w, nown, with_grad)
 
 
-def test_shard_energies_sum_to_the_reference_total_energy():
+@pytest.mark.parametrize("window", [5, 9])
+def test_shard_energies_sum_to_the_reference_total_energy(window):
     """Kernel 2's row-shard form (plain version): the raw partials of 4 row
     blocks, summed in block order and combined, give the reference's
     linearized total energy of the whole frame (``total_energy_planes``)
-    and the whole-frame form's energy, within 1e-5 relative."""
+    and the whole-frame form's energy, within 1e-5 relative; at the default
+    window and at window 9 (reach 8 rows)."""
     from videomorphing_tpu_torch.interop import level_data_from_numpy
     from videomorphing_tpu_torch.solver.energy import LevelData
 
     h, w, n = 40, 56, 4
-    p = MorphParams()
+    p = MorphParams() if window == 5 else MorphParams(ssim_window=window, ssim_sigma=1.5)
     arrs, v_lin, v = _case(h, w, seed=12)
-    ref = _reference(arrs, v_lin, v, JaxMorphParams())[3]
+    ref = _reference(arrs, v_lin, v, JaxMorphParams(**dataclasses.asdict(p)))[3]
     data = level_data_from_numpy(**arrs)
     halo = ks.shard_reach(p)
     bh = h // n
@@ -169,3 +178,94 @@ def test_shard_energies_sum_to_the_reference_total_energy():
     assert abs(e_shard - ref) <= 1e-5 * abs(ref)
     assert abs(e_shard - e_whole) <= 1e-5 * abs(e_whole)
     assert ks.sweep_energy_shard.launches == 0
+
+
+def test_shard_grads_cover_the_reference_gradient():
+    """Kernel 1's row-shard form (plain version) at window 9: the owned
+    rows' grad and precond of 4 row blocks, stacked in block order, and
+    their raw partials, summed and combined, against the reference's
+    whole-frame ``energy_value_grad_precond`` (1e-5 of max|ref|, energy
+    1e-5 relative)."""
+    from videomorphing_tpu_torch.solver.energy import LevelData
+
+    h, w, n = 40, 56, 4
+    p = MorphParams(ssim_window=9, ssim_sigma=1.5)
+    arrs, v, _ = _case(h, w, seed=13)
+    jdata = make_level_data(*(jnp.asarray(arrs[k]) for k in ("i0", "i1", "ui_w", "ui_v", "tc_w", "tc_v")))
+    e_r, g_r, p_r = jd.energy_value_grad_precond(jnp.asarray(v), jdata, JaxMorphParams(**dataclasses.asdict(p)))
+    g_r, p_r = np.asarray(g_r), np.asarray(p_r)
+    data = level_data_from_numpy(**arrs)
+    halo = ks.shard_reach(p)
+    assert halo == 8
+    bh = h // n
+    pad = lambda a: np.pad(a, ((halo, halo), (0, 0), (0, 0)))
+    acc = np.zeros(4, np.float32)
+    grads, preconds = [], []
+    for k in range(n):
+        row0 = k * bh - halo
+        v_e = torch.from_numpy(pad(v)[k * bh:k * bh + bh + 2 * halo].copy())
+        planes = kw.halfway_warp_rows(data.i0, data.i1, v_e, row0)
+        blk = LevelData(data.i0, data.i1, *(m[k * bh:(k + 1) * bh] for m in (data.ui_w, data.ui_v, data.tc_w, data.tc_v)))
+        parts, g, pc = ks.sweep_grad_shard(planes, v_e, v_e, blk, p, row0, h, halo)
+        acc = acc + parts.numpy()
+        grads.append(g.numpy())
+        preconds.append(pc.numpy())
+    g, pc = np.concatenate(grads), np.concatenate(preconds)
+    assert g.shape == g_r.shape == (h, w, 2) and pc.shape == p_r.shape
+    assert np.max(np.abs(g - g_r)) <= 1e-5 * np.max(np.abs(g_r))
+    assert np.max(np.abs(pc - p_r)) <= 1e-5 * np.max(np.abs(p_r))
+    e = float(ks.combine_parts(acc, p, h * w, 3))
+    assert abs(e - float(e_r)) <= 1e-5 * abs(float(e_r))
+    assert ks.sweep_grad_shard.launches == 0
+
+
+def test_scalars_hold_every_tap_of_a_wide_window():
+    """At window 15 the kernels' constants point at the window's 15 taps
+    (the reference's ``gaussian_kernel_1d``), with radius 7; a buffer of
+    another length is refused."""
+    from videomorphing_tpu.ops.windows import gaussian_kernel_1d
+
+    p = MorphParams(ssim_window=15, ssim_sigma=2.5)
+    taps = ks.window_taps(p, "cpu")
+    assert taps.dtype == torch.float32 and taps.shape == (15,)
+    np.testing.assert_array_equal(taps.numpy(), np.asarray(gaussian_kernel_1d(15, 2.5), np.float32))
+    assert ks.window_taps(p, "cpu") is taps
+    s = ks._scalars(p, 40, 56, 3, taps=taps)
+    assert s.radius == 7 and s.taps == taps.data_ptr()
+    with pytest.raises(ValueError, match="taps for a window of radius 7"):
+        ks._scalars(p, 40, 56, 3, taps=ks.window_taps(MorphParams(ssim_window=13), "cpu"))
+
+
+@pytest.mark.parametrize("with_grad", [True, False], ids=["grad", "energy"])
+@pytest.mark.parametrize("radius", [4, 7])
+def test_n_partials_covers_every_tile_at_wide_radii(radius, with_grad):
+    """Past radius 3 the gradient kernel keeps its tile, the energy kernel
+    owns 32 - 2R columns of a warp (R = 4), and the wide path (R = 7, past
+    the tiled radii) has tiles of its own; the partials buffer holds one
+    set per block of each."""
+    geometry = {(4, True): (16, 32), (4, False): (32, 24), (7, True): (8, 32), (7, False): (8, 32)}
+    assert ks.tiled(radius) == (radius == 4)
+    assert ks.sweep_tile(with_grad, radius) == geometry[radius, with_grad]
+    for w, nown in [(1024, 1024), (241, 135), (1, 1), (30, 17), (3840, 540), (37, 53)]:
+        assert ks.n_partials(w, nown, with_grad, radius) == _blocks_by_origin(w, nown, with_grad, radius)
+
+
+def test_even_windows_are_refused_by_the_kernels():
+    """An even window's taps are not centred on the pixel, so the kernels
+    refuse it (``kernel_radius`` raises ``ValueError`` before any launch)
+    rather than compute another function than their plain version; the
+    reference and the plain version fail on it too (their window sums do
+    not keep the image's shape). Every odd window has a radius, past the
+    tiled ones too."""
+    assert [ks.kernel_radius(MorphParams(ssim_window=k)) for k in (1, 3, 9, 13, 15, 31)] == [0, 1, 4, 6, 7, 15]
+    for k in (2, 4, 8):
+        with pytest.raises(ValueError, match="odd ssim_window"):
+            ks.kernel_radius(MorphParams(ssim_window=k))
+        with pytest.raises(ValueError, match="odd ssim_window"):
+            ks._scalars(MorphParams(ssim_window=k), 24, 30, 3)
+    jp = JaxMorphParams(ssim_window=4)
+    arrs, v_lin, v = _case(24, 30, seed=14)
+    with pytest.raises(TypeError):
+        _reference(arrs, v_lin, v, jp)
+    with pytest.raises(RuntimeError):
+        _port(arrs, v_lin, v, MorphParams(**dataclasses.asdict(jp)))

@@ -53,9 +53,9 @@
 // ten staged planes, four barrier-separated stages and 24 warps an SM. Per
 // block of ENERGY_TILE_ROWS x ENERGY_TILE_COLS owned pixels, 8 warps:
 //   - a warp walks a column strip of ESEG owned rows plus 2R halo rows;
-//     lane l holds column x0 - EHALO + l (ENERGY_TILE_COLS owned lanes, the
-//     rest the window's halo), so each row's loads are coalesced, at any
-//     width and origin;
+//     lane l holds column x0 - EH + l (energy_tile_cols(R) owned lanes, the
+//     EH = max(3, R) lanes each side the window's halo), so each row's
+//     loads are coalesced, at any width and origin;
 //   - dv = v - v_lin and 1/n are computed once per strip into shared
 //     memory that only the lane itself reads back (no barrier), so a
 //     channel's walk loads only its six planes;
@@ -70,12 +70,15 @@
 //     the neighbouring columns by shuffles (the v tile's ring of 1);
 //   - partials reduce by a shuffle tree per warp and the warps in order.
 // No barrier in the channel loop; registers capped at 64 for 4 blocks (32
-// warps) an SM; dynamic shared memory (EGeo) opted in like kernel 1's.
+// warps) an SM up to R = 3, and at 128 for 2 blocks from R = 4, whose
+// register rings hold 2R + 1 rows and taps (R = 4-6 compile to 128
+// registers without spills); dynamic shared memory (EGeo) opted in like
+// kernel 1's.
 //
 // cp.async rather than TMA: a TMA tile needs a 16-byte-aligned row stride,
 // W % 4 == 0, and the pyramid's levels break that (a 135 x 241 level, 4K
 // level widths such as 30); 4-byte cp.async takes any width and any origin.
-// No tensor cores: the window sums are 3- to 7-tap float32 stencils, and
+// No tensor cores: the window sums are 3- to 13-tap float32 stencils, and
 // TF32 products would break the 1e-5 gate against the plain version.
 //
 // Every per-pixel sum keeps its order (taps t = 0..K-1, the vertical pass
@@ -93,13 +96,42 @@
 // outputs and energy partials cover the owned rows only, so the caller sums
 // the raw partials over the blocks and normalizes by the global pixel count.
 // The whole frame is the form with one block: row0 = own0 = 0, gh = nown = h.
+//
+// Window radius. The window has 2R + 1 taps (ssim_window = 2R + 1, any
+// odd size, as the reference takes it); the taps sit in a small device
+// buffer that VmSweepScalars points at. dispatch() chooses by R:
+//   - R = 1 .. TILED_MAX_RADIUS: the two tiled kernels above, instantiated
+//     per R. Kernel 1 keeps its 16 x 32 tile at every R (its shared memory
+//     grows from 76 KB at R = 1 to 187 KB at R = 6, one block an SM from R
+//     = 3); kernel 2's lanes hold the owned columns and a halo of
+//     max(3, R) columns each side (energy_tile_cols(R): 26 owned columns
+//     up to R = 3, 20 at R = 6), so R <= 3 keep their tile, lanes and
+//     order of every sum.
+//   - any other R (R = 0, and R > TILED_MAX_RADIUS, where kernel 1's tile
+//     and halos no longer fit the 227 KB a block may use: 231 KB at R = 7):
+//     the wide path, a chain of per-pixel kernels that read the radius at
+//     run time and keep their intermediates (a0 and a1, the vertical window
+//     sums, the SSIM coefficient maps, the curvature, the per-pixel SSIM
+//     energy and gradient) in a scratch buffer in device memory that the
+//     wrapper allocates (vm_sweep_scratch_floats). Per channel: the
+//     linearized warps on the rows within 2R of the owned ones, the
+//     vertical window sums of the five statistics within R, the horizontal
+//     sums with the SSIM map and its coefficient maps, the transposed sums
+//     and the chain through dw; then one kernel per tile of WIDE_TILE_ROWS x
+//     WIDE_TILE_COLS owned pixels for the TPS, UI and TC terms, the
+//     preconditioner and the tile's energy partials. Every sum keeps the
+//     tiled kernels' order per pixel (taps t = 0..K-1, vertical before
+//     horizontal), and no value depends on where a block starts, so its row
+//     shards equal the whole frame's rows bit for bit too. Each tap of each
+//     window sum is a load through the caches rather than from shared
+//     memory: a simple path for rare windows, timed in PERF.md.
 
 #include <cuda_runtime.h>
 
 extern "C" {
 // Mirrored by ctypes in kernels/sweep.py (same field order).
 struct VmSweepScalars {
-  float taps[8];
+  const float* taps;  // the window's 2 radius + 1 taps, in device memory
   int radius;
   int use_luminance;
   float c1, c2;
@@ -129,37 +161,50 @@ constexpr int TILE_ROWS = 16;
 constexpr int TILE_COLS = 32;
 // The energy kernel's output tile (sweep_energy_kernel): ENERGY_TILE_ROWS
 // rows split among its warps, ENERGY_TILE_COLS owned columns of each warp's
-// 32 lanes; the lanes left over hold the window's halo columns.
+// 32 lanes up to R = 3; the lanes left over hold the window's halo columns,
+// so a wider window owns fewer (energy_tile_cols(R)).
 constexpr int ENERGY_TILE_ROWS = 32;
 constexpr int ENERGY_TILE_COLS = 26;
 constexpr int EDEPTH = 4;  // rows of the planes in flight per warp, the current one included
+// The largest radius of the tiled kernels; the wide path takes the others,
+// with one partials set per WIDE_TILE_ROWS x WIDE_TILE_COLS owned pixels.
+constexpr int TILED_MAX_RADIUS = 6;
+constexpr int WIDE_TILE_ROWS = 8;
+constexpr int WIDE_TILE_COLS = 32;
 
 constexpr int TY = TILE_ROWS, TX = TILE_COLS;
 constexpr int NT = 256;              // threads per block
 constexpr int NOWN = TY * TX / NT;   // owned outputs per thread: a pair of neighbours in a row
 static_assert(NOWN == 2 && (TX / 2) * TY == NT, "each thread owns two neighbouring pixels");
 
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
 constexpr int ENT = 256;                               // threads per energy block
 constexpr int EWARPS = ENT / 32;
 constexpr int ESEG = ENERGY_TILE_ROWS / EWARPS;        // owned rows per warp
-constexpr int EHALO = (32 - ENERGY_TILE_COLS) / 2;     // lanes left of the owned columns
+// lanes left (and right) of a warp's owned columns: the window's halo R,
+// and at least the 3 of ENERGY_TILE_COLS
+__host__ __device__ constexpr int energy_halo(int R) { return cmax((32 - ENERGY_TILE_COLS) / 2, R); }
+__host__ __device__ constexpr int energy_tile_cols(int R) { return 32 - 2 * energy_halo(R); }
 static_assert(ESEG * EWARPS == ENERGY_TILE_ROWS, "the warps split the tile's rows evenly");
-static_assert(ENERGY_TILE_COLS + 2 * EHALO == 32 && EHALO >= 3,
-              "a warp's lanes hold the owned columns and the halo of the largest window (R = 3)");
+static_assert(energy_tile_cols(1) == ENERGY_TILE_COLS && energy_tile_cols(3) == ENERGY_TILE_COLS &&
+                  energy_tile_cols(TILED_MAX_RADIUS) > 0,
+              "a warp's lanes hold the owned columns and the window's halo");
 
 // The energy kernel's shared memory (floats) per warp: dv (2 NU rows), 1/n
 // (ESEG rows) and the planes' ring (EDEPTH rows of 6 planes), 32 lanes each.
 template <int R>
 struct EGeo {
+  static constexpr int EH = energy_halo(R);        // lanes left of the owned columns
+  static constexpr int COLS = energy_tile_cols(R);  // owned columns of a warp
   static constexpr int NU = ESEG + 2 * R;  // rows a warp walks per channel
   static_assert(NU <= 32 && EDEPTH >= 2 && EDEPTH - 1 <= NU && (EDEPTH & (EDEPTH - 1)) == 0,
                 "walk rows and a power-of-two ring depth");
   static constexpr int WARP_FLOATS = 32 * (2 * NU + ESEG + 6 * EDEPTH);
   static constexpr size_t BYTES = sizeof(float) * EWARPS * WARP_FLOATS;
 };
-
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
 // Rows per item of a vertical window pass over rows x cols outputs: each
 // item keeps a column segment's window in registers, so it loads seg + 2R
@@ -764,14 +809,14 @@ sweep_grad_kernel(const float* __restrict__ planes, const float* __restrict__ v_
 }
 
 // Kernel 2: the energy partials of one tile of ENERGY_TILE_ROWS x
-// ENERGY_TILE_COLS owned pixels, without the gradient. Each warp walks a
-// column strip of ESEG owned rows: lane l holds column x0 - EHALO + l and
+// energy_tile_cols(R) owned pixels, without the gradient. Each warp walks a
+// column strip of ESEG owned rows: lane l holds column x0 - EH + l and
 // the K rows of its linearized warps in registers; the horizontal window
 // comes from the neighbouring lanes by shuffles. Each lane reads back only
 // the shared memory it wrote, so the kernel's one barrier is the block's
 // reduction.
 template <int R>
-__global__ void __launch_bounds__(ENT, 4)
+__global__ void __launch_bounds__(ENT, R <= 3 ? 4 : 2)
 sweep_energy_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
                     const float* __restrict__ v, const float* __restrict__ ui_w,
                     const float* __restrict__ ui_v, const float* __restrict__ tc_w,
@@ -783,10 +828,11 @@ sweep_energy_kernel(const float* __restrict__ planes, const float* __restrict__ 
   const int hw = s.h * w;  // the launcher checks that 6 C hw offsets fit an int
   const int own_end = s.own0 + s.nown;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int x = blockIdx.x * ENERGY_TILE_COLS - EHALO + lane;           // this lane's column
+  using G = EGeo<R>;
+  const int x = blockIdx.x * G::COLS - G::EH + lane;                   // this lane's column
   const int yw = s.own0 + blockIdx.y * ENERGY_TILE_ROWS + wid * ESEG;  // the warp's first owned row
   const bool col_in = x >= 0 && x < w;
-  const bool owner = lane >= EHALO && lane < EHALO + ENERGY_TILE_COLS && x < w;
+  const bool owner = lane >= G::EH && lane < G::EH + G::COLS && x < w;
 
   float taps[K];
 #pragma unroll
@@ -795,7 +841,6 @@ sweep_energy_kernel(const float* __restrict__ planes, const float* __restrict__ 
   // this warp's shared memory, read back only by the lane that wrote it
   // (its own column), so no barrier: dv (y, x) at the walk's rows, 1/n at
   // the owned rows and a ring of EDEPTH rows of the six planes
-  using G = EGeo<R>;
   constexpr int NU = G::NU;  // rows of a channel's walk
   extern __shared__ float4 esmem4[];
   float* const s_dv = reinterpret_cast<float*>(esmem4) + wid * G::WARP_FLOATS;  // [2][NU][32]
@@ -981,10 +1026,290 @@ sweep_reduce_kernel(const float* __restrict__ partials, int n_blocks, float* __r
   }
 }
 
-dim3 tile_grid(bool with_grad, int w, int nown) {
-  return with_grad ? dim3((w + TX - 1) / TX, (nown + TY - 1) / TY)
-                   : dim3((w + ENERGY_TILE_COLS - 1) / ENERGY_TILE_COLS,
-                          (nown + ENERGY_TILE_ROWS - 1) / ENERGY_TILE_ROWS);
+// ---------------------------------------------------------------------------
+// The wide path: the radii without a tiled instantiation (R = 0 and
+// R > TILED_MAX_RADIUS), the radius read at run time. Each kernel gives one
+// thread one pixel of a band of rows, 32 columns x 8 rows a block; the
+// bands, in rows of the arrays:
+//   A band, rows [own0 - 2R, own0 + nown + 2R): a0 and a1 of one channel;
+//   S band, rows [own0 - R, own0 + nown + R): the statistics, the SSIM
+//     coefficient maps and the curvature;
+//   owned rows [own0, own0 + nown): the transposed sums, the SSIM energy
+//     and gradient summed over the channels, the outputs.
+// Rows outside the arrays or the global frame hold zeros, as the tiled
+// kernels' zero-filled tiles do.
+// ---------------------------------------------------------------------------
+
+constexpr int WT = WIDE_TILE_ROWS * WIDE_TILE_COLS;  // threads per wide block
+static_assert(WIDE_TILE_COLS == 32 && WT == 256, "a wide block is 8 warps, one row of 32 columns each");
+
+// Offsets (floats) of the wide path's intermediates in its scratch buffer.
+struct WideLayout {
+  long long na, ns;                      // rows of the A and S bands
+  long long a, v, es, q, curv, gs, total;  // a0 a1 (2 na), V (5 ns; later 4 or 2 owned-row planes),
+                                         // SSIM energy (1), Q (4 ns), curvature (2 ns), SSIM gradient (2)
+};
+
+WideLayout wide_layout(int w, int nown, int R, bool with_grad) {
+  WideLayout L;
+  L.na = nown + 4LL * R;
+  L.ns = nown + 2LL * R;
+  L.a = 0;
+  L.v = L.a + 2 * L.na * w;
+  L.es = L.v + 5 * L.ns * w;
+  L.q = L.es + (long long)nown * w;
+  L.curv = L.q + (with_grad ? 4 * L.ns * w : 0);
+  L.gs = L.curv + (with_grad ? 2 * L.ns * w : 0);
+  L.total = L.gs + (with_grad ? 2LL * nown * w : 0);
+  return L;
+}
+
+// K-tap horizontal window sum at column x of one row (zero outside [0, w)),
+// taps t = 0..2R in order
+__device__ __forceinline__ float wide_hsum(const float* __restrict__ row, int x, int w,
+                                           const float* __restrict__ taps, int R) {
+  float acc = 0.0f;
+  for (int t = 0; t <= 2 * R; ++t) {
+    const int q = x - R + t;
+    acc += __ldg(taps + t) * (q >= 0 && q < w ? row[q] : 0.0f);
+  }
+  return acc;
+}
+
+// a0 = w0 - dw0.dv and a1 = w1 + dw1.dv of channel c on the A band
+__global__ void __launch_bounds__(WT)
+wide_warps_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
+                  const float* __restrict__ v, float* __restrict__ A, int c, VmSweepScalars s) {
+  const int R = s.radius, w = s.w, C = s.C;
+  const long long na = s.nown + 4LL * R;
+  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
+  const int i = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  if (x >= w || i >= na) return;
+  const int y = s.own0 - 2 * R + i;
+  float a = 0.0f, b = 0.0f;
+  if (row_in(s, y)) {
+    const size_t hw = (size_t)s.h * w, p = (size_t)y * w + x;
+    const float dvy = v[2 * p] - v_lin[2 * p], dvx = v[2 * p + 1] - v_lin[2 * p + 1];
+    a = planes[c * hw + p] -
+        (planes[(2 * C + 2 * c) * hw + p] * dvy + planes[(2 * C + 2 * c + 1) * hw + p] * dvx);
+    b = planes[(C + c) * hw + p] +
+        (planes[(4 * C + 2 * c) * hw + p] * dvy + planes[(4 * C + 2 * c + 1) * hw + p] * dvx);
+  }
+  A[(size_t)i * w + x] = a;
+  A[((size_t)na + i) * w + x] = b;
+}
+
+// vertical window sums of a0, a1, a0^2, a1^2, a0 a1 on the S band
+__global__ void __launch_bounds__(WT)
+wide_stats_vertical_kernel(const float* __restrict__ A, float* __restrict__ V, VmSweepScalars s) {
+  const int R = s.radius, w = s.w;
+  const long long na = s.nown + 4LL * R, ns = s.nown + 2LL * R;
+  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
+  const int i = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  if (x >= w || i >= ns) return;
+  const float* a0 = A + x;
+  const float* a1 = A + (size_t)na * w + x;
+  float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int t = 0; t <= 2 * R; ++t) {
+    const float a = a0[(size_t)(i + t) * w], b = a1[(size_t)(i + t) * w];
+    const float aa = a * a, bb = b * b, ab = a * b;
+    const float k = __ldg(s.taps + t);
+    acc[0] += k * a;
+    acc[1] += k * b;
+    acc[2] += k * aa;
+    acc[3] += k * bb;
+    acc[4] += k * ab;
+  }
+#pragma unroll
+  for (int q = 0; q < 5; ++q) V[((size_t)q * ns + i) * w + x] = acc[q];
+}
+
+// horizontal window sums -> statistics and the SSIM of channel c on the S
+// band: the owned pixels' 1 - SSIM added to es; with the gradient also the
+// coefficient maps (q0, q1, qv, qc) into Q and the curvature added to curv
+template <bool WITH_GRAD>
+__global__ void __launch_bounds__(WT)
+wide_ssim_kernel(const float* __restrict__ planes, const float* __restrict__ V, float* __restrict__ Q,
+                 float* __restrict__ curv, float* __restrict__ es, int c, VmSweepScalars s) {
+  const int R = s.radius, w = s.w, C = s.C;
+  const long long ns = s.nown + 2LL * R;
+  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
+  const int i = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  if (x >= w || i >= ns) return;
+  const int y = s.own0 - R + i;
+  float st[5];
+#pragma unroll
+  for (int q = 0; q < 5; ++q) st[q] = wide_hsum(V + ((size_t)q * ns + i) * w, x, w, s.taps, R);
+  float q0 = 0.f, q1 = 0.f, qv = 0.f, qc = 0.f, cy = 0.f, cx = 0.f;
+  if (row_in(s, y)) {
+    const float inv_n =
+        1.0f / (tap_sum_range(s.taps, R, y + s.row0, s.gh) * tap_sum_range(s.taps, R, x, w));
+    const SsimPixel sp = ssim_pixel(st, inv_n, s);
+    if (y >= s.own0 && y < s.own0 + s.nown) {
+      float* e = es + (size_t)(y - s.own0) * w + x;
+      *e = (c == 0 ? 0.0f : *e) + (1.0f - sp.ssim);
+    }
+    if constexpr (WITH_GRAD) {
+      const float mu0 = sp.mu0, mu1 = sp.mu1, ssim = sp.ssim;
+      float rden = __fdividef(1.0f, sp.denom), ib2 = __fdividef(1.0f, sp.b2);
+      float ds_da2 = sp.a1 * rden;
+      float ds_db2 = -ssim * ib2;
+      float c_mu0 = 0.f, c_mu1 = 0.f;
+      if (s.use_luminance) {
+        float ds_da1 = sp.a2 * rden;
+        float ds_db1 = -ssim * __fdividef(1.0f, sp.b1);
+        c_mu0 = ds_da1 * 2.0f * mu1 + ds_db1 * 2.0f * mu0;
+        c_mu1 = ds_da1 * 2.0f * mu0 + ds_db1 * 2.0f * mu1;
+      }
+      float c_var = ds_db2, c_cov = ds_da2 * 2.0f;
+      qv = s.scale * c_var * inv_n;
+      qc = s.scale * c_cov * inv_n;
+      q0 = s.scale * (c_mu0 - 2.0f * mu0 * c_var - mu1 * c_cov) * inv_n;
+      q1 = s.scale * (c_mu1 - 2.0f * mu1 * c_var - mu0 * c_cov) * inv_n;
+      const size_t hw = (size_t)s.h * w, p = (size_t)y * w + x;
+      const float d0y = planes[(2 * C + 2 * c) * hw + p], d0x = planes[(2 * C + 2 * c + 1) * hw + p];
+      const float d1y = planes[(4 * C + 2 * c) * hw + p], d1x = planes[(4 * C + 2 * c + 1) * hw + p];
+      cy = (d0y * d0y + d1y * d1y) * ib2;
+      cx = (d0x * d0x + d1x * d1x) * ib2;
+    }
+  }
+  if constexpr (WITH_GRAD) {
+    const size_t o = (size_t)i * w + x, plane = (size_t)ns * w;
+    Q[o] = q0;
+    Q[plane + o] = q1;
+    Q[2 * plane + o] = qv;
+    Q[3 * plane + o] = qc;
+    curv[o] = (c == 0 ? 0.0f : curv[o]) + cy;
+    curv[plane + o] = (c == 0 ? 0.0f : curv[plane + o]) + cx;
+  }
+}
+
+// vertical window sums of nq planes of the S band (in) down to the owned
+// rows (out): the transposed sums of Q, and the curvature's window sum
+__global__ void __launch_bounds__(WT)
+wide_vertical_kernel(const float* __restrict__ in, float* __restrict__ out, int nq, VmSweepScalars s) {
+  const int R = s.radius, w = s.w, nown = s.nown;
+  const long long ns = s.nown + 2LL * R;
+  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
+  const int j = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  if (x >= w || j >= nown) return;
+  for (int q = 0; q < nq; ++q) {
+    const float* col = in + (size_t)q * ns * w + x;
+    float acc = 0.0f;
+    for (int t = 0; t <= 2 * R; ++t) acc += __ldg(s.taps + t) * col[(size_t)(j + t) * w];
+    out[((size_t)q * nown + j) * w + x] = acc;
+  }
+}
+
+// the horizontal transposed sums at the owned pixels, chained through dw0
+// and dw1 of channel c into the SSIM gradient (summed over the channels)
+__global__ void __launch_bounds__(WT)
+wide_chain_kernel(const float* __restrict__ planes, const float* __restrict__ A,
+                  const float* __restrict__ VQ, float* __restrict__ gs, int c, VmSweepScalars s) {
+  const int R = s.radius, w = s.w, C = s.C, nown = s.nown;
+  const long long na = s.nown + 4LL * R;
+  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
+  const int j = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  if (x >= w || j >= nown) return;
+  float tq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) tq[q] = wide_hsum(VQ + ((size_t)q * nown + j) * w, x, w, s.taps, R);
+  const float a0 = A[(size_t)(j + 2 * R) * w + x], a1 = A[((size_t)na + j + 2 * R) * w + x];
+  const size_t hw = (size_t)s.h * w, p = (size_t)(s.own0 + j) * w + x;
+  const float d0y = planes[(2 * C + 2 * c) * hw + p], d0x = planes[(2 * C + 2 * c + 1) * hw + p];
+  const float d1y = planes[(4 * C + 2 * c) * hw + p], d1x = planes[(4 * C + 2 * c + 1) * hw + p];
+  const float g0 = tq[0] + 2.0f * a0 * tq[2] + a1 * tq[3];
+  const float g1 = tq[1] + 2.0f * a1 * tq[2] + a0 * tq[3];
+  const size_t o = (size_t)j * w + x, plane = (size_t)nown * w;
+  gs[o] = (c == 0 ? 0.0f : gs[o]) + (-g0 * d0y + g1 * d1y);
+  gs[plane + o] = (c == 0 ? 0.0f : gs[plane + o]) + (-g0 * d0x + g1 * d1x);
+}
+
+// one tile of WIDE_TILE_ROWS x WIDE_TILE_COLS owned pixels: the TPS, UI and
+// TC terms; with the gradient also the TPS adjoint, the outputs and the
+// preconditioner (the curvature's horizontal sums from vc); the tile's
+// energy partials by a fixed-order tree
+template <bool WITH_GRAD>
+__global__ void __launch_bounds__(WT)
+wide_final_kernel(const float* __restrict__ v, const float* __restrict__ ui_w,
+                  const float* __restrict__ ui_v, const float* __restrict__ tc_w,
+                  const float* __restrict__ tc_v, const float* __restrict__ es,
+                  const float* __restrict__ gs, const float* __restrict__ vc,
+                  float* __restrict__ grad, float* __restrict__ precond,
+                  float* __restrict__ partials, VmSweepScalars s) {
+  const int R = s.radius, w = s.w, h = s.h, nown = s.nown;
+  const int tid = threadIdx.y * WIDE_TILE_COLS + threadIdx.x;
+  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
+  const int j = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  float e_sim = 0.f, e_tps = 0.f, e_ui = 0.f, e_tc = 0.f;
+  if (x < w && j < nown) {
+    const int y = s.own0 + j;
+    const size_t q = (size_t)j * w + x;  // in the owned-row maps and outputs
+    e_sim = es[q];
+    const float uw = ui_w[q], tw = tc_w[q];
+    float gk[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      // component k of v (zero outside the arrays) and its maps at (yy, xx)
+      auto vt_at = [&](int yy, int xx) {
+        return yy >= 0 && yy < h && xx >= 0 && xx < w ? v[2 * ((size_t)yy * w + xx) + k] : 0.0f;
+      };
+      auto maps_at = [&](int yy, int xx, float& vxx, float& vxy, float& vyy) {
+        tps_maps_at([&](int dy, int dx) { return vt_at(yy + dy, xx + dx); }, yy, xx, s, vxx, vxy, vyy);
+      };
+      float vxx, vxy, vyy;
+      maps_at(y, x, vxx, vxy, vyy);
+      e_tps += tps_energy(vxx, vxy, vyy);
+      const QuadDiff d = quad_terms(vt_at(y, x), ui_v[2 * q + k], tc_v[2 * q + k], uw, tw, e_ui, e_tc);
+      if constexpr (WITH_GRAD) {
+        // self-adjoint stencils of the three maps (descent.py tps_adj_*)
+        float l_xx, r_xx, u_yy, d_yy, m0, m1, m2, m3, unused0, unused1;
+        maps_at(y, x - 1, l_xx, unused0, unused1);
+        maps_at(y, x + 1, r_xx, unused0, unused1);
+        maps_at(y - 1, x, unused0, unused1, u_yy);
+        maps_at(y + 1, x, unused0, unused1, d_yy);
+        maps_at(y - 1, x - 1, unused0, m0, unused1);
+        maps_at(y - 1, x + 1, unused0, m1, unused1);
+        maps_at(y + 1, x - 1, unused0, m2, unused1);
+        maps_at(y + 1, x + 1, unused0, m3, unused1);
+        float adj_xx = l_xx - 2.0f * vxx + r_xx;
+        float adj_yy = u_yy - 2.0f * vyy + d_yy;
+        float adj_xy = 0.25f * (m0 - m1 - m2 + m3);
+        float g_tps = 2.0f * adj_xx + 4.0f * adj_xy + 2.0f * adj_yy;
+        gk[k] = gs[(size_t)k * nown * w + q] + s.lam_n * g_tps + s.gui_n * uw * d.ui + s.gtc_n * tw * d.tc;
+      }
+    }
+    if constexpr (WITH_GRAD) {
+      const float pc_y = wide_hsum(vc + (size_t)j * w, x, w, s.taps, R);
+      const float pc_x = wide_hsum(vc + ((size_t)nown + j) * w, x, w, s.taps, R);
+      float p_rest = s.ptps + s.pquad_n * (s.gamma_ui * uw + s.beta_tc * tw);
+      reinterpret_cast<float2*>(grad)[q] = make_float2(gk[0], gk[1]);
+      reinterpret_cast<float2*>(precond)[q] =
+          make_float2(s.psim_n * pc_y + p_rest + s.eps_n, s.psim_n * pc_x + p_rest + s.eps_n);
+    }
+  }
+  __shared__ float sred[4][WT];
+  sred[0][tid] = e_sim;
+  sred[1][tid] = e_tps;
+  sred[2][tid] = e_ui;
+  sred[3][tid] = e_tc;
+  __syncthreads();
+  for (int stride = WT / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sred[q][tid] += sred[q][tid + stride];
+    }
+    __syncthreads();
+  }
+  if (tid < 4) partials[4 * (blockIdx.y * gridDim.x + blockIdx.x) + tid] = sred[tid][0];
+}
+
+bool tiled(int R) { return R >= 1 && R <= TILED_MAX_RADIUS; }
+
+dim3 tile_grid(bool with_grad, int w, int nown, int R) {
+  if (!tiled(R)) return dim3(cdiv(w, WIDE_TILE_COLS), cdiv(nown, WIDE_TILE_ROWS));
+  if (with_grad) return dim3(cdiv(w, TX), cdiv(nown, TY));
+  return dim3(cdiv(w, energy_tile_cols(R)), cdiv(nown, ENERGY_TILE_ROWS));
 }
 
 // Opt each instantiation in to its dynamic shared memory, once per device.
@@ -1006,75 +1331,133 @@ cudaError_t allow_smem() {
   return err;
 }
 
+struct Args {
+  const float *planes, *v_lin, *v, *ui_w, *ui_v, *tc_w, *tc_v;
+  float *grad, *precond, *partials, *out, *scratch;
+  int n_partials;
+  long long n_scratch;
+};
+
 template <int R, bool WITH_GRAD>
-int launch(const float* planes, const float* v_lin, const float* v, const float* ui_w,
-           const float* ui_v, const float* tc_w, const float* tc_v, float* grad,
-           float* precond, float* partials, int n_partials, float* out, const VmSweepScalars& s,
-           cudaStream_t stream) {
-  dim3 grid = tile_grid(WITH_GRAD, s.w, s.nown);
-  if ((long long)grid.x * grid.y > n_partials) return (int)cudaErrorInvalidValue;
+int launch(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
+  dim3 grid = tile_grid(WITH_GRAD, s.w, s.nown, R);
+  if ((long long)grid.x * grid.y > a.n_partials) return (int)cudaErrorInvalidValue;
   // the energy kernel's plane offsets are ints
   if (!WITH_GRAD && 6LL * s.C * s.h * s.w > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem<R, WITH_GRAD>();
   if (err != cudaSuccess) return (int)err;
   if constexpr (WITH_GRAD)
     sweep_grad_kernel<R><<<grid, NT, Geo<R>::BYTES, stream>>>(
-        planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, grad, precond, partials, s);
+        a.planes, a.v_lin, a.v, a.ui_w, a.ui_v, a.tc_w, a.tc_v, a.grad, a.precond, a.partials, s);
   else
-    sweep_energy_kernel<R><<<grid, ENT, EGeo<R>::BYTES, stream>>>(planes, v_lin, v, ui_w, ui_v,
-                                                                  tc_w, tc_v, partials, s);
+    sweep_energy_kernel<R><<<grid, ENT, EGeo<R>::BYTES, stream>>>(
+        a.planes, a.v_lin, a.v, a.ui_w, a.ui_v, a.tc_w, a.tc_v, a.partials, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sweep_reduce_kernel<<<1, RED, 0, stream>>>(partials, (int)(grid.x * grid.y), out, s);
+  sweep_reduce_kernel<<<1, RED, 0, stream>>>(a.partials, (int)(grid.x * grid.y), a.out, s);
   return (int)cudaGetLastError();
 }
 
+// The wide path: per channel its warps, statistics and SSIM (and, with the
+// gradient, the transposed sums and the chain), then the tiles' terms and
+// partials, then the reduction; all on `stream`, in order.
 template <bool WITH_GRAD>
-int dispatch(const float* planes, const float* v_lin, const float* v, const float* ui_w,
-             const float* ui_v, const float* tc_w, const float* tc_v, float* grad,
-             float* precond, float* partials, int n_partials, float* out,
-             const VmSweepScalars* s, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (s->radius) {
-    case 1:
-      return launch<1, WITH_GRAD>(planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, grad, precond,
-                                  partials, n_partials, out, *s, st);
-    case 2:
-      return launch<2, WITH_GRAD>(planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, grad, precond,
-                                  partials, n_partials, out, *s, st);
-    case 3:
-      return launch<3, WITH_GRAD>(planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, grad, precond,
-                                  partials, n_partials, out, *s, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+int launch_wide(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
+  const int R = s.radius;
+  const dim3 grid = tile_grid(WITH_GRAD, s.w, s.nown, R);
+  const WideLayout L = wide_layout(s.w, s.nown, R, WITH_GRAD);
+  if ((long long)grid.x * grid.y > a.n_partials || a.n_scratch < L.total) return (int)cudaErrorInvalidValue;
+  const dim3 block(WIDE_TILE_COLS, WIDE_TILE_ROWS);
+  auto band = [&](long long rows) { return dim3(cdiv(s.w, WIDE_TILE_COLS), (unsigned)cdiv((int)rows, WIDE_TILE_ROWS)); };
+  float* const A = a.scratch + L.a;
+  float* const V = a.scratch + L.v;  // after each channel's SSIM: the transposed sums; at last the curvature's
+  float* const es = a.scratch + L.es;
+  float* const Q = a.scratch + L.q;
+  float* const curv = a.scratch + L.curv;
+  float* const gs = a.scratch + L.gs;
+  for (int c = 0; c < s.C; ++c) {
+    wide_warps_kernel<<<band(L.na), block, 0, stream>>>(a.planes, a.v_lin, a.v, A, c, s);
+    wide_stats_vertical_kernel<<<band(L.ns), block, 0, stream>>>(A, V, s);
+    wide_ssim_kernel<WITH_GRAD><<<band(L.ns), block, 0, stream>>>(a.planes, V, Q, curv, es, c, s);
+    if constexpr (WITH_GRAD) {
+      wide_vertical_kernel<<<band(s.nown), block, 0, stream>>>(Q, V, 4, s);
+      wide_chain_kernel<<<band(s.nown), block, 0, stream>>>(a.planes, A, V, gs, c, s);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
+  if constexpr (WITH_GRAD) wide_vertical_kernel<<<band(s.nown), block, 0, stream>>>(curv, V, 2, s);
+  wide_final_kernel<WITH_GRAD><<<grid, block, 0, stream>>>(a.v, a.ui_w, a.ui_v, a.tc_w, a.tc_v, es, gs, V,
+                                                          a.grad, a.precond, a.partials, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sweep_reduce_kernel<<<1, RED, 0, stream>>>(a.partials, (int)(grid.x * grid.y), a.out, s);
+  return (int)cudaGetLastError();
 }
 
+// The launch for the window radius: a tiled instantiation for R = 1 ..
+// TILED_MAX_RADIUS, the wide path for any other R >= 0.
+template <bool WITH_GRAD>
+int dispatch(const Args& a, const VmSweepScalars* s, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (s->radius) {
+    case 1: return launch<1, WITH_GRAD>(a, *s, st);
+    case 2: return launch<2, WITH_GRAD>(a, *s, st);
+    case 3: return launch<3, WITH_GRAD>(a, *s, st);
+    case 4: return launch<4, WITH_GRAD>(a, *s, st);
+    case 5: return launch<5, WITH_GRAD>(a, *s, st);
+    case 6: return launch<6, WITH_GRAD>(a, *s, st);
+    default: return s->radius >= 0 ? launch_wide<WITH_GRAD>(a, *s, st) : (int)cudaErrorInvalidValue;
+  }
+}
+static_assert(TILED_MAX_RADIUS == 6, "dispatch() and vm_sweep_kernel_info instantiate R = 1 .. 6");
+
 // Registers, static and dynamic shared memory, local (spill) bytes and
-// resident blocks per SM of one kernel instantiation.
-template <int R>
-int kernel_info(bool with_grad, int* info) {
+// resident blocks per SM of one kernel at `threads` per block.
+cudaError_t func_info(const void* fn, int threads, size_t dyn, int* info) {
   cudaFuncAttributes a;
   int blocks = 0;
-  cudaError_t err;
-  const size_t dyn = with_grad ? Geo<R>::BYTES : EGeo<R>::BYTES;
-  if (with_grad) {
-    err = allow_smem<R, true>();
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, sweep_grad_kernel<R>);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sweep_grad_kernel<R>, NT, dyn);
-  } else {
-    err = allow_smem<R, false>();
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, sweep_energy_kernel<R>);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sweep_energy_kernel<R>, ENT, dyn);
-  }
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, dyn);
+  if (err != cudaSuccess) return err;
   info[0] = a.numRegs;
   info[1] = (int)a.sharedSizeBytes;
   info[2] = (int)dyn;
   info[3] = (int)a.localSizeBytes;
   info[4] = blocks;
+  return cudaSuccess;
+}
+
+template <int R>
+int kernel_info(bool with_grad, int* info) {
+  cudaError_t err = with_grad ? allow_smem<R, true>() : allow_smem<R, false>();
+  if (err == cudaSuccess)
+    err = with_grad ? func_info((const void*)sweep_grad_kernel<R>, NT, Geo<R>::BYTES, info)
+                    : func_info((const void*)sweep_energy_kernel<R>, ENT, EGeo<R>::BYTES, info);
+  return (int)err;
+}
+
+// The wide path's kernels: the most registers, shared and local memory and
+// the fewest resident blocks of any of them.
+int wide_kernel_info(bool with_grad, int* info) {
+  const void* grad_fns[] = {(const void*)wide_warps_kernel, (const void*)wide_stats_vertical_kernel,
+                            (const void*)wide_ssim_kernel<true>, (const void*)wide_vertical_kernel,
+                            (const void*)wide_chain_kernel, (const void*)wide_final_kernel<true>};
+  const void* energy_fns[] = {(const void*)wide_warps_kernel, (const void*)wide_stats_vertical_kernel,
+                              (const void*)wide_ssim_kernel<false>, (const void*)wide_final_kernel<false>};
+  const void* const* fns = with_grad ? grad_fns : energy_fns;
+  const int n = with_grad ? 6 : 4;
+  int one[5];
+  for (int i = 0; i < n; ++i) {
+    cudaError_t err = func_info(fns[i], WT, 0, one);
+    if (err != cudaSuccess) return (int)err;
+    if (i == 0) {
+      for (int k = 0; k < 5; ++k) info[k] = one[k];
+    } else {
+      for (int k = 0; k < 4; ++k) info[k] = info[k] > one[k] ? info[k] : one[k];
+      info[4] = info[4] < one[4] ? info[4] : one[4];
+    }
+  }
   return 0;
 }
 
@@ -1082,39 +1465,53 @@ int kernel_info(bool with_grad, int* info) {
 
 // The number of blocks, and so of (sim, tps, ui, tc) partial sets, of a
 // launch of the gradient (with_grad) or the energy kernel over nown owned
-// rows of width w.
-extern "C" int vm_sweep_n_partials(int w, int nown, int with_grad) {
-  dim3 grid = tile_grid(with_grad != 0, w, nown);
+// rows of width w at a window radius.
+extern "C" int vm_sweep_n_partials(int w, int nown, int with_grad, int radius) {
+  dim3 grid = tile_grid(with_grad != 0, w, nown, radius);
   return (int)(grid.x * grid.y);
+}
+
+// Floats of scratch a launch needs (the wide path's intermediates; 0 for
+// the tiled kernels).
+extern "C" long long vm_sweep_scratch_floats(int w, int nown, int with_grad, int radius) {
+  return tiled(radius) ? 0 : wide_layout(w, nown, radius, with_grad != 0).total;
 }
 
 // info[0..4]: registers per thread, static shared memory, dynamic shared
 // memory (bytes), local memory (bytes) and resident blocks per SM of the
-// gradient (with_grad) or energy kernel at a window radius; returns the CUDA
-// error, cudaErrorInvalidValue for a radius without an instantiation.
+// gradient (with_grad) or energy kernel at a window radius (for the wide
+// path, the extremes over its kernels); returns the CUDA error.
 extern "C" int vm_sweep_kernel_info(int radius, int with_grad, int* info) {
   switch (radius) {
     case 1: return kernel_info<1>(with_grad != 0, info);
     case 2: return kernel_info<2>(with_grad != 0, info);
     case 3: return kernel_info<3>(with_grad != 0, info);
-    default: return (int)cudaErrorInvalidValue;
+    case 4: return kernel_info<4>(with_grad != 0, info);
+    case 5: return kernel_info<5>(with_grad != 0, info);
+    case 6: return kernel_info<6>(with_grad != 0, info);
+    default: return radius >= 0 ? wide_kernel_info(with_grad != 0, info) : (int)cudaErrorInvalidValue;
   }
 }
 
-// partials holds n_partials sets of 4 floats; a launch that needs more
-// returns cudaErrorInvalidValue without running.
+// partials holds n_partials sets of 4 floats and scratch n_scratch floats
+// (vm_sweep_scratch_floats); a launch that needs more returns
+// cudaErrorInvalidValue without running.
 extern "C" int vm_sweep_grad(const float* planes, const float* v_lin, const float* v,
                              const float* ui_w, const float* ui_v, const float* tc_w,
                              const float* tc_v, float* grad, float* precond, float* partials,
-                             int n_partials, float* out, const VmSweepScalars* s, void* stream) {
-  return dispatch<true>(planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, grad, precond, partials,
-                        n_partials, out, s, stream);
+                             int n_partials, float* scratch, long long n_scratch, float* out,
+                             const VmSweepScalars* s, void* stream) {
+  const Args a{planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, grad, precond, partials, out, scratch,
+               n_partials, n_scratch};
+  return dispatch<true>(a, s, stream);
 }
 
 extern "C" int vm_sweep_energy(const float* planes, const float* v_lin, const float* v,
                                const float* ui_w, const float* ui_v, const float* tc_w,
-                               const float* tc_v, float* partials, int n_partials, float* out,
-                               const VmSweepScalars* s, void* stream) {
-  return dispatch<false>(planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, nullptr, nullptr, partials,
-                         n_partials, out, s, stream);
+                               const float* tc_v, float* partials, int n_partials, float* scratch,
+                               long long n_scratch, float* out, const VmSweepScalars* s,
+                               void* stream) {
+  const Args a{planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, nullptr, nullptr, partials, out, scratch,
+               n_partials, n_scratch};
+  return dispatch<false>(a, s, stream);
 }

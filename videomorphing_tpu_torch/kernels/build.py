@@ -108,15 +108,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     sigs = {
         "vm_halfway_warp": [P, P, P, P, I, I, I, I, I, P],
         "vm_bilinear_sample": [P, P, P, I, I, I, I, L, I, P],
-        "vm_sweep_grad": [P] * 10 + [I] + [P] * 3,
-        "vm_sweep_energy": [P] * 8 + [I] + [P] * 3,
-        "vm_sweep_n_partials": [I, I, I],
+        "vm_sweep_grad": [P] * 10 + [I, P, L] + [P] * 3,
+        "vm_sweep_energy": [P] * 8 + [I, P, L] + [P] * 3,
+        "vm_sweep_n_partials": [I, I, I, I],
+        "vm_sweep_scratch_floats": [I, I, I, I],
         "vm_sweep_kernel_info": [I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = I
+        fn.restype = L if name == "vm_sweep_scratch_floats" else I
     return lib
 
 

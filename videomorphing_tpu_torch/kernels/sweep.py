@@ -4,6 +4,17 @@ Source: ``csrc/sweep.cu`` (``vm_sweep_grad`` launches
 ``sweep_grad_kernel<R>``, ``vm_sweep_energy`` ``sweep_energy_kernel<R>``;
 the two share their per-pixel arithmetic as ``__device__`` functions).
 
+Every odd ``ssim_window`` = 2R + 1 runs on the card, chosen by R in
+``csrc/sweep.cu``'s ``dispatch``: the tiled kernels are instantiated for
+R = 1 .. ``TILED_MAX_RADIUS`` (6, window 13); any other R (window 1, and
+15 and up, where kernel 1's tile no longer fits a block's shared memory)
+takes the wide path, per-pixel kernels that read R at run time and keep
+their intermediates in a scratch buffer this wrapper allocates. The taps
+sit in a small device buffer per window (:func:`window_taps`). An even
+window's taps are not centred on the pixel, so no kernel computes it: on
+the card it raises ``ValueError`` (the reference and the plain version
+fail on it too).
+
 - ``sweep_grad`` replaces ``videomorphing_tpu/pallas/sweep.py:293``
   (``_build_grad_call``, driven by ``fused_value_grad_precond_pack``);
 - ``sweep_energy`` replaces ``videomorphing_tpu/pallas/sweep.py:502``
@@ -58,29 +69,51 @@ from videomorphing_tpu_torch.kernels import build
 from videomorphing_tpu_torch.kernels.warp import check_cuda_input, on_cuda, stream_of
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, separable_filter
 
-MAX_RADIUS = 3  # window radii instantiated in csrc/sweep.cu
+_GEOMETRY = ("TILE_ROWS", "TILE_COLS", "ENERGY_TILE_ROWS", "ENERGY_TILE_COLS", "TILED_MAX_RADIUS",
+             "WIDE_TILE_ROWS", "WIDE_TILE_COLS")
 
 
 @functools.lru_cache(maxsize=None)
-def sweep_tile(with_grad: bool) -> tuple[int, int]:
-    """(rows, columns) of owned pixels per block of the gradient kernel
-    (``with_grad``; ``TILE_ROWS``, ``TILE_COLS``) or of the energy kernel
-    (``ENERGY_TILE_ROWS``, ``ENERGY_TILE_COLS``), read from
+def _geometry() -> dict:
+    """The tiles and the tiled kernels' largest radius, read from
     ``csrc/sweep.cu``, the one place they are set."""
-    names = ("TILE_ROWS", "TILE_COLS") if with_grad else ("ENERGY_TILE_ROWS", "ENERGY_TILE_COLS")
     text = (build.CSRC_DIR / "sweep.cu").read_text()
-    dims = [re.search(rf"^constexpr int {name} = (\d+);", text, re.M) for name in names]
-    if not all(dims):
-        raise RuntimeError(f"csrc/sweep.cu does not set {' and '.join(names)}")
-    return tuple(int(d.group(1)) for d in dims)
+    found = {name: re.search(rf"^constexpr int {name} = (\d+);", text, re.M) for name in _GEOMETRY}
+    missing = [name for name, m in found.items() if not m]
+    if missing:
+        raise RuntimeError(f"csrc/sweep.cu does not set {' and '.join(missing)}")
+    return {name: int(m.group(1)) for name, m in found.items()}
 
 
-def n_partials(w: int, nown: int, with_grad: bool) -> int:
+def tiled(radius: int) -> bool:
+    """Whether window radius R runs the tiled kernels (R = 1 ..
+    ``TILED_MAX_RADIUS``) rather than the wide path."""
+    return 1 <= radius <= _geometry()["TILED_MAX_RADIUS"]
+
+
+def sweep_tile(with_grad: bool, radius: int = 1) -> tuple[int, int]:
+    """(rows, columns) of owned pixels per block, one partials set each,
+    at window radius ``radius``: the gradient kernel's ``TILE_ROWS`` x
+    ``TILE_COLS`` (``with_grad``); the energy kernel's ``ENERGY_TILE_ROWS``
+    x ``ENERGY_TILE_COLS`` up to R = 3, whose lanes give a wider window's
+    halo max(3, R) columns each side of 32 (``energy_tile_cols``); the wide
+    path's ``WIDE_TILE_ROWS`` x ``WIDE_TILE_COLS`` for both."""
+    g = _geometry()
+    if not tiled(radius):
+        return g["WIDE_TILE_ROWS"], g["WIDE_TILE_COLS"]
+    if with_grad:
+        return g["TILE_ROWS"], g["TILE_COLS"]
+    halo = max((32 - g["ENERGY_TILE_COLS"]) // 2, radius)
+    return g["ENERGY_TILE_ROWS"], 32 - 2 * halo
+
+
+def n_partials(w: int, nown: int, with_grad: bool, radius: int = 1) -> int:
     """Blocks of a launch of the gradient (``with_grad``) or the energy
-    kernel over ``nown`` owned rows of width ``w``, each writing one set of
-    (sim, tps, ui, tc) partials; ``vm_sweep_n_partials`` computes the same
-    count on the card, and the kernel refuses a buffer that holds fewer."""
-    rows, cols = sweep_tile(with_grad)
+    kernel over ``nown`` owned rows of width ``w`` at window radius
+    ``radius``, each writing one set of (sim, tps, ui, tc) partials;
+    ``vm_sweep_n_partials`` computes the same count on the card, and the
+    kernel refuses a buffer that holds fewer."""
+    rows, cols = sweep_tile(with_grad, radius)
     return -(-nown // rows) * -(-w // cols)
 
 
@@ -88,7 +121,7 @@ class _Scalars(ctypes.Structure):
     """Mirror of ``VmSweepScalars`` in ``csrc/sweep.cu``."""
 
     _fields_ = [
-        ("taps", ctypes.c_float * 8),
+        ("taps", ctypes.c_void_p),
         ("radius", ctypes.c_int),
         ("use_luminance", ctypes.c_int),
         ("c1", ctypes.c_float),
@@ -114,27 +147,54 @@ class _Scalars(ctypes.Structure):
     ]
 
 
-def _radius(p: MorphParams) -> int:
-    r = (int(p.ssim_window) - 1) // 2
-    if not 1 <= r <= MAX_RADIUS:
-        raise ValueError(f"sweep kernels support ssim_window 3, 5 or 7, got {p.ssim_window}")
-    return r
+def kernel_radius(p: MorphParams) -> int:
+    """The radius R of the kernels' window, ``ssim_window`` = 2R + 1;
+    raises ``ValueError`` for an even window, whose taps are not centred
+    on the pixel (the kernels would read 2R + 1 of its taps and compute
+    another function than the plain version)."""
+    k = int(p.ssim_window)
+    if k < 1 or k % 2 == 0:
+        raise ValueError(
+            f"the sweep kernels take an odd ssim_window (2R + 1 taps centred on the pixel), got {k}"
+        )
+    return (k - 1) // 2
+
+
+_TAPS: dict = {}
+
+
+def window_taps(p: MorphParams, device) -> torch.Tensor:
+    """The window's 2R + 1 Gaussian taps (float32) on ``device``: the
+    buffer ``VmSweepScalars.taps`` points at, made once per window, sigma
+    and device and kept (on a card, its copy is synchronized before use,
+    so no stream reads it early)."""
+    dev = torch.device(device)
+    key = (int(p.ssim_window), float(p.ssim_sigma), dev)
+    taps = _TAPS.get(key)
+    if taps is None:
+        taps = torch.tensor(gaussian_taps(key[0], key[1]), dtype=torch.float32).to(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        _TAPS[key] = taps
+    return taps
 
 
 def _scalars(p: MorphParams, h: int, w: int, c: int, row0: int = 0, gh: int = 0, own0: int = 0,
-             nown: int = 0) -> _Scalars:
+             nown: int = 0, taps: torch.Tensor | None = None) -> _Scalars:
     """Kernel constants, each computed in double and rounded once to
     float32, as the reference's weakly typed Python constants are. The
     defaults describe a whole frame; a row shard passes its block geometry
-    and every ``/npix`` uses the global ``gh * w``."""
-    taps = gaussian_taps(int(p.ssim_window), float(p.ssim_sigma))
-    r = _radius(p)
+    and every ``/npix`` uses the global ``gh * w``. ``taps`` is the
+    window's buffer (:func:`window_taps`) on the launch's device."""
+    r = kernel_radius(p)
     gh = gh or h
     nown = nown or h
     npix = gh * w
     s = _Scalars()
-    for i, t in enumerate(taps):
-        s.taps[i] = t
+    if taps is not None:
+        if taps.numel() != 2 * r + 1:
+            raise ValueError(f"{taps.numel()} taps for a window of radius {r}")
+        s.taps = taps.data_ptr()
     s.radius = r
     s.use_luminance = int(bool(p.ssim_use_luminance))
     s.c1, s.c2 = p.ssim_c1, p.ssim_c2
@@ -202,13 +262,18 @@ def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int =
     """One launch of a sweep kernel (and its reduce) on a whole frame or,
     with ``halo`` > 0, on a row shard; returns (out (5,), grad, precond)."""
     h, w, c = _check(planes, v_lin, v, data, halo)
+    r = kernel_radius(p)
     bh = h - 2 * halo
-    s = _scalars(p, h, w, c, row0, gh or h, halo, bh)
     dev = v.device
-    n_parts = n_partials(w, bh, with_grad)
+    s = _scalars(p, h, w, c, row0, gh or h, halo, bh, window_taps(p, dev))
+    n_parts = n_partials(w, bh, with_grad, r)
     partials = torch.empty((n_parts, 4), dtype=torch.float32, device=dev)
     out = torch.empty((5,), dtype=torch.float32, device=dev)
     lib = build.load()
+    # the wide path's intermediates (none for the tiled kernels)
+    n_scratch = 0 if tiled(r) else lib.vm_sweep_scratch_floats(w, bh, int(with_grad), r)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None
+    scratch_ptr = scratch.data_ptr() if scratch is not None else None
     grad = precond = None
     with torch.cuda.device(dev):
         if with_grad:
@@ -218,15 +283,15 @@ def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int =
                 planes.data_ptr(), v_lin.data_ptr(), v.data_ptr(),
                 data.ui_w.data_ptr(), data.ui_v.data_ptr(),
                 data.tc_w.data_ptr(), data.tc_v.data_ptr(),
-                grad.data_ptr(), precond.data_ptr(), partials.data_ptr(), n_parts, out.data_ptr(),
-                ctypes.addressof(s), stream_of(v),
+                grad.data_ptr(), precond.data_ptr(), partials.data_ptr(), n_parts,
+                scratch_ptr, n_scratch, out.data_ptr(), ctypes.addressof(s), stream_of(v),
             )
         else:
             err = lib.vm_sweep_energy(
                 planes.data_ptr(), v_lin.data_ptr(), v.data_ptr(),
                 data.ui_w.data_ptr(), data.ui_v.data_ptr(),
                 data.tc_w.data_ptr(), data.tc_v.data_ptr(),
-                partials.data_ptr(), n_parts, out.data_ptr(),
+                partials.data_ptr(), n_parts, scratch_ptr, n_scratch, out.data_ptr(),
                 ctypes.addressof(s), stream_of(v),
             )
     build.check(err, "vm_sweep_grad" if with_grad else "vm_sweep_energy")
@@ -267,8 +332,8 @@ sweep_energy.launches = 0
 def shard_reach(p: MorphParams) -> int:
     """Neighbour rows a shard needs above and below its owned rows: the
     linearized warps' 2R (statistics R plus the transposed sums R) and the
-    TPS adjoint's 2."""
-    return max(2 * _radius(p), 2)
+    TPS adjoint's 2, at any window."""
+    return max(2 * (int(p.ssim_window) // 2), 2)
 
 
 def combine_parts(parts, p: MorphParams, npix: int, c: int) -> np.float32:

@@ -114,6 +114,15 @@ def warp_bundle(v: torch.Tensor, data: LevelData) -> WarpBundle:
     return WarpBundle(v, *bundle_from_planes(halfway_warp(data.i0, data.i1, v)))
 
 
+def warp_bundle_fused(v: torch.Tensor, src0: torch.Tensor, src1: torch.Tensor,
+                      prescreen: bool = False) -> WarpBundle:
+    """The reference's name for :func:`warp_bundle` on the two (H, W, C)
+    images: kernel 3 is the fused warp on the card, so there is no other
+    path to fall back to; ``prescreen`` (exact in the reference) is
+    ignored."""
+    return WarpBundle(v, *bundle_from_planes(halfway_warp(src0, src1, v)))
+
+
 def linearized_warps(wb: WarpBundle, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """First-order warped images at ``v`` around ``wb.v_lin`` (exact at v_lin)."""
     dv = v - wb.v_lin

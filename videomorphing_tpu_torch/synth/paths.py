@@ -8,6 +8,8 @@ screened-Poisson (DCT) solve. The path is
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from videomorphing_tpu_torch.config import SynthParams
@@ -54,3 +56,11 @@ def bulge_field(v: torch.Tensor, sp: SynthParams = SynthParams()) -> torch.Tenso
     bstar = bstar * (torch.clamp(norm, max=sp.max_bulge) / torch.clamp(norm, min=1e-12))
     b = screened_poisson_dct(bstar, alpha=1.0, mu=sp.path_smooth_mu)
     return b.to(v.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def jitted_bulge_field(sp: SynthParams):
+    """:func:`bulge_field` bound to ``sp``, cached per ``SynthParams``: the
+    reference's jitted callable, here the plain function (PyTorch runs
+    eagerly)."""
+    return lambda v: bulge_field(v, sp)

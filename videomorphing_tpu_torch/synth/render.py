@@ -14,6 +14,7 @@ plain PyTorch, as in the reference, which has no bicubic kernel.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -170,3 +171,11 @@ def render_clip(
     """One frame per time in ``ts`` (K,) -> (K, H, W, C)."""
     ts = np.asarray(ts.detach().cpu() if isinstance(ts, torch.Tensor) else ts, np.float32)
     return torch.stack([render_frame(i0, i1, v, b, t, sp) for t in ts.reshape(-1)])
+
+
+@functools.lru_cache(maxsize=None)
+def jitted_render_clip(sp: SynthParams):
+    """:func:`render_clip` bound to ``sp``, cached per ``SynthParams``: the
+    reference's jitted callable, here the plain function (PyTorch runs
+    eagerly)."""
+    return lambda i0, i1, v, b, ts: render_clip(i0, i1, v, b, ts, sp)
