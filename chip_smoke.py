@@ -9,14 +9,16 @@ Phases:
   1. build the CUDA kernels of ``videomorphing_tpu_torch/csrc`` with nvcc;
      print ptxas's registers and spills per kernel (``-Xptxas -v``, from
      ``build.log``) and each sweep kernel's registers, shared memory and
-     resident blocks per SM (``vm_sweep_kernel_info``: every tiled
-     radius, 1-6, and the wide path), and check the partials counts the
+     resident blocks per SM (``vm_sweep_kernel_info``: every instantiated
+     radius, the gradient kernel's tile at 1-2 and strip at 3-7, the energy
+     kernel's 1-6, and the wide path), and check the partials counts the
      wrapper sizes against ``vm_sweep_n_partials`` at every radius;
   2. each kernel against its plain PyTorch version on the card, at the
      slices' shapes (1024 x 1024, 1080 x 1920 and a ragged 135 x 241,
      C = 3; kernels 1-2 also at every ``ssim_window`` of ``WINDOW_SIGMA``,
-     1-15, on the ragged shape (every tiled radius and the wide path) and
-     at ``WIDE_WINDOWS`` (9, 11, 15) at 1024^2, timed, each rerun bitwise;
+     1-17, on the ragged shape (every instantiated radius and the wide
+     path) and at ``WIDE_WINDOWS`` (7-15) at 1024^2, timed, each rerun
+     bitwise;
      the sampler, bitwise, also at C = 4 on
      the stacked [disp, v] planes, on a grey 540 x 960 image, at 4 points,
      and batched: 29 and 58 grey 540 x 960 images as the flow warps take
@@ -156,12 +158,14 @@ EDIT_N = 1024
 PAIRS_ROWS_HW = (2160, 3840)
 PAIRS_ROWS_BLOCKS = 2
 # the SSIM windows (ssim_window: ssim_sigma) that phase 2 holds the sweeps
-# at on its ragged shapes: every tiled radius (1-6) and the wide path's R = 0
-# and R = 7; WIDE_WINDOWS are also held and timed at 1024^2 and on 4 row
-# blocks of the 4K level; phase 18 runs the pair and the golden cases at
-# WIDE_PAIR_WINDOW and the 4K spatial solve at WIDE_SPATIAL_WINDOW
-WINDOW_SIGMA = {1: 1.0, 3: 1.0, 5: 1.0, 7: 1.5, 9: 1.5, 11: 1.5, 13: 2.0, 15: 2.5}
-WIDE_WINDOWS = (9, 11, 15)
+# at on its ragged shapes: every instantiated radius (1-7), the wide path's
+# R = 0 and the first radius past each kernel's instantiations (R = 7 for
+# kernel 2, R = 8 for kernel 1); WIDE_WINDOWS are also held and timed at
+# 1024^2 and on 4 row blocks of the 4K level; phase 18 runs the pair and
+# the golden cases at WIDE_PAIR_WINDOW and the 4K spatial solve at
+# WIDE_SPATIAL_WINDOW
+WINDOW_SIGMA = {1: 1.0, 3: 1.0, 5: 1.0, 7: 1.5, 9: 1.5, 11: 1.5, 13: 2.0, 15: 2.5, 17: 3.0}
+WIDE_WINDOWS = (7, 9, 11, 13, 15)
 WIDE_PAIR_WINDOW = 11
 WIDE_SPATIAL_WINDOW = 9
 WIDE_PAIR_N = 1024
@@ -457,8 +461,8 @@ def check_kernels(dev) -> dict:
 
 def time_wide_window(h: int, w: int, pw, grad, grad_plain, energy, energy_plain, rows: int = 0,
                      shard: bool = False) -> None:
-    """Kernels 1 and 2 (or their shard forms, ``shard``) at a window past
-    radius 3 on an h x w whole frame or on a row block of ``rows`` owned
+    """Kernels 1 and 2 (or their shard forms, ``shard``) at one of
+    ``WIDE_WINDOWS`` on an h x w whole frame or on a row block of ``rows`` owned
     rows: device time (``graph_ms``, twice), call time, the plain version's
     call time and the bound, logged (the kernels' result line stays at the
     default window)."""
@@ -1992,24 +1996,25 @@ def main(argv) -> int:
     lib = build.load()
     from videomorphing_tpu_torch.kernels import sweep as ks
     info = (ctypes.c_int * 5)()
-    tiled_radii = [r for r in range(1, 16) if ks.tiled(r)]
-    for with_grad, kname in ((1, "sweep_grad_kernel"), (0, "sweep_energy_kernel")):
-        # every tiled instantiation, then the wide path (its kernels' extremes; R = 0 and R > the tiled ones)
-        for r in tiled_radii + [tiled_radii[-1] + 1]:
+    for with_grad in (1, 0):
+        # every instantiation, then the wide path (its kernels' extremes; R = 0 and past the instantiated R)
+        radii = [r for r in range(1, 16) if ks.tiled(with_grad, r)]
+        for r in radii + [radii[-1] + 1]:
             build.check(lib.vm_sweep_kernel_info(r, with_grad, info), "vm_sweep_kernel_info")
-            what = f"{kname}<{r}>" if ks.tiled(r) else f"wide path ({'gradient' if with_grad else 'energy'})"
+            what = ks.kernel_name(with_grad, r)
             log(f"  {what}: {info[0]} registers, {info[1]} B static + {info[2]} B dynamic shared memory, "
                 f"{info[3]} B local, {info[4]} resident blocks of "
                 f"{256} threads per SM ({info[4] * 8} warps)")
             require(info[4] >= 1, f"{what} cannot be resident on an SM")
     for with_grad in (True, False):
-        for r in [0] + tiled_radii + [7, 10]:
+        radii = [r for r in range(0, 11) if ks.tiled(with_grad, r)]
+        for r in [0] + radii + [radii[-1] + 1, 10]:
             for w, nown in ((1024, 1024), (1920, 1080), (241, 135), (3840, 540), (30, 17), (1, 1)):
                 got, sized = lib.vm_sweep_n_partials(w, nown, int(with_grad), r), ks.n_partials(w, nown, with_grad, r)
                 require(got == sized,
                         f"partials of {nown}x{w} (with_grad={with_grad}, R = {r}): {got} on the card, {sized} sized")
         log(f"  {'gradient' if with_grad else 'energy'} tiles (rows, columns) by radius: "
-            + ", ".join(f"R = {r}: {ks.sweep_tile(with_grad, r)}" for r in [0] + tiled_radii + [7])
+            + ", ".join(f"R = {r}: {ks.sweep_tile(with_grad, r)}" for r in [0] + radii + [radii[-1] + 1])
             + "; partials counts agree with vm_sweep_n_partials")
 
     log("phase 2: kernels against their plain versions")

@@ -7,6 +7,10 @@
   JAX-only ``jax.sharding`` objects and the XLA compile cache);
 - the functions that export brought into the port, each against the
   reference on the CPU with numpy-seeded inputs;
+- every public function and class of each reference subpackage (its
+  ``__all__`` and every module of it that the port mirrors) and of
+  ``api`` accepts, in the port, every parameter name of the reference's,
+  but for the documented exceptions of ``SIGNATURE_EXCEPTIONS``;
 - ``utils.synthetic.make_clips`` equals the reference benchmark's
   ``bench._make_clips``;
 - the kernel layer: every public name of the reference's
@@ -24,6 +28,8 @@ so 1e-5 of max|ref| (1e-4 absolute for rendered pixels in [0, 1]).
 
 import dataclasses
 import importlib
+import inspect
+import pkgutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -74,6 +80,64 @@ def test_subpackage_exports_the_reference_names(name):
     assert not missing, f"videomorphing_tpu_torch.{name} lacks {missing}"
     assert port.__all__ == [n for n in ref.__all__ if n not in not_ported]
     assert all(not hasattr(port, n) for n in not_ported)
+
+
+# reference functions whose parameters the port does not take, with the reason
+SIGNATURE_EXCEPTIONS = {
+    "videomorphing_tpu.parallel.halo.halo_exchange_rows":
+        "x and axis_name are a shard_map collective's arguments; the port exchanges the rows of a "
+        "list of per-device blocks (blocks, halo)",
+}
+
+
+def _public_callables(mod):
+    """Public functions and classes defined in ``mod`` itself."""
+    return {n: o for n, o in vars(mod).items()
+            if not n.startswith("_") and (inspect.isfunction(o) or inspect.isclass(o))
+            and getattr(o, "__module__", None) == mod.__name__}
+
+
+def _parameter_names(obj):
+    try:
+        params = inspect.signature(obj).parameters.values()
+    except (TypeError, ValueError):  # a builtin or a class without a Python signature
+        return None
+    if any(p.kind == p.VAR_KEYWORD for p in params):
+        return None  # takes any keyword
+    return {p.name for p in params if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
+
+
+@pytest.mark.parametrize("name", SUBPACKAGES + ("api",))
+def test_functions_accept_the_reference_parameters(name):
+    """A caller written against the reference passes the port every
+    parameter name the reference's function takes: the names of the
+    subpackage's ``__all__`` and the public functions of each of its
+    modules that the port mirrors (for ``api``, its public functions)."""
+    ref_pkg = importlib.import_module(f"videomorphing_tpu.{name}")
+    pairs = []  # (qualified reference name, reference object, port object)
+    port_pkg = importlib.import_module(f"videomorphing_tpu_torch.{name}")
+    for n in getattr(ref_pkg, "__all__", ()):
+        if hasattr(port_pkg, n):
+            obj = getattr(ref_pkg, n)
+            pairs.append((f"{getattr(obj, '__module__', ref_pkg.__name__)}.{n}", obj, getattr(port_pkg, n)))
+    mods = [ref_pkg] + [importlib.import_module(m.name)
+                        for m in pkgutil.walk_packages(getattr(ref_pkg, "__path__", []), ref_pkg.__name__ + ".")]
+    for mod in mods:
+        try:
+            port_mod = importlib.import_module(mod.__name__.replace("videomorphing_tpu", "videomorphing_tpu_torch", 1))
+        except ModuleNotFoundError:
+            continue
+        pairs += [(f"{mod.__name__}.{n}", o, getattr(port_mod, n))
+                  for n, o in _public_callables(mod).items() if hasattr(port_mod, n)]
+    assert pairs
+    missing = {}
+    for qual, ref, port in pairs:
+        ref_names, port_names = _parameter_names(ref), _parameter_names(port)
+        if ref_names is None or port_names is None or qual in SIGNATURE_EXCEPTIONS:
+            continue
+        if ref_names - port_names:
+            missing[qual] = sorted(ref_names - port_names)
+    assert not missing, f"the port rejects the reference's parameters: {missing}"
 
 
 def test_sample_at():

@@ -239,15 +239,64 @@ def test_scalars_hold_every_tap_of_a_wide_window():
 @pytest.mark.parametrize("with_grad", [True, False], ids=["grad", "energy"])
 @pytest.mark.parametrize("radius", [4, 7])
 def test_n_partials_covers_every_tile_at_wide_radii(radius, with_grad):
-    """Past radius 3 the gradient kernel keeps its tile, the energy kernel
-    owns 32 - 2R columns of a warp (R = 4), and the wide path (R = 7, past
-    the tiled radii) has tiles of its own; the partials buffer holds one
-    set per block of each."""
-    geometry = {(4, True): (16, 32), (4, False): (32, 24), (7, True): (8, 32), (7, False): (8, 32)}
-    assert ks.tiled(radius) == (radius == 4)
+    """Past radius 2 the gradient kernel walks strips of 72 x 64 pixels (R
+    = 4 and 7), the energy kernel owns 32 - 2R columns of a warp (R = 4),
+    and the energy kernel's wide path (R = 7, past its instantiated radii)
+    has tiles of its own; the partials buffer holds one set per block of
+    each."""
+    geometry = {(4, True): (72, 64), (4, False): (32, 24), (7, True): (72, 64), (7, False): (8, 32)}
+    assert ks.tiled(with_grad, radius) == (radius == 4 or with_grad)
     assert ks.sweep_tile(with_grad, radius) == geometry[radius, with_grad]
     for w, nown in [(1024, 1024), (241, 135), (1, 1), (30, 17), (3840, 540), (37, 53)]:
         assert ks.n_partials(w, nown, with_grad, radius) == _blocks_by_origin(w, nown, with_grad, radius)
+
+
+def _source_constant(name):
+    import re
+
+    from videomorphing_tpu_torch.kernels import build
+
+    m = re.search(rf"^constexpr int {name} = (\d+);", (build.CSRC_DIR / "sweep.cu").read_text(), re.M)
+    assert m, name
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("radius", range(0, 10))
+def test_gradient_kernel_by_radius_comes_from_the_source(radius):
+    """The gradient kernel's blocks at each radius, from the constants of
+    ``csrc/sweep.cu``: R = 1, 2 keep the tile of ``TILE_ROWS`` x
+    ``TILE_COLS`` (16 x 32); ``STRIP_MIN_RADIUS`` .. ``STRIP_MAX_RADIUS``
+    (3 .. 7) run the strip kernel on ``STRIP_ROWS`` x ``STRIP_COLS``; R = 0
+    and the radii past the strip run the wide path. The energy kernel keeps
+    its own radii (1 .. ``TILED_MAX_RADIUS``)."""
+    lo, hi = _source_constant("STRIP_MIN_RADIUS"), _source_constant("STRIP_MAX_RADIUS")
+    assert (lo, hi) == (3, 7) and _source_constant("TILED_MAX_RADIUS") == 6
+    tile = (_source_constant("TILE_ROWS"), _source_constant("TILE_COLS"))
+    strip = (_source_constant("STRIP_ROWS"), _source_constant("STRIP_COLS"))
+    wide = (_source_constant("WIDE_TILE_ROWS"), _source_constant("WIDE_TILE_COLS"))
+    assert tile == (16, 32)
+    expect = tile if 1 <= radius < lo else strip if lo <= radius <= hi else wide
+    assert ks.sweep_tile(True, radius) == expect
+    assert ks.tiled(True, radius) == (1 <= radius <= hi)
+    assert ks.tiled(False, radius) == (1 <= radius <= 6)
+    name = ks.kernel_name(True, radius)
+    assert name == ("wide path (gradient)" if expect == wide else
+                    f"sweep_grad{'_strip' if expect == strip else ''}_kernel<{radius}>")
+
+
+@pytest.mark.parametrize("radius", [3, 5, 7])
+@pytest.mark.parametrize(
+    "w,nown",
+    [(1024, 1024), (241, 135), (1, 1), (30, 17), (65, 72), (3840, 540), (241, 33), (1920, 1080), (37, 53),
+     (3840, 572)],
+    ids=["1k", "ragged", "one-pixel", "4k-level-width-30", "one-column-over", "4k-row-block",
+         "ragged-row-block", "1080p", "37x53", "4k-row-block-window-15"],
+)
+def test_n_partials_covers_every_strip(w, nown, radius):
+    """The strip kernel's partials: one set per strip of owned rows and
+    columns, counted from the strips' origins, for whole frames and for a
+    row shard's owned rows (the 4K row blocks)."""
+    assert ks.n_partials(w, nown, True, radius) == _blocks_by_origin(w, nown, True, radius)
 
 
 def test_even_windows_are_refused_by_the_kernels():

@@ -22,7 +22,11 @@ tracked points and fields; ``interop`` carries them across. Tolerances:
   within 2e-3 and fields within 5e-3 px, the end-to-end and chain bounds of
   ``test_torch_video_pipeline.py``;
 - ``render_clip_sharded`` against the reference's: 1e-4, the pair render's
-  bound, and bitwise against the port's ``render_clip``.
+  bound, and bitwise against the port's ``render_clip``;
+- ``render_video_frames_sharded(conf_flows=...)`` against the reference's
+  on a 3-frame 40 x 56 clip pair and a 1-device mesh: frames and bulges
+  within 1e-4, the pair render's bound, and bitwise against the port's
+  own ``flows=`` route on the same flows.
 """
 
 import dataclasses
@@ -227,3 +231,35 @@ def test_morph_clips_with_mesh(clips):
     assert _maxabs(ref.fields, got.fields) <= CHAIN_ATOL
     assert _maxabs(ref.frames, got.frames) <= 2e-3
     assert torch.equal(seq.fields[:2], got.fields[:2])
+
+
+def test_video_frames_sharded_takes_the_reference_conf_flows():
+    """The reference's ``conf_flows`` tuple ``(af, ab, bf, bb)`` of
+    per-frame flow stacks, built as ``video.pipeline.render_video`` builds
+    it (frame t's pair, the last frame the final pair reversed)."""
+    t_len, h, w = 3, 40, 56
+    ca, cb = bench._make_clips(t_len, h, w, seed=1)
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    fields = np.stack([np.stack([1.5 * np.sin(yy / 7.0 + k), 2.0 * np.cos(xx / 9.0 - k)], -1)
+                       for k in range(t_len)]).astype(np.float32)
+    flows = {k: (0.8 * rng.standard_normal((t_len - 1, h, w, 2))).astype(np.float32)
+             for k in ("fa_fwd", "fa_bwd", "fb_fwd", "fb_bwd")}
+    conf = tuple(np.concatenate([flows[f], flows[b][-1:]], 0)
+                 for f, b in (("fa_fwd", "fa_bwd"), ("fa_bwd", "fa_fwd"), ("fb_fwd", "fb_bwd"),
+                              ("fb_bwd", "fb_fwd")))
+    times = np.linspace(0.0, 1.0, t_len, dtype=np.float32)
+    jsp = JaxSynthParams()
+    rb, rf = jfr.render_video_frames_sharded(
+        jnp.asarray(ca), jnp.asarray(cb), jnp.asarray(fields), jnp.asarray(times),
+        jax_make_mesh((1,), ("batch",)), jsp, JVP, "batch", conf_flows=tuple(jnp.asarray(c) for c in conf))
+    args = (_t(ca), _t(cb), _t(fields), times, _mesh(1), _port(jsp), _port(JVP), "batch")
+    pb, pf = tfr.render_video_frames_sharded(*args, conf_flows=tuple(_t(c) for c in conf))
+    assert pf.shape == (t_len, h, w, 3)
+    assert _maxabs(rf, pf) <= 1e-4
+    assert _maxabs(rb, pb) <= 1e-4
+    fb, ff = tfr.render_video_frames_sharded(*args, flows={k: _t(v) for k, v in flows.items()})
+    assert torch.equal(ff, pf) and torch.equal(fb, pb)
+    with pytest.raises(ValueError, match="conf_flows or flows"):
+        tfr.render_video_frames_sharded(*args, conf_flows=tuple(_t(c) for c in conf),
+                                        flows={k: _t(v) for k, v in flows.items()})

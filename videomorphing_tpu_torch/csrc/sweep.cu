@@ -2,49 +2,73 @@
 // preconditioner of the halfway-domain energy on linearized warps.
 //
 // Replaces the Pallas builders videomorphing_tpu/pallas/sweep.py:293
-// (_build_grad_call, kernel 1: sweep_grad_kernel<R>) and :502
-// (_build_energy_call, kernel 2: sweep_energy_kernel<R>). The two kernels
-// have their own designs but share the per-pixel arithmetic of the energy
-// (ssim_pixel, tps_maps_at, tps_energy, quad_terms) and the order of every
+// (_build_grad_call, kernel 1: sweep_grad_kernel<R> and
+// sweep_grad_strip_kernel<R>) and :502 (_build_energy_call, kernel 2:
+// sweep_energy_kernel<R>). The kernels have their own designs but share
+// the per-pixel arithmetic of the energy (ssim_pixel, ssim_coeffs,
+// tps_maps_at, tps_energy, quad_terms) and the order of every
 // window sum, so the energy the line search sees and the energy of the
 // gradient pass cannot drift apart.
 //
-// Kernel 1: what bounds it on the H100. Counting each input read once and
-// each output written once, it moves at 1024^2, C = 3 134 MB (40 us at
-// 3.35 TB/s) and does ~650 operations per pixel (10 us at 67 TFLOP/s):
-// bytes, on paper. In practice it is bound by instructions and their
-// latency: every owned pixel and its halo go through 5 K-tap window sums in
-// two passes, the SSIM coefficient maps (divisions) and 4 transposed sums
-// per channel, each stage behind a barrier, with 2 blocks (16 warps) on an
-// SM. Design, per block of TILE_ROWS x TILE_COLS owned pixels, 256 threads:
+// Kernel 1 (Pallas: _build_grad_call, pallas/sweep.py:293, and its row
+// shards, fused_grad_parts_shard, :936): what bounds it on the H100.
+// Counting each input read once and each output written once, it moves at
+// 1024^2, C = 3 134 MB (40 us at 3.35 TB/s) and does ~650 operations per
+// pixel at window 5 (10 us at 67 TFLOP/s): bytes, on paper, at every
+// window up to 15. In practice it is bound by instructions and their
+// latency: per channel every pixel and its halo go through 5 K-tap window
+// sums in two passes, the SSIM coefficient maps (divisions) and 4
+// transposed sums in two passes, each stage behind a barrier. Two designs,
+// by window radius R:
+//
+// sweep_grad_kernel<R>, R = 1, 2 (windows 3, 5; the default): a tile of
+// TILE_ROWS x TILE_COLS owned pixels, 256 threads, with its halo of 2R
+// staged in shared memory (90 KB at R = 2, two blocks an SM):
 //   0. once per tile: dv = v - v_lin at the warp halo 2R; the row and
 //      column tap-sum tables of the in-image window and from them 1/n at
-//      the statistics halo R (no tap loop per pixel and channel); and, into
-//      registers, the v tile of the TPS stencils and the UI/TC maps of the
-//      thread's owned pair, in flight while the channels run;
+//      the statistics halo R; and, into registers, the v tile of the TPS
+//      stencils and the UI/TC maps of the thread's owned pair;
 //   1. per channel, the six planes (w0, w1, dw0, dw1) of the tile and its
-//      halo arrive by cp.async, zero-filled (src-size 0) outside the image.
-//      The dw planes are double-buffered: channel c+1's are issued as
-//      channel c starts, its w0/w1 once channel c's linearized warps
-//      a0 = w0 - dw0.dv, a1 = w1 + dw1.dv are in shared memory, so both are
-//      in flight during channel c's window sums; every later stage reads dw
-//      from shared memory;
-//   2. window statistics at halo R: the vertical pass walks column
-//      segments with their window in registers (seg + 2R rows loaded for
-//      seg outputs, seg_rows()); the horizontal pass takes 4 neighbouring
-//      pixels per item from float4 windows, then the SSIM map and its
-//      coefficient maps (the gradient's reciprocals by __fdividef; the
-//      energy's SSIM keeps its IEEE division);
-//   3. the transposed window sums down to the owned pixels (vertical by
-//      column segments, horizontal at each thread's pair of neighbours from
-//      float2 windows), chained through dw0/dw1;
+//      halo arrive by cp.async, zero-filled (src-size 0) outside the image,
+//      the next channel's in flight during this one's window sums;
+//   2. window statistics at halo R (vertical pass by column segments with
+//      their window in registers, seg_rows(); horizontal from float4
+//      windows), the SSIM map and its coefficient maps (the gradient's
+//      reciprocals by __fdividef; the energy's SSIM keeps its IEEE
+//      division);
+//   3. the transposed window sums down to the owned pixels, chained
+//      through dw0/dw1;
 //   4. after the channels: the curvature's window sum, and the TPS maps
-//      computed once on a (TILE_ROWS + 2) x (TILE_COLS + 2) tile of v in
-//      shared memory, from which the adjoint stencil reads its neighbours.
-// The output tile is 32 x 16 rather than 16 x 16: the staged halo falls
-// from 2.25x to 1.88x of the owned pixels at R = 2 (statistics from 1.56x
-// to 1.41x). Shared memory is dynamic (90 KB at R = 2, so two blocks share
-// an SM; set with cudaFuncSetAttribute and checked).
+//      once on a tile of v in shared memory for the adjoint stencil.
+// Its staged halo grows with R: 1.9x the owned pixels at R = 2, 3.9x at
+// R = 5, and past R = 2 only one block fits an SM.
+//
+// sweep_grad_strip_kernel<R>, R = STRIP_MIN_RADIUS .. STRIP_MAX_RADIUS
+// (windows 7-15): a block owns STRIP_ROWS x STRIP_COLS pixels and, per
+// channel, walks down them STEP_ROWS rows a step, so the vertical halo of
+// 4R rows is staged once per strip and channel rather than once per tile
+// (1.7x the owned pixels at R = 5):
+//   - a step's rows of the six planes and of v, v_lin arrive by cp.async,
+//     zero-filled outside the image, one step ahead, in chunks of 4
+//     columns, one a thread: 16-byte copies where the width is a multiple
+//     of 4 and the pointers are aligned (the staged columns start at a
+//     multiple of 4), else 4-byte ones. A thread forms a0, a1 of its own
+//     chunk only and issues its next chunk at once, so no barrier waits
+//     for the copies;
+//   - a0, a1 go into a ring of STEP_ROWS + 2R rows; the vertical window
+//     sums of the statistics R rows up come from it, then the horizontal
+//     ones, the SSIM and its coefficient maps, and the curvature terms,
+//     into a second ring of STEP_ROWS + 2R rows;
+//   - the transposed sums 2R rows up come from that ring, then the chain
+//     through dw (loaded while the window sums run); the SSIM gradient and
+//     the curvature's window sums of the earlier channels wait in grad and
+//     precond, read back by the thread that wrote them;
+//   - the last channel adds the TPS maps (a tile of v in shared memory),
+//     the UI and TC terms and writes the outputs.
+// Shared memory does not grow with C and grows with R only through the
+// rings and halo columns (80 KB at R = 3, 110 KB at R = 7): two blocks (16
+// warps) an SM from R = 3 to 7. The curvature is summed over the channels
+// after its window sums here (before them in the tile), channels in order.
 //
 // Kernel 2 needs neither the statistics halo nor dw after forming a0 and
 // a1, and runs once per Armijo trial, so it has a design of its own. Its
@@ -77,14 +101,15 @@
 //
 // cp.async rather than TMA: a TMA tile needs a 16-byte-aligned row stride,
 // W % 4 == 0, and the pyramid's levels break that (a 135 x 241 level, 4K
-// level widths such as 30); 4-byte cp.async takes any width and any origin.
+// level widths such as 30); 4-byte cp.async takes any width and any origin
+// (the strip kernel takes 16-byte copies on the widths that allow them).
 // No tensor cores: the window sums are 3- to 13-tap float32 stencils, and
 // TF32 products would break the 1e-5 gate against the plain version.
 //
 // Every per-pixel sum keeps its order (taps t = 0..K-1, the vertical pass
-// before the horizontal one), and no value depends on where the tile
-// starts, so a row shard's outputs equal the whole frame's rows bit for
-// bit. Energy partials reduce per block in a fixed order and then across
+// before the horizontal one, channels in order), and no value depends on
+// where a tile or strip starts, so a row shard's outputs equal the whole
+// frame's rows bit for bit. Energy partials reduce per block in a fixed order and then across
 // blocks in a fixed order by sweep_reduce_kernel: no float atomics, so
 // reruns are bitwise identical.
 //
@@ -99,32 +124,32 @@
 //
 // Window radius. The window has 2R + 1 taps (ssim_window = 2R + 1, any
 // odd size, as the reference takes it); the taps sit in a small device
-// buffer that VmSweepScalars points at. dispatch() chooses by R:
-//   - R = 1 .. TILED_MAX_RADIUS: the two tiled kernels above, instantiated
-//     per R. Kernel 1 keeps its 16 x 32 tile at every R (its shared memory
-//     grows from 76 KB at R = 1 to 187 KB at R = 6, one block an SM from R
-//     = 3); kernel 2's lanes hold the owned columns and a halo of
-//     max(3, R) columns each side (energy_tile_cols(R): 26 owned columns
-//     up to R = 3, 20 at R = 6), so R <= 3 keep their tile, lanes and
-//     order of every sum.
-//   - any other R (R = 0, and R > TILED_MAX_RADIUS, where kernel 1's tile
-//     and halos no longer fit the 227 KB a block may use: 231 KB at R = 7):
-//     the wide path, a chain of per-pixel kernels that read the radius at
-//     run time and keep their intermediates (a0 and a1, the vertical window
-//     sums, the SSIM coefficient maps, the curvature, the per-pixel SSIM
-//     energy and gradient) in a scratch buffer in device memory that the
-//     wrapper allocates (vm_sweep_scratch_floats). Per channel: the
-//     linearized warps on the rows within 2R of the owned ones, the
-//     vertical window sums of the five statistics within R, the horizontal
-//     sums with the SSIM map and its coefficient maps, the transposed sums
-//     and the chain through dw; then one kernel per tile of WIDE_TILE_ROWS x
+// buffer that VmSweepScalars points at. dispatch() chooses by R
+// (tiled()):
+//   - kernel 1: the tile for R = 1, 2, the strip for R = STRIP_MIN_RADIUS
+//     .. STRIP_MAX_RADIUS; kernel 2 for R = 1 .. TILED_MAX_RADIUS, its
+//     lanes holding the owned columns and a halo of max(3, R) columns each
+//     side (energy_tile_cols(R): 26 owned columns up to R = 3, 20 at R =
+//     6), so R <= 3 keep their tile, lanes and order of every sum; each
+//     instantiated per R.
+//   - any other R (R = 0, and past those; at R = 8 the strip's rings
+//     would need 122 KB, one block an SM): the wide
+//     path, a chain of per-pixel kernels that read the radius at run time
+//     and keep their intermediates (a0 and a1, the vertical window sums,
+//     the SSIM coefficient maps, the curvature, the per-pixel SSIM energy
+//     and gradient) in a scratch buffer in device memory that the wrapper
+//     allocates (vm_sweep_scratch_floats). Per channel: the linearized
+//     warps on the rows within 2R of the owned ones, the vertical window
+//     sums of the five statistics within R, the horizontal sums with the
+//     SSIM map and its coefficient maps, the transposed sums and the chain
+//     through dw; then one kernel per tile of WIDE_TILE_ROWS x
 //     WIDE_TILE_COLS owned pixels for the TPS, UI and TC terms, the
 //     preconditioner and the tile's energy partials. Every sum keeps the
-//     tiled kernels' order per pixel (taps t = 0..K-1, vertical before
-//     horizontal), and no value depends on where a block starts, so its row
-//     shards equal the whole frame's rows bit for bit too. Each tap of each
-//     window sum is a load through the caches rather than from shared
-//     memory: a simple path for rare windows, timed in PERF.md.
+//     order of the instantiated kernels per pixel (taps t = 0..K-1,
+//     vertical before horizontal), and no value depends on where a block
+//     starts, so its row shards equal the whole frame's rows bit for bit
+//     too. Each tap of each window sum is a load through the caches rather
+//     than from shared memory: a simple path for rare windows.
 
 #include <cuda_runtime.h>
 
@@ -171,6 +196,15 @@ constexpr int EDEPTH = 4;  // rows of the planes in flight per warp, the current
 constexpr int TILED_MAX_RADIUS = 6;
 constexpr int WIDE_TILE_ROWS = 8;
 constexpr int WIDE_TILE_COLS = 32;
+// The gradient kernel from STRIP_MIN_RADIUS to STRIP_MAX_RADIUS
+// (sweep_grad_strip_kernel): a block owns STRIP_ROWS x STRIP_COLS pixels
+// and walks down them STEP_ROWS rows at a time; R = 1, 2 keep the tile of
+// TILE_ROWS x TILE_COLS (sweep_grad_kernel).
+constexpr int STRIP_ROWS = 72;
+constexpr int STRIP_COLS = 64;
+constexpr int STEP_ROWS = 8;
+constexpr int STRIP_MIN_RADIUS = 3;
+constexpr int STRIP_MAX_RADIUS = 7;
 
 constexpr int TY = TILE_ROWS, TX = TILE_COLS;
 constexpr int NT = 256;              // threads per block
@@ -254,6 +288,50 @@ struct Geo {
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
 };
 
+// Geometry and shared-memory layout (in floats) of one instantiation of
+// the strip kernel. Columns: the linearized warps' rows start at x0 - 2R
+// (AWP columns), the statistics' and coefficient maps' at x0 - R (SWP
+// columns), both strides multiples of 4 for the float4 / float2 windows.
+// Rows: the walk's row u is the block's arrays' row y0 - 2R + u; a step
+// stages the six planes and v, v_lin of STEP_ROWS rows, whose a0, a1 go
+// into a ring of DR rows, and the coefficient maps of the rows R above
+// them into a second ring of DR rows.
+template <int R>
+struct SGeo {
+  static constexpr int K = 2 * R + 1;
+  static constexpr int RB = STEP_ROWS;
+  static constexpr int SW = STRIP_COLS + 2 * R, SWP = round4(SW);  // statistics columns
+  static constexpr int AWP = round4(SWP + 2 * R);                   // warp columns
+  static constexpr int DR = RB + 2 * R;                             // ring rows
+  // the staged columns start at x0 - AO, a multiple of 4, so that a chunk
+  // of 4 columns is one 16-byte copy where the width allows; the ring's
+  // column j is staged column j + AO - 2R
+  static constexpr int AO = round4(2 * R);
+  static constexpr int SAW = round4(AWP + AO - 2 * R);  // staged columns
+  static constexpr int NST = RB * SAW;                  // staged pixels of a step
+  static constexpr int NCH = NST / 4;                   // chunks of a step, one per thread
+  static_assert(NCH <= NT, "a thread stages at most one chunk of a step");
+  static constexpr int NQ = 6;  // coefficient maps: q0, q1, qv, qc and the curvature's cy, cx
+  static constexpr int SEG_A = seg_rows(RB, AWP, R);  // rows per item, statistics' vertical pass
+  static constexpr int SEG_Q = seg_rows(RB, SWP, R);  // rows per item, transposed vertical pass
+  static constexpr int NF = (4 + 2 * R + 3) / 4;      // float4s of a 4-output horizontal window
+  static constexpr int VY = RB + 4, VX = STRIP_COLS + 4, NV = VY * VX;  // v for the TPS maps
+  static constexpr int MY = RB + 2, MX = STRIP_COLS + 2, NM = MY * MX;  // TPS maps
+  static constexpr int STAGE_SIZE = 10 * NST;  // w0, w1, dw0 y, x, dw1 y, x; v and v_lin, (y, x) pairs
+  static constexpr int A_SIZE = 2 * DR * AWP;       // a0, a1 ring
+  static constexpr int Q_SIZE = NQ * DR * SWP;      // coefficient ring
+  // per step: the statistics' vertical sums (5 planes), then the transposed
+  // vertical sums (NQ planes), then (last channel) the v tile and TPS maps;
+  // at the end the block reduction
+  static constexpr int X_SIZE = round4(cmax(cmax(5 * RB * AWP, NQ * RB * SWP), cmax(2 * NV + 6 * NM, 4 * NT)));
+  static constexpr int NY_SIZE = round4(STRIP_ROWS + 2 * R);  // row tap sums of the statistics rows
+  static constexpr int FLOATS = STAGE_SIZE + A_SIZE + Q_SIZE + X_SIZE + NY_SIZE + SWP;
+  static constexpr size_t BYTES = sizeof(float) * FLOATS;
+  static_assert((STRIP_COLS / 2) * RB == NT, "each thread owns two neighbouring pixels of a step");
+  // two blocks an SM: 228 KB less 1 KB reserved per block
+  static_assert(2 * (BYTES + 1024) <= 228 * 1024, "two strip blocks share an SM");
+};
+
 __device__ __forceinline__ float tap_sum_range(const float* taps, int radius, int center, int n) {
   // sum of the window taps that land inside [0, n) around `center`
   float acc = 0.0f;
@@ -275,6 +353,14 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in)
   unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// 16-byte asynchronous copy global -> shared (both 16-byte aligned); zero-fills when !in
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0)
                : "memory");
 }
 
@@ -351,6 +437,35 @@ __device__ __forceinline__ SsimPixel ssim_pixel(const float st[5], float inv_n,
   o.denom = o.b1 * o.b2;
   o.ssim = (o.a1 * o.a2) / o.denom;
   return o;
+}
+
+// The SSIM gradient's coefficient maps of one pixel and channel, the
+// inputs of the transposed window sums (d mean(1 - s) / d statistic times
+// 1/n), and 1 / b2 for the curvature; the reciprocals by __fdividef.
+struct SsimCoeffs {
+  float q0, q1, qv, qc, ib2;
+};
+__device__ __forceinline__ SsimCoeffs ssim_coeffs(const SsimPixel& sp, float inv_n,
+                                                  const VmSweepScalars& s) {
+  const float mu0 = sp.mu0, mu1 = sp.mu1, ssim = sp.ssim;
+  float rden = __fdividef(1.0f, sp.denom), ib2 = __fdividef(1.0f, sp.b2);
+  float ds_da2 = sp.a1 * rden;
+  float ds_db2 = -ssim * ib2;
+  float c_mu0 = 0.f, c_mu1 = 0.f;
+  if (s.use_luminance) {
+    float ds_da1 = sp.a2 * rden;
+    float ds_db1 = -ssim * __fdividef(1.0f, sp.b1);
+    c_mu0 = ds_da1 * 2.0f * mu1 + ds_db1 * 2.0f * mu0;
+    c_mu1 = ds_da1 * 2.0f * mu0 + ds_db1 * 2.0f * mu1;
+  }
+  float c_var = ds_db2, c_cov = ds_da2 * 2.0f;
+  SsimCoeffs k;
+  k.qv = s.scale * c_var * inv_n;
+  k.qc = s.scale * c_cov * inv_n;
+  k.q0 = s.scale * (c_mu0 - 2.0f * mu0 * c_var - mu1 * c_cov) * inv_n;
+  k.q1 = s.scale * (c_mu1 - 2.0f * mu1 * c_var - mu0 * c_cov) * inv_n;
+  k.ib2 = ib2;
+  return k;
 }
 
 // Vertical K-tap window sums of NQ planes (row stride `cols`, `in_rows`
@@ -658,23 +773,13 @@ sweep_grad_kernel(const float* __restrict__ planes, const float* __restrict__ v_
         if (in) {
           const float inv_n = invn[j];
           const SsimPixel sp = ssim_pixel(st[j], inv_n, s);
-          const float mu0 = sp.mu0, mu1 = sp.mu1, ssim = sp.ssim;
-          if (r >= HS && r < HS + TY && cx >= HS && cx < HS + TX && gy < own_end) e_sim += 1.0f - ssim;
-          float rden = __fdividef(1.0f, sp.denom), ib2 = __fdividef(1.0f, sp.b2);
-          float ds_da2 = sp.a1 * rden;
-          float ds_db2 = -ssim * ib2;
-          float c_mu0 = 0.f, c_mu1 = 0.f;
-          if (s.use_luminance) {
-            float ds_da1 = sp.a2 * rden;
-            float ds_db1 = -ssim * __fdividef(1.0f, sp.b1);
-            c_mu0 = ds_da1 * 2.0f * mu1 + ds_db1 * 2.0f * mu0;
-            c_mu1 = ds_da1 * 2.0f * mu0 + ds_db1 * 2.0f * mu1;
-          }
-          float c_var = ds_db2, c_cov = ds_da2 * 2.0f;
-          qv[j] = s.scale * c_var * inv_n;
-          qc[j] = s.scale * c_cov * inv_n;
-          q0[j] = s.scale * (c_mu0 - 2.0f * mu0 * c_var - mu1 * c_cov) * inv_n;
-          q1[j] = s.scale * (c_mu1 - 2.0f * mu1 * c_var - mu0 * c_cov) * inv_n;
+          if (r >= HS && r < HS + TY && cx >= HS && cx < HS + TX && gy < own_end) e_sim += 1.0f - sp.ssim;
+          const SsimCoeffs k = ssim_coeffs(sp, inv_n, s);
+          q0[j] = k.q0;
+          q1[j] = k.q1;
+          qv[j] = k.qv;
+          qc[j] = k.qc;
+          const float ib2 = k.ib2;
           int a = (r + R) * AW + cx + R;  // the same pixel in the staged planes
           float d0y = sDc[a], d0x = sDc[NA + a], d1y = sDc[2 * NA + a], d1x = sDc[3 * NA + a];
           cy_[j] = (d0y * d0y + d1y * d1y) * ib2;
@@ -806,6 +911,444 @@ sweep_grad_kernel(const float* __restrict__ planes, const float* __restrict__ v_
     int b = blockIdx.y * gridDim.x + blockIdx.x;
     partials[4 * b + tid] = sred[tid * NT];
   }
+}
+
+// Kernel 1 from R = STRIP_MIN_RADIUS: energy partials, gradient and
+// preconditioner of one strip of STRIP_ROWS x STRIP_COLS owned pixels. Per
+// channel the block walks down the strip STEP_ROWS rows a step: it forms
+// a0, a1 of the step's rows, the statistics and coefficient maps R rows
+// above them and the transposed sums and gradient 2R rows above them, each
+// from a ring of rows; the SSIM gradient and the curvature's window sums
+// of the earlier channels wait in grad / precond (each pixel's own thread
+// reads back what it wrote), and the last channel adds the TPS, UI and TC
+// terms.
+template <int R>
+__global__ void __launch_bounds__(NT, 2)
+sweep_grad_strip_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
+                        const float* __restrict__ v, const float* __restrict__ ui_w,
+                        const float* __restrict__ ui_v, const float* __restrict__ tc_w,
+                        const float* __restrict__ tc_v, float* __restrict__ grad,
+                        float* __restrict__ precond, float* __restrict__ partials, VmSweepScalars s) {
+  using G = SGeo<R>;
+  constexpr int K = G::K, RB = G::RB, SC = STRIP_COLS, SW = G::SW, SWP = G::SWP, AWP = G::AWP,
+                DR = G::DR, NST = G::NST, NQ = G::NQ, NF = G::NF;
+  constexpr int VX = G::VX, NV = G::NV, MX = G::MX, NM = G::NM;
+
+  extern __shared__ float4 smem4[];
+  float* const sStage = reinterpret_cast<float*>(smem4);  // 10 planes of NST: the step's inputs
+  float* const sA = sStage + G::STAGE_SIZE;              // a0, a1 ring (DR rows of AWP each)
+  float* const sQ = sA + G::A_SIZE;                      // coefficient ring (NQ x DR rows of SWP)
+  float* const sX = sQ + G::Q_SIZE;                      // a step's vertical sums; v tile and maps
+  float* const sNy = sX + G::X_SIZE;                     // row tap sums from row y0 - R
+  float* const sNx = sNy + G::NY_SIZE;                   // column tap sums from column x0 - R
+
+  const int h = s.h, w = s.w, C = s.C;
+  const size_t hw = (size_t)h * w;
+  const int tid = threadIdx.x;
+  const int y0 = s.own0 + blockIdx.y * STRIP_ROWS, x0 = blockIdx.x * SC;
+  const int nrow = min(STRIP_ROWS, s.own0 + s.nown - y0);  // owned rows of this strip
+  const int ya = y0 - 2 * R;                               // the arrays' row of walk row 0
+  const int nstep = cdiv(nrow + 4 * R, RB);
+  // this thread's owned pair in each step: row ro of the step's output
+  // rows, columns jo and jo + 1 of the strip
+  const int ro = tid / (SC / 2), jo = 2 * (tid % (SC / 2));
+
+  float taps[K];
+#pragma unroll
+  for (int t = 0; t < K; ++t) taps[t] = s.taps[t];
+
+  // this thread's chunk of each step: 4 neighbouring staged columns of one
+  // row (tid < NCH), the first at column x0 - AO + ch_col; 16-byte copies
+  // where the width and the pointers allow it (every chunk then lies
+  // wholly inside or outside the image), else 4-byte copies
+  const int ch_row = tid / (G::SAW / 4), ch_col = 4 * (tid % (G::SAW / 4));
+  const bool vec = (w & 3) == 0 && (((size_t)planes | (size_t)v | (size_t)v_lin) & 15) == 0;
+  // cp.async of step i's rows of channel c (zero outside the image): the
+  // six planes, then v and v_lin as (y, x) pairs
+  auto issue = [&](int c, int i) {
+    if (tid < G::NCH) {
+      const float* const src[6] = {planes + (size_t)c * hw, planes + (size_t)(C + c) * hw,
+                                   planes + (size_t)(2 * C + 2 * c) * hw, planes + (size_t)(2 * C + 2 * c + 1) * hw,
+                                   planes + (size_t)(4 * C + 2 * c) * hw, planes + (size_t)(4 * C + 2 * c + 1) * hw};
+      const int y = ya + i * RB + ch_row, x = x0 - G::AO + ch_col;
+      const bool row_ok = row_in(s, y);
+      const int e = ch_row * G::SAW + ch_col;  // the chunk's first staged pixel
+      float* const pv = sStage + 6 * NST + 2 * e;
+      float* const pl = sStage + 8 * NST + 2 * e;
+      if (vec) {
+        const bool in = row_ok && x >= 0 && x < w;
+        const size_t p = in ? (size_t)y * w + x : 0;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) cp_async16(sStage + k * NST + e, src[k] + p, in);
+        cp_async16(pv, v + 2 * p, in);
+        cp_async16(pv + 4, v + 2 * p + 4, in);
+        cp_async16(pl, v_lin + 2 * p, in);
+        cp_async16(pl + 4, v_lin + 2 * p + 4, in);
+      } else {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const bool in = row_ok && x + m >= 0 && x + m < w;
+          const size_t p = in ? (size_t)y * w + x + m : 0;
+#pragma unroll
+          for (int k = 0; k < 6; ++k) cp_async4(sStage + k * NST + e + m, src[k] + p, in);
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            cp_async4(pv + 2 * m + k, v + 2 * p + k, in);
+            cp_async4(pl + 2 * m + k, v_lin + 2 * p + k, in);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0, 0);
+  // dw0 y, dw0 x, dw1 y, dw1 x (k = 0..3) of channel c at pixel p
+  auto dw_at = [&](int c, int k, size_t p) {
+    return __ldg(planes + (size_t)((k < 2 ? 2 : 4) * C + 2 * c + (k & 1)) * hw + p);
+  };
+
+  // the tap-sum tables of the in-image window: 1/n of a statistics pixel
+  // is 1 / (sNy[row] sNx[column])
+  for (int i = tid; i < G::NY_SIZE + SWP; i += NT) {
+    if (i < G::NY_SIZE) {
+      const int y = y0 - R + i;
+      sNy[i] = i < nrow + 2 * R && row_in(s, y) ? tap_sum_range(taps, R, y + s.row0, s.gh) : 0.0f;
+    } else {
+      const int j = i - G::NY_SIZE, x = x0 - R + j;
+      sNx[j] = j < SW && x >= 0 && x < w ? tap_sum_range(taps, R, x, w) : 0.0f;
+    }
+  }
+
+  float e_sim = 0.0f, e_tps = 0.0f, e_ui = 0.0f, e_tc = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    for (int i = 0; i < nstep; ++i) {
+      const int u0 = i * RB;  // walk row of the step's first staged row
+      // the step's statistics rows are walk rows u0 - R + r and its output
+      // rows u0 - 2R + r, r in [0, RB); the strip needs statistics rows
+      // [R, nrow + 3R) and output rows [2R, 2R + nrow)
+      const int s_lo = max(0, 2 * R - u0), o_lo = max(0, 4 * R - u0), r_hi = min(RB, nrow + 4 * R - u0);
+      // 1. a0 = w0 - dw0.dv, a1 = w1 + dw1.dv into the ring (zero outside the
+      // image). A thread stages and reads back its own elements, so it waits
+      // for its own copies only; the ring rows it writes were last read by
+      // the previous step's stages 2a and 3a, behind barriers
+      cp_async_wait_all();
+      if (tid < G::NCH) {
+        const int e = ch_row * G::SAW + ch_col, slot = ((u0 + ch_row) % DR) * AWP;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int j = ch_col + m - (G::AO - 2 * R);  // the ring's column
+          if (j < 0 || j >= AWP) continue;
+          const float* const st = sStage + e + m;
+          const float* const sv = sStage + 6 * NST + 2 * (e + m);
+          const float dvy = sv[0] - sv[2 * NST], dvx = sv[1] - sv[2 * NST + 1];
+          sA[slot + j] = st[0] - (st[2 * NST] * dvy + st[3 * NST] * dvx);
+          sA[DR * AWP + slot + j] = st[NST] + (st[4 * NST] * dvy + st[5 * NST] * dvx);
+        }
+      }
+      {
+        const bool next_c = i + 1 == nstep;  // the next step is the next channel's first
+        if (!next_c || c + 1 < C) issue(next_c ? c + 1 : c, next_c ? 0 : i + 1);
+      }
+      __syncthreads();
+
+      // 2a. vertical window sums of a0, a1, a0^2, a1^2, a0 a1 at the step's
+      // statistics rows (walk rows u0 - R + r read ring rows u0 - 2R + r + t)
+      if (s_lo < r_hi) {
+        constexpr int SEG = G::SEG_A, NSEG = cdiv(RB, SEG);
+        for (int it = tid; it < NSEG * AWP; it += NT) {
+          const int r0 = (it / AWP) * SEG, j = it % AWP;
+          if (r0 + SEG <= s_lo || r0 >= r_hi) continue;
+          float acc[SEG][5];
+#pragma unroll
+          for (int jj = 0; jj < SEG; ++jj)
+#pragma unroll
+            for (int q = 0; q < 5; ++q) acc[jj][q] = 0.0f;
+          int slot = (u0 - 2 * R + r0 + 2 * DR) % DR;  // ring row of walk row u0 - 2R + r0
+#pragma unroll
+          for (int uu = 0; uu < SEG + 2 * R; ++uu, slot = slot + 1 == DR ? 0 : slot + 1) {
+            // rows outside the needed ones feed no stored output
+            const float a = sA[slot * AWP + j], b = sA[(DR + slot) * AWP + j];
+            const float aa = a * a, bb = b * b, ab = a * b;
+#pragma unroll
+            for (int jj = 0; jj < SEG; ++jj) {
+              const int t = uu - jj;
+              if (t >= 0 && t < K) {
+                acc[jj][0] += taps[t] * a;
+                acc[jj][1] += taps[t] * b;
+                acc[jj][2] += taps[t] * aa;
+                acc[jj][3] += taps[t] * bb;
+                acc[jj][4] += taps[t] * ab;
+              }
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < SEG; ++jj) {
+            if (r0 + jj < RB) {
+#pragma unroll
+              for (int q = 0; q < 5; ++q) sX[(q * RB + r0 + jj) * AWP + j] = acc[jj][q];
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      // 2b. horizontal sums -> statistics, SSIM and coefficient maps of the
+      // statistics rows into their ring, four neighbouring pixels per item
+      if (s_lo < r_hi) {
+        for (int it = tid; it < (r_hi - s_lo) * (SWP / 4); it += NT) {
+          const int r = s_lo + it / (SWP / 4), c0 = 4 * (it % (SWP / 4));
+          const int q = u0 - R + r, y = ya + q;  // walk row and array row
+          const bool row_ok = row_in(s, y);
+          // dw of the four pixels, in flight during the window sums
+          float dw[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int x = x0 - R + c0 + j;
+            const size_t p = row_ok && x >= 0 && x < w ? (size_t)y * w + x : 0;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) dw[j][k] = dw_at(c, k, p);
+          }
+          float st[4][5];
+#pragma unroll
+          for (int qq = 0; qq < 5; ++qq) {
+            float x[4 * NF];
+            const float4* src = reinterpret_cast<const float4*>(sX + (qq * RB + r) * AWP + c0);
+#pragma unroll
+            for (int f = 0; f < NF; ++f) {
+              const float4 v4 = src[f];
+              x[4 * f] = v4.x;
+              x[4 * f + 1] = v4.y;
+              x[4 * f + 2] = v4.z;
+              x[4 * f + 3] = v4.w;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float acc = 0.f;
+#pragma unroll
+              for (int t = 0; t < K; ++t) acc += taps[t] * x[j + t];
+              st[j][qq] = acc;
+            }
+          }
+          float out[NQ][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int js = c0 + j, x = x0 - R + js;
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq) out[qq][j] = 0.0f;
+            if (row_ok && js < SW && x >= 0 && x < w) {
+              const float inv_n = 1.0f / (sNy[q - R] * sNx[js]);
+              const SsimPixel sp = ssim_pixel(st[j], inv_n, s);
+              if (q >= 2 * R && q < 2 * R + nrow && js >= R && js < R + SC) e_sim += 1.0f - sp.ssim;
+              const SsimCoeffs k = ssim_coeffs(sp, inv_n, s);
+              const float d0y = dw[j][0], d0x = dw[j][1], d1y = dw[j][2], d1x = dw[j][3];
+              out[0][j] = k.q0;
+              out[1][j] = k.q1;
+              out[2][j] = k.qv;
+              out[3][j] = k.qc;
+              out[4][j] = (d0y * d0y + d1y * d1y) * k.ib2;
+              out[5][j] = (d0x * d0x + d1x * d1x) * k.ib2;
+            }
+          }
+#pragma unroll
+          for (int qq = 0; qq < NQ; ++qq)
+            *reinterpret_cast<float4*>(sQ + (qq * DR + q % DR) * SWP + c0) =
+                make_float4(out[qq][0], out[qq][1], out[qq][2], out[qq][3]);
+        }
+      }
+      __syncthreads();
+
+      // 3a. vertical transposed window sums at the step's output rows (walk
+      // rows u0 - 2R + r read coefficient rows u0 - 3R + r + t; into sX: the
+      // statistics' sums are consumed)
+      if (o_lo < r_hi) {
+        constexpr int SEG = G::SEG_Q, NSEG = cdiv(RB, SEG);
+        for (int it = tid; it < NSEG * SWP; it += NT) {
+          const int r0 = (it / SWP) * SEG, j = it % SWP;
+          if (r0 + SEG <= o_lo || r0 >= r_hi) continue;
+          float acc[SEG][NQ];
+#pragma unroll
+          for (int jj = 0; jj < SEG; ++jj)
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq) acc[jj][qq] = 0.0f;
+          int slot = (u0 - 3 * R + r0 + 2 * DR) % DR;  // ring row of walk row u0 - 3R + r0
+#pragma unroll
+          for (int uu = 0; uu < SEG + 2 * R; ++uu, slot = slot + 1 == DR ? 0 : slot + 1) {
+            float x[NQ];
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq) x[qq] = sQ[(qq * DR + slot) * SWP + j];
+#pragma unroll
+            for (int jj = 0; jj < SEG; ++jj) {
+              const int t = uu - jj;
+              if (t >= 0 && t < K) {
+#pragma unroll
+                for (int qq = 0; qq < NQ; ++qq) acc[jj][qq] += taps[t] * x[qq];
+              }
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < SEG; ++jj) {
+            if (r0 + jj < RB) {
+#pragma unroll
+              for (int qq = 0; qq < NQ; ++qq) sX[(qq * RB + r0 + jj) * SWP + j] = acc[jj][qq];
+            }
+          }
+        }
+      }
+
+      // this thread's pair of 3b: its a0, a1, read before the barrier (the
+      // next step's stage 1 stages over their ring rows with no barrier
+      // between), and loads in flight across it: the pair's dw; in the last
+      // channel this thread's share of the v tile of step 4 and the pair's
+      // constraint maps
+      const int o = u0 - 2 * R + ro, y = ya + o;  // walk row and array row of the pair
+      const bool mine = o_lo <= ro && ro < r_hi;
+      const bool last = c + 1 == C && o_lo < r_hi;
+      float2 w0c = make_float2(0.0f, 0.0f), w1c = w0c;
+      if (mine) {
+        const int a = (o % DR) * AWP + jo + 2 * R;
+        w0c = *reinterpret_cast<const float2*>(sA + a);
+        w1c = *reinterpret_cast<const float2*>(sA + DR * AWP + a);
+      }
+      float dw[2][4], vt_r[cdiv(NV, NT)][2], uw[2], tw[2], uiv[2][2], tcv[2][2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int x = x0 + jo + k;
+        const bool own = mine && x < w;
+        const size_t p = own ? (size_t)y * w + x : 0, qpix = own ? (size_t)(y - s.own0) * w + x : 0;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) dw[k][kk] = dw_at(c, kk, p);
+        if (last) {
+          uw[k] = ui_w[qpix];
+          tw[k] = tc_w[qpix];
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            uiv[k][kk] = ui_v[2 * qpix + kk];
+            tcv[k][kk] = tc_v[2 * qpix + kk];
+          }
+        }
+      }
+      if (last) {
+#pragma unroll
+        for (int u = 0; u < cdiv(NV, NT); ++u) {
+          const int e = tid + u * NT;
+          const int yy = ya + u0 - 2 * R - 2 + e / VX, xx = x0 - 2 + e % VX;
+          const bool in = e < NV && yy >= 0 && yy < h && xx >= 0 && xx < w;
+          const size_t p = in ? (size_t)yy * w + xx : 0;
+          vt_r[u][0] = in ? v[2 * p] : 0.0f;
+          vt_r[u][1] = in ? v[2 * p + 1] : 0.0f;
+        }
+      }
+      __syncthreads();
+
+      // 3b. horizontal sums at the owned pair; chain through dw0 / dw1; the
+      // SSIM gradient and the curvature's sums with the earlier channels'
+      float gs[2][2], pc[2][2];  // [pixel][y, x]
+      if (mine) {
+        float tq[2][NQ];
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq) pair_sums<R>(sX + (qq * RB + ro) * SWP, jo, taps, tq[0][qq], tq[1][qq]);
+        const float w0p[2] = {w0c.x, w0c.y}, w1p[2] = {w1c.x, w1c.y};
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int x = x0 + jo + k;
+          if (x >= w) continue;
+          const size_t qpix = (size_t)(y - s.own0) * w + x;
+          const float d0y = dw[k][0], d0x = dw[k][1], d1y = dw[k][2], d1x = dw[k][3];
+          const float g0 = tq[k][0] + 2.0f * w0p[k] * tq[k][2] + w1p[k] * tq[k][3];
+          const float g1 = tq[k][1] + 2.0f * w1p[k] * tq[k][2] + w0p[k] * tq[k][3];
+          gs[k][0] = -g0 * d0y + g1 * d1y;
+          gs[k][1] = -g0 * d0x + g1 * d1x;
+          pc[k][0] = tq[k][4];
+          pc[k][1] = tq[k][5];
+          if (c > 0) {
+            const float2 g = reinterpret_cast<const float2*>(grad)[qpix];
+            const float2 pp = reinterpret_cast<const float2*>(precond)[qpix];
+            gs[k][0] = g.x + gs[k][0];
+            gs[k][1] = g.y + gs[k][1];
+            pc[k][0] = pp.x + pc[k][0];
+            pc[k][1] = pp.y + pc[k][1];
+          }
+          if (c + 1 < C) {
+            reinterpret_cast<float2*>(grad)[qpix] = make_float2(gs[k][0], gs[k][1]);
+            reinterpret_cast<float2*>(precond)[qpix] = make_float2(pc[k][0], pc[k][1]);
+          }
+        }
+      }
+      if (!last) continue;
+
+      // 4. last channel: the TPS maps of the output rows and a ring of 1
+      // from a tile of v (zero outside the arrays) in sX, then the outputs
+      __syncthreads();  // the transposed sums are consumed
+      float* const sVt = sX;           // v tile: rows y - 2 .., columns x0 - 2 ..
+      float* const sM = sX + 2 * NV;   // maps: rows y - 1 .., columns x0 - 1 ..
+#pragma unroll
+      for (int u = 0; u < cdiv(NV, NT); ++u) {
+        const int e = tid + u * NT;
+        if (e < NV) {
+          sVt[e] = vt_r[u][0];
+          sVt[NV + e] = vt_r[u][1];
+        }
+      }
+      __syncthreads();
+      for (int e = tid; e < NM; e += NT) {
+        const int r = e / MX, cx = e % MX;
+        const int vi = (r + 1) * VX + cx + 1;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float* vt = sVt + k * NV + vi;
+          tps_maps_at([vt](int dy, int dx) { return vt[dy * VX + dx]; }, ya + u0 - 2 * R - 1 + r, x0 - 1 + cx, s,
+                      sM[(3 * k) * NM + e], sM[(3 * k + 1) * NM + e], sM[(3 * k + 2) * NM + e]);
+        }
+      }
+      __syncthreads();
+      if (!mine) continue;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int lx = jo + k, x = x0 + lx;
+        if (x >= w) continue;
+        const size_t qpix = (size_t)(y - s.own0) * w + x;  // in the owned-row maps and outputs
+        const int m = (ro + 1) * MX + lx + 1;
+        float gk[2];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const float* Mxx = sM + (3 * kk) * NM;
+          const float* Mxy = Mxx + NM;
+          const float* Myy = Mxy + NM;
+          const float vxx = Mxx[m], vxy = Mxy[m], vyy = Myy[m];
+          e_tps += tps_energy(vxx, vxy, vyy);
+          const float vk = sVt[kk * NV + (ro + 2) * VX + lx + 2];
+          const QuadDiff d = quad_terms(vk, uiv[k][kk], tcv[k][kk], uw[k], tw[k], e_ui, e_tc);
+          // self-adjoint stencils of the three maps (descent.py tps_adj_*)
+          const float adj_xx = Mxx[m - 1] - 2.0f * vxx + Mxx[m + 1];
+          const float adj_yy = Myy[m - MX] - 2.0f * vyy + Myy[m + MX];
+          const float adj_xy = 0.25f * (Mxy[m - MX - 1] - Mxy[m - MX + 1] - Mxy[m + MX - 1] + Mxy[m + MX + 1]);
+          const float g_tps = 2.0f * adj_xx + 4.0f * adj_xy + 2.0f * adj_yy;
+          gk[kk] = gs[k][kk] + s.lam_n * g_tps + s.gui_n * uw[k] * d.ui + s.gtc_n * tw[k] * d.tc;
+        }
+        const float p_rest = s.ptps + s.pquad_n * (s.gamma_ui * uw[k] + s.beta_tc * tw[k]);
+        reinterpret_cast<float2*>(grad)[qpix] = make_float2(gk[0], gk[1]);
+        reinterpret_cast<float2*>(precond)[qpix] =
+            make_float2(s.psim_n * pc[k][0] + p_rest + s.eps_n, s.psim_n * pc[k][1] + p_rest + s.eps_n);
+      }
+    }
+  }
+
+  // fixed-order tree over the block (in sX: its last readers are done)
+  __syncthreads();
+  float* const sred = sX;
+  sred[tid] = e_sim;
+  sred[NT + tid] = e_tps;
+  sred[2 * NT + tid] = e_ui;
+  sred[3 * NT + tid] = e_tc;
+  __syncthreads();
+  for (int stride = NT / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sred[q * NT + tid] += sred[q * NT + tid + stride];
+    }
+    __syncthreads();
+  }
+  if (tid < 4) partials[4 * (blockIdx.y * gridDim.x + blockIdx.x) + tid] = sred[tid * NT];
 }
 
 // Kernel 2: the energy partials of one tile of ENERGY_TILE_ROWS x
@@ -1150,22 +1693,12 @@ wide_ssim_kernel(const float* __restrict__ planes, const float* __restrict__ V, 
       *e = (c == 0 ? 0.0f : *e) + (1.0f - sp.ssim);
     }
     if constexpr (WITH_GRAD) {
-      const float mu0 = sp.mu0, mu1 = sp.mu1, ssim = sp.ssim;
-      float rden = __fdividef(1.0f, sp.denom), ib2 = __fdividef(1.0f, sp.b2);
-      float ds_da2 = sp.a1 * rden;
-      float ds_db2 = -ssim * ib2;
-      float c_mu0 = 0.f, c_mu1 = 0.f;
-      if (s.use_luminance) {
-        float ds_da1 = sp.a2 * rden;
-        float ds_db1 = -ssim * __fdividef(1.0f, sp.b1);
-        c_mu0 = ds_da1 * 2.0f * mu1 + ds_db1 * 2.0f * mu0;
-        c_mu1 = ds_da1 * 2.0f * mu0 + ds_db1 * 2.0f * mu1;
-      }
-      float c_var = ds_db2, c_cov = ds_da2 * 2.0f;
-      qv = s.scale * c_var * inv_n;
-      qc = s.scale * c_cov * inv_n;
-      q0 = s.scale * (c_mu0 - 2.0f * mu0 * c_var - mu1 * c_cov) * inv_n;
-      q1 = s.scale * (c_mu1 - 2.0f * mu1 * c_var - mu0 * c_cov) * inv_n;
+      const SsimCoeffs k = ssim_coeffs(sp, inv_n, s);
+      q0 = k.q0;
+      q1 = k.q1;
+      qv = k.qv;
+      qc = k.qc;
+      const float ib2 = k.ib2;
       const size_t hw = (size_t)s.h * w, p = (size_t)y * w + x;
       const float d0y = planes[(2 * C + 2 * c) * hw + p], d0x = planes[(2 * C + 2 * c + 1) * hw + p];
       const float d1y = planes[(4 * C + 2 * c) * hw + p], d1x = planes[(4 * C + 2 * c + 1) * hw + p];
@@ -1304,13 +1837,30 @@ wide_final_kernel(const float* __restrict__ v, const float* __restrict__ ui_w,
   if (tid < 4) partials[4 * (blockIdx.y * gridDim.x + blockIdx.x) + tid] = sred[tid][0];
 }
 
-bool tiled(int R) { return R >= 1 && R <= TILED_MAX_RADIUS; }
+// Whether radius R has an instantiated kernel (the gradient's tile or
+// strip, the energy kernel) rather than the wide path.
+bool tiled(bool with_grad, int R) { return R >= 1 && R <= (with_grad ? STRIP_MAX_RADIUS : TILED_MAX_RADIUS); }
 
 dim3 tile_grid(bool with_grad, int w, int nown, int R) {
-  if (!tiled(R)) return dim3(cdiv(w, WIDE_TILE_COLS), cdiv(nown, WIDE_TILE_ROWS));
+  if (!tiled(with_grad, R)) return dim3(cdiv(w, WIDE_TILE_COLS), cdiv(nown, WIDE_TILE_ROWS));
+  if (with_grad && R >= STRIP_MIN_RADIUS) return dim3(cdiv(w, STRIP_COLS), cdiv(nown, STRIP_ROWS));
   if (with_grad) return dim3(cdiv(w, TX), cdiv(nown, TY));
   return dim3(cdiv(w, energy_tile_cols(R)), cdiv(nown, ENERGY_TILE_ROWS));
 }
+
+// The instantiation for R: the gradient's tile (R < STRIP_MIN_RADIUS) or
+// strip, or the energy kernel; its threads and dynamic shared memory.
+template <int R, bool WITH_GRAD>
+struct Instance {
+  static constexpr bool STRIP = WITH_GRAD && R >= STRIP_MIN_RADIUS;
+  static constexpr int THREADS = WITH_GRAD ? NT : ENT;
+  static constexpr size_t BYTES = !WITH_GRAD ? EGeo<R>::BYTES : (STRIP ? SGeo<R>::BYTES : Geo<R>::BYTES);
+  static const void* fn() {
+    if constexpr (!WITH_GRAD) return (const void*)sweep_energy_kernel<R>;
+    else if constexpr (STRIP) return (const void*)sweep_grad_strip_kernel<R>;
+    else return (const void*)sweep_grad_kernel<R>;
+  }
+};
 
 // Opt each instantiation in to its dynamic shared memory, once per device.
 template <int R, bool WITH_GRAD>
@@ -1321,12 +1871,8 @@ cudaError_t allow_smem() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  if constexpr (WITH_GRAD)
-    err = cudaFuncSetAttribute(sweep_grad_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Geo<R>::BYTES);
-  else
-    err = cudaFuncSetAttribute(sweep_energy_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)EGeo<R>::BYTES);
+  using I = Instance<R, WITH_GRAD>;
+  err = cudaFuncSetAttribute(I::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)I::BYTES);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return err;
 }
@@ -1346,7 +1892,10 @@ int launch(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
   if (!WITH_GRAD && 6LL * s.C * s.h * s.w > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem<R, WITH_GRAD>();
   if (err != cudaSuccess) return (int)err;
-  if constexpr (WITH_GRAD)
+  if constexpr (Instance<R, WITH_GRAD>::STRIP)
+    sweep_grad_strip_kernel<R><<<grid, NT, SGeo<R>::BYTES, stream>>>(
+        a.planes, a.v_lin, a.v, a.ui_w, a.ui_v, a.tc_w, a.tc_v, a.grad, a.precond, a.partials, s);
+  else if constexpr (WITH_GRAD)
     sweep_grad_kernel<R><<<grid, NT, Geo<R>::BYTES, stream>>>(
         a.planes, a.v_lin, a.v, a.ui_w, a.ui_v, a.tc_w, a.tc_v, a.grad, a.precond, a.partials, s);
   else
@@ -1395,22 +1944,45 @@ int launch_wide(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The launch for the window radius: a tiled instantiation for R = 1 ..
-// TILED_MAX_RADIUS, the wide path for any other R >= 0.
+// Returns f.template operator()<R>() for the instantiated radius R of the
+// gradient (WITH_GRAD) or the energy kernel, and wide() for any other
+// radius (the wide path's).
+template <bool WITH_GRAD, class F, class W>
+int at_radius(int R, const F& f, const W& wide) {
+  if (!tiled(WITH_GRAD, R)) return wide();
+  switch (R) {
+    case 1: return f.template operator()<1>();
+    case 2: return f.template operator()<2>();
+    case 3: return f.template operator()<3>();
+    case 4: return f.template operator()<4>();
+    case 5: return f.template operator()<5>();
+    case 6: return f.template operator()<6>();
+    case 7:
+      if constexpr (WITH_GRAD) return f.template operator()<7>();
+  }
+  return (int)cudaErrorInvalidValue;  // not reached
+}
+static_assert(TILED_MAX_RADIUS == 6 && STRIP_MAX_RADIUS == 7,
+              "at_radius() instantiates R = 1 .. 6 of the energy kernel and 1 .. 7 of the gradient's");
+
+template <bool WITH_GRAD>
+struct LaunchAt {
+  const Args& a;
+  const VmSweepScalars& s;
+  cudaStream_t st;
+  template <int R>
+  int operator()() const { return launch<R, WITH_GRAD>(a, s, st); }
+};
+
+// The launch for the window radius: an instantiated kernel where tiled(),
+// the wide path for any other R >= 0.
 template <bool WITH_GRAD>
 int dispatch(const Args& a, const VmSweepScalars* s, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (s->radius) {
-    case 1: return launch<1, WITH_GRAD>(a, *s, st);
-    case 2: return launch<2, WITH_GRAD>(a, *s, st);
-    case 3: return launch<3, WITH_GRAD>(a, *s, st);
-    case 4: return launch<4, WITH_GRAD>(a, *s, st);
-    case 5: return launch<5, WITH_GRAD>(a, *s, st);
-    case 6: return launch<6, WITH_GRAD>(a, *s, st);
-    default: return s->radius >= 0 ? launch_wide<WITH_GRAD>(a, *s, st) : (int)cudaErrorInvalidValue;
-  }
+  if (s->radius < 0) return (int)cudaErrorInvalidValue;
+  return at_radius<WITH_GRAD>(s->radius, LaunchAt<WITH_GRAD>{a, *s, st},
+                              [&]() { return launch_wide<WITH_GRAD>(a, *s, st); });
 }
-static_assert(TILED_MAX_RADIUS == 6, "dispatch() and vm_sweep_kernel_info instantiate R = 1 .. 6");
 
 // Registers, static and dynamic shared memory, local (spill) bytes and
 // resident blocks per SM of one kernel at `threads` per block.
@@ -1428,14 +2000,20 @@ cudaError_t func_info(const void* fn, int threads, size_t dyn, int* info) {
   return cudaSuccess;
 }
 
-template <int R>
-int kernel_info(bool with_grad, int* info) {
-  cudaError_t err = with_grad ? allow_smem<R, true>() : allow_smem<R, false>();
-  if (err == cudaSuccess)
-    err = with_grad ? func_info((const void*)sweep_grad_kernel<R>, NT, Geo<R>::BYTES, info)
-                    : func_info((const void*)sweep_energy_kernel<R>, ENT, EGeo<R>::BYTES, info);
+template <int R, bool WITH_GRAD>
+int kernel_info(int* info) {
+  using I = Instance<R, WITH_GRAD>;
+  cudaError_t err = allow_smem<R, WITH_GRAD>();
+  if (err == cudaSuccess) err = func_info(I::fn(), I::THREADS, I::BYTES, info);
   return (int)err;
 }
+
+template <bool WITH_GRAD>
+struct InfoAt {
+  int* info;
+  template <int R>
+  int operator()() const { return kernel_info<R, WITH_GRAD>(info); }
+};
 
 // The wide path's kernels: the most registers, shared and local memory and
 // the fewest resident blocks of any of them.
@@ -1474,7 +2052,7 @@ extern "C" int vm_sweep_n_partials(int w, int nown, int with_grad, int radius) {
 // Floats of scratch a launch needs (the wide path's intermediates; 0 for
 // the tiled kernels).
 extern "C" long long vm_sweep_scratch_floats(int w, int nown, int with_grad, int radius) {
-  return tiled(radius) ? 0 : wide_layout(w, nown, radius, with_grad != 0).total;
+  return tiled(with_grad != 0, radius) ? 0 : wide_layout(w, nown, radius, with_grad != 0).total;
 }
 
 // info[0..4]: registers per thread, static shared memory, dynamic shared
@@ -1482,15 +2060,10 @@ extern "C" long long vm_sweep_scratch_floats(int w, int nown, int with_grad, int
 // gradient (with_grad) or energy kernel at a window radius (for the wide
 // path, the extremes over its kernels); returns the CUDA error.
 extern "C" int vm_sweep_kernel_info(int radius, int with_grad, int* info) {
-  switch (radius) {
-    case 1: return kernel_info<1>(with_grad != 0, info);
-    case 2: return kernel_info<2>(with_grad != 0, info);
-    case 3: return kernel_info<3>(with_grad != 0, info);
-    case 4: return kernel_info<4>(with_grad != 0, info);
-    case 5: return kernel_info<5>(with_grad != 0, info);
-    case 6: return kernel_info<6>(with_grad != 0, info);
-    default: return radius >= 0 ? wide_kernel_info(with_grad != 0, info) : (int)cudaErrorInvalidValue;
-  }
+  if (radius < 0) return (int)cudaErrorInvalidValue;
+  auto wide = [&]() { return wide_kernel_info(with_grad != 0, info); };
+  if (with_grad) return at_radius<true>(radius, InfoAt<true>{info}, wide);
+  return at_radius<false>(radius, InfoAt<false>{info}, wide);
 }
 
 // partials holds n_partials sets of 4 floats and scratch n_scratch floats

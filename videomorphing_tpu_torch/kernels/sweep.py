@@ -1,15 +1,18 @@
 """Kernels 1 and 2: the solver's sweep gradient and sweep energy.
 
 Source: ``csrc/sweep.cu`` (``vm_sweep_grad`` launches
-``sweep_grad_kernel<R>``, ``vm_sweep_energy`` ``sweep_energy_kernel<R>``;
-the two share their per-pixel arithmetic as ``__device__`` functions).
+``sweep_grad_kernel<R>`` or ``sweep_grad_strip_kernel<R>``,
+``vm_sweep_energy`` ``sweep_energy_kernel<R>``; they share their
+per-pixel arithmetic as ``__device__`` functions).
 
 Every odd ``ssim_window`` = 2R + 1 runs on the card, chosen by R in
-``csrc/sweep.cu``'s ``dispatch``: the tiled kernels are instantiated for
-R = 1 .. ``TILED_MAX_RADIUS`` (6, window 13); any other R (window 1, and
-15 and up, where kernel 1's tile no longer fits a block's shared memory)
-takes the wide path, per-pixel kernels that read R at run time and keep
-their intermediates in a scratch buffer this wrapper allocates. The taps
+``csrc/sweep.cu``'s ``dispatch`` (:func:`kernel_name`): the gradient
+kernel's tile for R = 1, 2 (windows 3, 5), its strip for R =
+``STRIP_MIN_RADIUS`` .. ``STRIP_MAX_RADIUS`` (3 .. 7, windows 7-15), the
+energy kernel for R = 1 .. ``TILED_MAX_RADIUS`` (6, window 13); any other R
+(window 1, and past those) takes the wide path, per-pixel kernels that
+read R at run time and keep their intermediates in a scratch buffer this
+wrapper allocates. The taps
 sit in a small device buffer per window (:func:`window_taps`). An even
 window's taps are not centred on the pixel, so no kernel computes it: on
 the card it raises ``ValueError`` (the reference and the plain version
@@ -28,11 +31,14 @@ Both evaluate the halfway-domain energy on the warps linearized around
 ``v_lin``: ``a0 = w0 - dw0.(v - v_lin)``, ``a1 = w1 + dw1.(v - v_lin)``.
 On paper they are bound by bytes on the H100; in practice by instructions
 and their latency (~29 window sums and ~60 maps per pixel and channel,
-over a halo). The gradient kernel stages a tile of owned pixels
-(:func:`sweep_tile`) and its halo of twice the window radius in shared
-memory, channel by channel through ``cp.async`` with the next channel's
-planes in flight, so every window sum, the dw chain and the TPS stencils
-read shared memory. The energy kernel needs no gradient halo: each warp
+over a halo). The gradient kernel's tile (R = 1, 2) stages a tile of
+owned pixels (:func:`sweep_tile`) and its halo of twice the window radius
+in shared memory, channel by channel through ``cp.async`` with the next
+channel's planes in flight, so every window sum, the dw chain and the TPS
+stencils read shared memory; its strip (wider windows) walks down a
+column strip a few rows a step, with the linearized warps and the SSIM
+coefficient maps in rings of rows, so the vertical halo is staged once
+per strip and channel. The energy kernel needs no gradient halo: each warp
 walks a column strip with the window's rows in registers and the
 neighbouring columns from its lanes. The inputs are the warp kernel's
 plane stack as it comes, with no pack.
@@ -70,7 +76,8 @@ from videomorphing_tpu_torch.kernels.warp import check_cuda_input, on_cuda, stre
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, separable_filter
 
 _GEOMETRY = ("TILE_ROWS", "TILE_COLS", "ENERGY_TILE_ROWS", "ENERGY_TILE_COLS", "TILED_MAX_RADIUS",
-             "WIDE_TILE_ROWS", "WIDE_TILE_COLS")
+             "WIDE_TILE_ROWS", "WIDE_TILE_COLS", "STRIP_ROWS", "STRIP_COLS", "STRIP_MIN_RADIUS",
+             "STRIP_MAX_RADIUS")
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,22 +92,42 @@ def _geometry() -> dict:
     return {name: int(m.group(1)) for name, m in found.items()}
 
 
-def tiled(radius: int) -> bool:
-    """Whether window radius R runs the tiled kernels (R = 1 ..
-    ``TILED_MAX_RADIUS``) rather than the wide path."""
-    return 1 <= radius <= _geometry()["TILED_MAX_RADIUS"]
+def tiled(with_grad: bool, radius: int) -> bool:
+    """Whether window radius R runs a kernel instantiated for it rather
+    than the wide path: the gradient kernel (``with_grad``) for R = 1 ..
+    ``STRIP_MAX_RADIUS``, the energy kernel for R = 1 ..
+    ``TILED_MAX_RADIUS``."""
+    g = _geometry()
+    return 1 <= radius <= g["STRIP_MAX_RADIUS" if with_grad else "TILED_MAX_RADIUS"]
+
+
+def kernel_name(with_grad: bool, radius: int) -> str:
+    """The kernel of ``csrc/sweep.cu`` that runs at window radius
+    ``radius``: ``sweep_grad_kernel<R>`` (the gradient's tile),
+    ``sweep_grad_strip_kernel<R>`` (its strip), ``sweep_energy_kernel<R>``
+    or the wide path."""
+    if not tiled(with_grad, radius):
+        return f"wide path ({'gradient' if with_grad else 'energy'})"
+    if not with_grad:
+        return f"sweep_energy_kernel<{radius}>"
+    strip = radius >= _geometry()["STRIP_MIN_RADIUS"]
+    return f"sweep_grad{'_strip' if strip else ''}_kernel<{radius}>"
 
 
 def sweep_tile(with_grad: bool, radius: int = 1) -> tuple[int, int]:
     """(rows, columns) of owned pixels per block, one partials set each,
     at window radius ``radius``: the gradient kernel's ``TILE_ROWS`` x
-    ``TILE_COLS`` (``with_grad``); the energy kernel's ``ENERGY_TILE_ROWS``
-    x ``ENERGY_TILE_COLS`` up to R = 3, whose lanes give a wider window's
-    halo max(3, R) columns each side of 32 (``energy_tile_cols``); the wide
-    path's ``WIDE_TILE_ROWS`` x ``WIDE_TILE_COLS`` for both."""
+    ``TILE_COLS`` below ``STRIP_MIN_RADIUS`` and its strip of
+    ``STRIP_ROWS`` x ``STRIP_COLS`` from there (``with_grad``); the energy
+    kernel's ``ENERGY_TILE_ROWS`` x ``ENERGY_TILE_COLS`` up to R = 3, whose
+    lanes give a wider window's halo max(3, R) columns each side of 32
+    (``energy_tile_cols``); the wide path's ``WIDE_TILE_ROWS`` x
+    ``WIDE_TILE_COLS`` for both."""
     g = _geometry()
-    if not tiled(radius):
+    if not tiled(with_grad, radius):
         return g["WIDE_TILE_ROWS"], g["WIDE_TILE_COLS"]
+    if with_grad and radius >= g["STRIP_MIN_RADIUS"]:
+        return g["STRIP_ROWS"], g["STRIP_COLS"]
     if with_grad:
         return g["TILE_ROWS"], g["TILE_COLS"]
     halo = max((32 - g["ENERGY_TILE_COLS"]) // 2, radius)
@@ -271,7 +298,7 @@ def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int =
     out = torch.empty((5,), dtype=torch.float32, device=dev)
     lib = build.load()
     # the wide path's intermediates (none for the tiled kernels)
-    n_scratch = 0 if tiled(r) else lib.vm_sweep_scratch_floats(w, bh, int(with_grad), r)
+    n_scratch = 0 if tiled(with_grad, r) else lib.vm_sweep_scratch_floats(w, bh, int(with_grad), r)
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None
     scratch_ptr = scratch.data_ptr() if scratch is not None else None
     grad = precond = None

@@ -72,22 +72,31 @@ def render_video_frames_sharded(
     vp: VideoParams = VideoParams(),
     axis: str = "batch",
     bulges: Optional[torch.Tensor] = None,
+    conf_flows: Optional[tuple] = None,
     flows: Optional[dict] = None,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Video synthesis split over the mesh by frames: frame t needs only
     (A_t, B_t, v_t, t_t) and its flows, so each device runs the sequential
     synthesis (``video.pipeline.synthesize_frames``: bulges unless given,
-    confidences from the clip's ``flows`` unless None, the render) on its
-    contiguous share of the frames; no padding is needed. Returns
-    ``(bulges, frames)`` on ``clip_a``'s device (``bulges`` None when
-    neither given nor computed)."""
+    occlusion confidences, the render) on its contiguous share of the
+    frames; no padding is needed. The confidences come, as the
+    reference's, from ``conf_flows``, a tuple of four (T, H, W, 2)
+    per-frame flow stacks ``(af, ab, bf, bb)`` (frame t's from ``(af[t],
+    ab[t])`` and ``(bf[t], bb[t])``), or from the clip's ``flows`` dict of
+    ``video.pipeline.solve_clip_fields`` (the port's own route); with
+    neither, every confidence is 1. Returns ``(bulges, frames)`` on
+    ``clip_a``'s device (``bulges`` None when neither given nor
+    computed)."""
     from videomorphing_tpu_torch.video.pipeline import synthesize_frames
 
+    if conf_flows is not None and flows is not None:
+        raise ValueError("render_video_frames_sharded takes conf_flows or flows, not both")
     devs = as_mesh(mesh).axis_devices(axis)
     times = np.asarray(torch.as_tensor(times).detach().cpu(), np.float32).reshape(-1)
     home = clip_a.device
     outs = [
-        synthesize_frames(clip_a, clip_b, fields, times, sp, vp, bulges, flows, share=sl, device=dev)
+        synthesize_frames(clip_a, clip_b, fields, times, sp, vp, bulges, flows, share=sl, device=dev,
+                          conf_flows=conf_flows)
         for dev, sl in zip(devs, shares(clip_a.shape[0], len(devs)))
         if sl.stop > sl.start
     ]

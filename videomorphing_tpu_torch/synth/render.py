@@ -74,9 +74,19 @@ def _multiscale_start(disp: torch.Tensor, h: int, w: int, n_iters: int) -> torch
 
 
 def invert_path(
-    v: torch.Tensor, b: Optional[torch.Tensor], t, n_iters: int = 6, multiscale: bool = True
+    v: torch.Tensor,
+    b: Optional[torch.Tensor],
+    t,
+    n_iters: int = 6,
+    multiscale: bool = True,
+    use_fused: Optional[bool] = None,
 ) -> torch.Tensor:
-    """Halfway coordinates p(q) (H, W, 2) with x_t(p) = q for every output q."""
+    """Halfway coordinates p(q) (H, W, 2) with x_t(p) = q for every output q.
+
+    ``use_fused`` is the reference's TPU dispatch knob, accepted and
+    ignored (as ``SynthParams.fused_sampling``): the samples run kernel 4
+    whenever the field lies on the card, and the result does not depend on
+    it."""
     h, w = v.shape[0], v.shape[1]
     q = grid_coords(h, w, dtype=v.dtype, device=v.device)
     disp = path_displacement(v, b, t)
@@ -87,11 +97,17 @@ def invert_path(
 
 
 def invert_path_with_field(
-    v: torch.Tensor, b: Optional[torch.Tensor], t, n_iters: int = 6, multiscale: bool = True
+    v: torch.Tensor,
+    b: Optional[torch.Tensor],
+    t,
+    n_iters: int = 6,
+    multiscale: bool = True,
+    use_fused: Optional[bool] = None,
 ):
     """:func:`invert_path` that also returns ``v(p)``: the last sample reads
     the stacked planes ``[d_t, v]`` in one 4-channel gather, with ``v`` at
-    the penultimate iterate. Returns ``(p, v_at_p)``."""
+    the penultimate iterate. Returns ``(p, v_at_p)``. ``use_fused`` is
+    accepted and ignored, as in :func:`invert_path`."""
     h, w = v.shape[0], v.shape[1]
     q = grid_coords(h, w, dtype=v.dtype, device=v.device)
     disp = path_displacement(v, b, t)
@@ -120,6 +136,8 @@ def render_frame(
     conf0: Optional[torch.Tensor] = None,
     conf1: Optional[torch.Tensor] = None,
     with_aux: bool = False,
+    srcs0=None,
+    srcs1=None,
 ):
     """Synthesize the morph frame at time ``t`` in [0, 1]:
     c_t(q) = (1-t) I0(phi0(p(q))) + t I1(phi1(p(q))), Poisson-extended and,
@@ -131,6 +149,11 @@ def render_frame(
     interpolant can overshoot). The two bilinear colour samples are one
     launch of the batched sampler. ``with_aux`` also returns a
     :class:`FrameAux`: ``(frame, aux)``.
+
+    ``srcs0``/``srcs1`` are the reference's prebuilt TPU sampler sources
+    (copies of ``i0``/``i1`` laid out for its Pallas gather); they are
+    accepted and ignored: the port samples ``i0``/``i1`` themselves, and the
+    frame does not depend on them.
     """
     h, w = i0.shape[0], i0.shape[1]
     t = f32(t)

@@ -15,7 +15,10 @@ from videomorphing_tpu_torch.ops.resample import grid_coords
 
 
 def occlusion_confidence(
-    flow_fwd: torch.Tensor, flow_bwd: torch.Tensor, vp: VideoParams = VideoParams()
+    flow_fwd: torch.Tensor,
+    flow_bwd: torch.Tensor,
+    vp: VideoParams = VideoParams(),
+    use_fused: bool | None = None,
 ) -> torch.Tensor:
     """Per-pixel visibility confidence in [0, 1] (1 = consistent / visible).
 
@@ -23,6 +26,11 @@ def occlusion_confidence(
     the reverse flow; or a batch of n such pairs, (n, H, W, 2) each, whose
     round-trip lookups run as one launch of kernel 4. Returns (H, W) or
     (n, H, W): a soft threshold on the round-trip error.
+
+    ``use_fused`` is the reference's TPU dispatch knob; it is accepted and
+    ignored, as ``VideoParams.fused_occlusion`` is: the lookup runs kernel
+    4 whenever the flows lie on the card, and the result does not depend
+    on it.
     """
     h, w = flow_fwd.shape[-3], flow_fwd.shape[-2]
     coords = grid_coords(h, w, dtype=flow_fwd.dtype, device=flow_fwd.device) + flow_fwd

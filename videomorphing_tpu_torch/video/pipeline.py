@@ -320,11 +320,14 @@ def synthesize_frames(
     render: bool = True,
     share: slice = slice(None),
     device=None,
+    conf_flows: Optional[tuple] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The synthesis of the clip's frames ``share`` on ``device`` (default:
     all frames, on the clip's device): their bulges (as given, else computed
     when ``sp.quadratic_paths``), their occlusion confidences from the
-    clip's ``flows`` (None: no occlusion weighting) and, when ``render``,
+    clip's ``flows`` or from the per-frame flow stacks ``conf_flows``
+    ``(af, ab, bf, bb)`` (frame t's from ``(af[t], ab[t])`` and ``(bf[t],
+    bb[t])``; with neither, no occlusion weighting) and, when ``render``,
     the frames at ``times`` (numpy, one per clip frame). Returns
     ``(bulges, frames)`` of the share, on ``device``."""
     t_len = clip_a.shape[0]
@@ -340,7 +343,11 @@ def synthesize_frames(
     if not render:
         return bulges, None
     with phase_scope("confidences"):
-        if flows is not None:
+        if conf_flows is not None:
+            af, ab, bf, bb = (put(x) for x in conf_flows)
+            conf_a = occlusion_confidence(af, ab, vp)
+            conf_b = occlusion_confidence(bf, bb, vp)
+        elif flows is not None:
             lo = min(s, t_len - 2)  # the clip's last frame reads the final pair
             f = {k: x[lo:e].to(dev) for k, x in flows.items()}
             conf_a = _clip_confidences(f["fa_fwd"], f["fa_bwd"], e - lo, vp)[s - lo:]
