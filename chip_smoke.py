@@ -11,8 +11,9 @@ Phases:
      ``build.log``) and each sweep kernel's registers, shared memory and
      resident blocks per SM (``vm_sweep_kernel_info``: every instantiated
      radius, the gradient kernel's tile at 1-2 and strip at 3-7, the energy
-     kernel's 1-6, and the wide path), and check the partials counts the
-     wrapper sizes against ``vm_sweep_n_partials`` at every radius;
+     kernel's 1-6, and the wide path, each in its float32 and bf16
+     instantiation), and check the partials counts the wrapper sizes
+     against ``vm_sweep_n_partials`` at every radius;
   2. each kernel against its plain PyTorch version on the card, at the
      slices' shapes (1024 x 1024, 1080 x 1920 and a ragged 135 x 241,
      C = 3; kernels 1-2 also at every ``ssim_window`` of ``WINDOW_SIGMA``,
@@ -39,7 +40,13 @@ Phases:
      C = 3 level and on 2 (phase 16's blocks) against the whole-frame
      kernels' rows, and against their plain versions there and on a
      ragged 132 x 241 split 4 ways (at every window); the 4-block split
-     also at ``WIDE_WINDOWS``, timed;
+     also at ``WIDE_WINDOWS``, timed; and the bf16 forms of kernels 1-3
+     (``pack_dtype="bfloat16"``: bf16 planes and maps, v_lin rounded to
+     bf16) against their plain bf16 versions at the same shapes and
+     windows (the 4K splits at the default window), kernel 3's bf16 output
+     bitwise its float32 output cast, shard rows and reruns bitwise, with
+     times and bounds (planes and maps at 2 bytes) beside the float32
+     forms' at 1024^2, 1080 x 1920 and the 4K block;
   3. the pair path: ``api.morph_pair`` on a 1024 x 1024 pair with 4 point
      constraints and 16 frames, with every kernel's launch count;
   4. the golden cases (``utils.golden.run_golden``: translation, rotation
@@ -101,12 +108,20 @@ Phases:
  18. the wide windows: ``api.morph_pair`` on phase 3's inputs and
      ``run_golden`` at ``ssim_window`` 11, and phase 10's 4K pair through
      ``optimize_pair_spatial`` on 4 row blocks at window 9, its field
-     bitwise equal to the single-device ``api.solve_pair``.
+     bitwise equal to the single-device ``api.solve_pair``;
+ 19. the bf16 pack (``pack_dtype="bfloat16"``, ``backend="auto"``):
+     ``api.morph_pair`` on phase 3's inputs (endpoints, a bitwise rerun,
+     the field against phase 3's), ``api.morph_clips`` on phase 5's clip
+     pair, phase 10's 4K pair through ``optimize_pair_spatial`` on 4 row
+     blocks and ``run_golden``, each with its wall, launches and the form
+     of every level: float32 under ``pallas_min_pixels`` (16384) pixels,
+     bf16 from there (``record_forms``).
 
 A repeated-device mesh runs its blocks one after another on the card: a
 correctness path, not a speed-up. Any failure raises and exits non-zero.
 The card's name and power limit, then one JSON object with a record per
-kernel (launches summed over the paths of phases 3-5, 7, 8 and 10-18;
+kernel, the bf16 forms as records of their own (launches summed over the
+paths of phases 3-5, 7, 8 and 10-19;
 ``ms`` and ``library_ms`` device times, ``plain_ms`` a call time), are the
 lines before the last; the last line is ``{"ok": true, "device":
 {...}}``. With no CUDA device it exits 1 and prints no result.
@@ -114,6 +129,7 @@ lines before the last; the last line is ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -129,7 +145,9 @@ ROOT = Path(__file__).resolve().parent
 
 # the kernel numbering of PERF.md and ROADMAP.md: 1 sweep_grad (shard form
 # sweep_grad_shard), 2 sweep_energy (sweep_energy_shard), 3 halfway_warp (its
-# row-offset form halfway_warp_rows), 4 bilinear_sample (and its batched form)
+# row-offset form halfway_warp_rows), 4 bilinear_sample (and its batched form);
+# a name ending in _bf16 is the bf16 form of kernels 1-3 (pack_dtype =
+# "bfloat16"), counted under launches_bf16 of the same wrapper
 KERNELS = {
     "halfway_warp": ("videomorphing_tpu_torch/csrc/warp.cu", "videomorphing_tpu/pallas/warp.py:206"),
     "halfway_warp_rows": ("videomorphing_tpu_torch/csrc/warp.cu", "videomorphing_tpu/pallas/warp.py:206"),
@@ -140,6 +158,9 @@ KERNELS = {
     "sweep_grad_shard": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:936"),
     "sweep_energy_shard": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:959"),
 }
+BF16_FORMS = ("halfway_warp", "halfway_warp_rows", "sweep_grad", "sweep_energy", "sweep_grad_shard",
+              "sweep_energy_shard")
+KERNELS.update({f"{name}_bf16": KERNELS[name] for name in BF16_FORMS})
 # the shapes of the phases that this slice adds (phase 2's shard forms,
 # phases 10 and 11); module constants so a rehearsal can shrink them
 SHARD_SHAPES = ((2160, 3840), (132, 241))
@@ -169,6 +190,8 @@ WIDE_WINDOWS = (7, 9, 11, 13, 15)
 WIDE_PAIR_WINDOW = 11
 WIDE_SPATIAL_WINDOW = 9
 WIDE_PAIR_N = 1024
+# phase 19's clip pair (phase 5's), a module constant so a rehearsal can shrink it
+BF16_VIDEO_THW = (30, 1080, 1920)
 BASE = ("halfway_warp", "bilinear_sample", "bilinear_sample_batched", "sweep_grad", "sweep_energy")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -178,6 +201,14 @@ def bound(n_bytes: float, n_ops: float):
     """The least time (ms) the card could take, and what bounds it."""
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS_PER_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def sweep_bytes(c: int, with_grad: bool, plane_bytes: int) -> int:
+    """Bytes per pixel of kernel 1 (``with_grad``) or 2, each input read once
+    and each output written once: the 6C planes and the 6 values of the
+    UI/TC maps at ``plane_bytes`` each (4, or 2 in the bf16 form), v and
+    v_lin (float32), and kernel 1's grad and precond (float32)."""
+    return plane_bytes * (6 * c + 6) + 4 * 4 + (4 * 4 if with_grad else 0)
 
 
 def sweep_ops_per_pixel(c: int, k: int, with_grad: bool) -> int:
@@ -322,6 +353,7 @@ def check_kernels(dev) -> dict:
     from videomorphing_tpu_torch.solver.energy import make_level_data
 
     p = MorphParams()
+    BF16 = torch.bfloat16
     rec = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None} for name in KERNELS}
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
 
@@ -342,16 +374,18 @@ def check_kernels(dev) -> dict:
     def check_sweeps(planes, v_lin, v, data, pw, shape):
         """Kernels 1-2 on v != v_lin with non-zero UI and TC maps: energy rel
         <= 1e-5, grad and precond max abs <= 1e-5 * max|ref| (float32 with
-        other summation orders and contracted multiply-adds)."""
+        other summation orders and contracted multiply-adds); the bf16 form
+        (bf16 planes and maps) against its plain bf16 version alike."""
+        sfx = "_bf16" if planes.dtype == BF16 else ""
         e_k, g_k, p_k = ks.sweep_grad(planes, v_lin, v, data, pw)
         e_p, g_p, p_p = ks.sweep_grad_plain(planes, v_lin, v, data, pw)
-        compare("sweep_grad", e_p.reshape(1), e_k.reshape(1), shape + " energy", 1e-5, True)
-        compare("sweep_grad", g_p, g_k, shape + " grad", 1e-5, True)
-        compare("sweep_grad", p_p, p_k, shape + " precond", 1e-5, True)
+        compare("sweep_grad" + sfx, e_p.reshape(1), e_k.reshape(1), shape + " energy", 1e-5, True)
+        compare("sweep_grad" + sfx, g_p, g_k, shape + " grad", 1e-5, True)
+        compare("sweep_grad" + sfx, p_p, p_k, shape + " precond", 1e-5, True)
         del e_p, g_p, p_p
         e2_k = ks.sweep_energy(planes, v_lin, v, data, pw)
         e2_p = ks.sweep_energy_plain(planes, v_lin, v, data, pw)
-        compare("sweep_energy", e2_p.reshape(1), e2_k.reshape(1), shape, 1e-5, True)
+        compare("sweep_energy" + sfx, e2_p.reshape(1), e2_k.reshape(1), shape, 1e-5, True)
         # the energy kernel and the gradient pass share the per-pixel arithmetic
         require(abs(float(e2_k) - float(e_k)) <= 1e-6 * abs(float(e_k)),
                 f"{shape}: sweep_energy and sweep_grad disagree on the energy")
@@ -411,15 +445,36 @@ def check_kernels(dev) -> dict:
                                  lambda: ks.sweep_energy(planes, v_lin, v, data, pw),
                                  lambda: ks.sweep_energy_plain(planes, v_lin, v, data, pw))
 
+        # the bf16 form (pack_dtype="bfloat16") at the same windows: kernel 3's
+        # bf16 output bitwise its float32 output cast, and within one bf16 step
+        # of the largest value of its plain version (the float32 kernel and
+        # plain version differ by up to 1e-6, which can move a rounding);
+        # kernels 1-2 on those planes and the maps in bf16, with v_lin
+        # rounded to bf16 as the solver's is
+        vq = v_lin.to(BF16).float()
+        planes16 = kw.halfway_warp(i0, i1, vq, BF16)
+        require(torch.equal(planes16, kw.halfway_warp(i0, i1, vq).to(BF16)),
+                f"halfway_warp {shape}: the bf16 output is not the float32 output cast")
+        compare("halfway_warp_bf16", kw.halfway_warp_plain(i0, i1, vq, BF16).float(), planes16.float(), shape,
+                2.0 ** -8, True)
+        data16 = ks.pack_maps(data, BF16)
+        for win, pw in held.items():
+            check_sweeps(planes16, vq, v, data16, pw, f"{shape} window {win} bf16")
+
         if (h, w) == (1080, 1920):
-            # the warm loop's level: kernels 1-2 timed beside the 1024^2 shape
+            # the warm loop's level: kernels 1-2 timed beside the 1024^2 shape,
+            # both forms
             c, k = 3, int(p.ssim_window)
             npx = h * w
             for name, kern, nbytes, ops in (
                     ("sweep_grad", lambda: ks.sweep_grad(planes, v_lin, v, data, p),
-                     4 * npx * (6 * c + 10 + 4), npx * sweep_ops_per_pixel(c, k, True)),
+                     npx * sweep_bytes(c, True, 4), npx * sweep_ops_per_pixel(c, k, True)),
                     ("sweep_energy", lambda: ks.sweep_energy(planes, v_lin, v, data, p),
-                     4 * npx * (6 * c + 10), npx * sweep_ops_per_pixel(c, k, False))):
+                     npx * sweep_bytes(c, False, 4), npx * sweep_ops_per_pixel(c, k, False)),
+                    ("sweep_grad_bf16", lambda: ks.sweep_grad(planes16, vq, v, data16, p),
+                     npx * sweep_bytes(c, True, 2), npx * sweep_ops_per_pixel(c, k, True)),
+                    ("sweep_energy_bf16", lambda: ks.sweep_energy(planes16, vq, v, data16, p),
+                     npx * sweep_bytes(c, False, 2), npx * sweep_ops_per_pixel(c, k, False))):
                 k1, k2, call = graph_ms(kern), graph_ms(kern), cuda_ms(kern)
                 b_ms, b_by = bound(nbytes, ops)
                 log(f"  {name} {shape} time: kernel {k1:.4f}/{k2:.4f} ms (device), {call:.4f} ms (call); "
@@ -434,22 +489,34 @@ def check_kernels(dev) -> dict:
                                lambda: ks.sweep_grad_plain(planes, v_lin, v, data, p)),
                 "sweep_energy": (lambda: ks.sweep_energy(planes, v_lin, v, data, p),
                                  lambda: ks.sweep_energy_plain(planes, v_lin, v, data, p)),
+                "halfway_warp_bf16": (lambda: kw.halfway_warp(i0, i1, vq, BF16),
+                                      lambda: kw.halfway_warp_plain(i0, i1, vq, BF16)),
+                "sweep_grad_bf16": (lambda: ks.sweep_grad(planes16, vq, v, data16, p),
+                                    lambda: ks.sweep_grad_plain(planes16, vq, v, data16, p)),
+                "sweep_energy_bf16": (lambda: ks.sweep_energy(planes16, vq, v, data16, p),
+                                      lambda: ks.sweep_energy_plain(planes16, vq, v, data16, p)),
             }
             for name, (kern, plain) in timings.items():
                 rec[name]["ms"], rec[name]["plain_ms"], (k1, k2, pl1, pl2), call = timed_pair(kern, plain)
                 log(f"  {name} 1024x1024 time: kernel {k1:.4f}/{k2:.4f} ms (device), {call:.4f} ms (call), "
                     f"plain {pl1:.4f}/{pl2:.4f} ms")
             # bounds at the timed shapes: each input read once, each output
-            # written once (float32), and the kernels' arithmetic
+            # written once (float32; the bf16 form's planes and maps 2 bytes),
+            # and the kernels' arithmetic
             c, k = 3, int(p.ssim_window)
             npx = h * w
-            rec["halfway_warp"]["bound"] = bound(4 * npx * (2 * c + 2 + 6 * c), npx * warp_ops_per_pixel(c))
+            for sfx, pb in (("", 4), ("_bf16", 2)):
+                rec["halfway_warp" + sfx]["bound"] = bound(npx * (4 * (2 * c + 2) + pb * 6 * c),
+                                                           npx * warp_ops_per_pixel(c))
+                rec["sweep_grad" + sfx]["bound"] = bound(npx * sweep_bytes(c, True, pb),
+                                                         npx * sweep_ops_per_pixel(c, k, True))
+                rec["sweep_energy" + sfx]["bound"] = bound(npx * sweep_bytes(c, False, pb),
+                                                           npx * sweep_ops_per_pixel(c, k, False))
             rec["bilinear_sample"]["bound"] = bound(4 * npx * (4 + 2 + 4), npx * sample_ops_per_pixel(4))
-            rec["sweep_grad"]["bound"] = bound(4 * npx * (6 * c + 10 + 4), npx * sweep_ops_per_pixel(c, k, True))
-            rec["sweep_energy"]["bound"] = bound(4 * npx * (6 * c + 10), npx * sweep_ops_per_pixel(c, k, False))
             rec["bilinear_sample"]["library_ms"] = grid_sample_ms(stacked[None], p_co[None])
             lib_call = cuda_ms(grid_sample_call(stacked[None], p_co[None]))
-            for name in ("halfway_warp", "bilinear_sample", "sweep_grad", "sweep_energy"):
+            for name in ("halfway_warp", "bilinear_sample", "sweep_grad", "sweep_energy", "halfway_warp_bf16",
+                         "sweep_grad_bf16", "sweep_energy_bf16"):
                 b_ms, b_by = rec[name]["bound"]
                 log(f"  {name} 1024x1024 bound: {b_ms:.4f} ms ({b_by})"
                     + (f"; F.grid_sample {rec[name]['library_ms']:.4f} ms (device), {lib_call:.4f} ms (call)"
@@ -652,13 +719,16 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
     rows): 4 blocks of a 2160 x 3840, C = 3 level, at the default window and
     at ``WIDE_WINDOWS``; ``PAIRS_ROWS_BLOCKS`` blocks of a ``PAIRS_ROWS_HW``
     level (phase 16's block shape); and 4 blocks of a ragged 132 x 241 one
-    at every window of ``WINDOW_SIGMA``. Each
+    at every window of ``WINDOW_SIGMA``; the bf16 form (planes and maps in
+    bf16, v_lin rounded to bf16) on the two 4K splits at the default window
+    and on the ragged split at every window. Each
     block's row-offset warp, (partials, grad, precond) and energy partials
     against their plain versions on the same inputs (the warp 1e-6
-    absolute; grad and precond kernel 1's gate, 1e-5 of max|ref|; each raw
-    partial 1e-5 of its own size). At the two 4K splits also: the
-    row-offset warp equals the whole-frame warp's rows bitwise (zero planes
-    outside the frame), each block's grad and precond equal the
+    absolute, in bf16 one bf16 step of max|ref|; grad and precond kernel
+    1's gate, 1e-5 of max|ref|; each raw partial 1e-5 of its own size). At
+    the 4K splits also: the row-offset warp equals the whole-frame warp's
+    rows bitwise (zero planes outside the frame; in bf16 also the float32
+    row-offset warp cast), each block's grad and precond equal the
     whole-frame kernel's rows (bitwise expected, else within 1e-6 of
     max|ref|), and the shard-summed energies are within 1e-6 relative of
     the whole-frame energy. Then the times, bounds and plain times of the
@@ -678,14 +748,18 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
 
     from videomorphing_tpu_torch.config import MorphParams
 
-    # (shape, params, blocks, whole-frame checks, timed): the 4K split also
-    # at the wide windows, the ragged split at every window
+    F32, BF16 = torch.float32, torch.bfloat16
+    # (shape, params, blocks, whole-frame checks, timed, dtype): the 4K split
+    # also at the wide windows, the ragged split at every window
     at = lambda k: p_default if k == p_default.ssim_window else MorphParams(ssim_window=k, ssim_sigma=WINDOW_SIGMA[k])
-    cases = ([(SHARD_SHAPES[0], p_default, 4, True, True),
-              (PAIRS_ROWS_HW, p_default, PAIRS_ROWS_BLOCKS, True, False)]
-             + [(SHARD_SHAPES[0], at(k), 4, True, True) for k in WIDE_WINDOWS]
-             + [(SHARD_SHAPES[1], at(k), 4, False, False) for k in WINDOW_SIGMA])
-    for (h, w), p, n, big, timed in cases:
+    cases = ([(SHARD_SHAPES[0], p_default, 4, True, True, F32),
+              (PAIRS_ROWS_HW, p_default, PAIRS_ROWS_BLOCKS, True, False, F32)]
+             + [(SHARD_SHAPES[0], at(k), 4, True, True, F32) for k in WIDE_WINDOWS]
+             + [(SHARD_SHAPES[1], at(k), 4, False, False, F32) for k in WINDOW_SIGMA]
+             + [(SHARD_SHAPES[0], p_default, 4, True, True, BF16),
+                (PAIRS_ROWS_HW, p_default, PAIRS_ROWS_BLOCKS, True, False, BF16)]
+             + [(SHARD_SHAPES[1], at(k), 4, False, False, BF16) for k in WINDOW_SIGMA])
+    for (h, w), p, n, big, timed, dt in cases:
         halo = exchange_halo(p)
         rng = np.random.default_rng(h + w + 1)
         i0 = t(rng.random((h, w, 3), dtype=np.float32))
@@ -698,9 +772,14 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
             t(rng.random((h, w, 1), dtype=np.float32)),
             v + t(0.5 * rng.standard_normal((h, w, 2)).astype(np.float32)),
         )
-        shape = f"{h}x{w} / {n}, window {p.ssim_window}"
+        bf16 = dt == BF16
+        sfx = "_bf16" if bf16 else ""
+        if bf16:
+            v_lin = v_lin.to(BF16).float()
+            data = ks.pack_maps(data, BF16)
+        shape = f"{h}x{w} / {n}, window {p.ssim_window}" + (" bf16" if bf16 else "")
         if big:
-            planes = kw.halfway_warp(i0, i1, v_lin)
+            planes = kw.halfway_warp(i0, i1, v_lin, dt)
             e_whole, g_whole, p_whole = ks.sweep_grad(planes, v_lin, v, data, p)
             e2_whole = ks.sweep_energy(planes, v_lin, v, data, p)
         parts_g, parts_e, bitwise = [], [], True
@@ -708,17 +787,18 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
             he = rows.stop - rows.start + 2 * halo
             vl_e, v_e = _ext(v_lin, row0, he), _ext(v, row0, he)
             data_k = LevelData(i0, i1, *(m[rows].contiguous() for m in (data.ui_w, data.ui_v, data.tc_w, data.tc_v)))
-            pl_k = kw.halfway_warp_rows(i0, i1, vl_e, row0)
+            pl_k = kw.halfway_warp_rows(i0, i1, vl_e, row0, dt)
             pk, gk, pck = ks.sweep_grad_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo)
             pe = ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo)
             blk = f"block {k} of {shape}"
-            compare("halfway_warp_rows", kw.halfway_warp_rows_plain(i0, i1, vl_e, row0), pl_k, blk, 1e-6, False)
+            compare("halfway_warp_rows" + sfx, kw.halfway_warp_rows_plain(i0, i1, vl_e, row0, dt).float(),
+                    pl_k.float(), blk, 2.0 ** -8 if bf16 else 1e-6, bf16)
             rp, rg, rpc = ks.sweep_grad_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo)
-            compare_parts("sweep_grad_shard", rp, pk, blk)
-            compare("sweep_grad_shard", rg, gk, blk + " grad", 1e-5, True)
-            compare("sweep_grad_shard", rpc, pck, blk + " precond", 1e-5, True)
-            compare_parts("sweep_energy_shard", ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
-                          pe, blk)
+            compare_parts("sweep_grad_shard" + sfx, rp, pk, blk)
+            compare("sweep_grad_shard" + sfx, rg, gk, blk + " grad", 1e-5, True)
+            compare("sweep_grad_shard" + sfx, rpc, pck, blk + " precond", 1e-5, True)
+            compare_parts("sweep_energy_shard" + sfx,
+                          ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo), pe, blk)
             require(torch.equal(ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo), pe),
                     f"{blk}: sweep_energy_shard rerun is not bitwise identical")
             del rp, rg, rpc
@@ -726,12 +806,15 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
                 lo, hi = max(row0, 0), min(row0 + he, h)
                 require(torch.equal(pl_k[:, lo - row0:hi - row0], planes[:, lo:hi]),
                         f"halfway_warp_rows block {k}: rows differ from the whole-frame warp")
+                if bf16:
+                    require(torch.equal(pl_k, kw.halfway_warp_rows(i0, i1, vl_e, row0).to(BF16)),
+                            f"halfway_warp_rows block {k}: the bf16 output is not the float32 output cast")
                 outside = torch.ones(he, dtype=torch.bool, device=dev)
                 outside[lo - row0:hi - row0] = False
                 require(int(torch.count_nonzero(pl_k[:, outside])) == 0,
                         f"halfway_warp_rows block {k}: non-zero planes outside the frame")
-                for name, ref, got in (("sweep_grad_shard", g_whole[rows], gk),
-                                       ("sweep_grad_shard", p_whole[rows], pck)):
+                for name, ref, got in (("sweep_grad_shard" + sfx, g_whole[rows], gk),
+                                       ("sweep_grad_shard" + sfx, p_whole[rows], pck)):
                     if not torch.equal(ref, got):
                         bitwise = False
                         compare(name, ref, got, f"{blk} vs whole frame", 1e-6, True)
@@ -748,8 +831,9 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
                 acc = acc + row
             e_sh = float(ks.combine_parts(acc, p, h * w, 3))
             rel = abs(e_sh - float(e_ref)) / abs(float(e_ref))
-            log(f"  {name}: shard-summed energy {e_sh:.9g}, whole frame {float(e_ref):.9g}, rel {rel:.3e} (limit 1e-6)")
-            require(rel <= 1e-6, f"{name}: shard-summed energy off by {rel}")
+            log(f"  {name + sfx}: shard-summed energy {e_sh:.9g}, whole frame {float(e_ref):.9g}, rel {rel:.3e} "
+                "(limit 1e-6)")
+            require(rel <= 1e-6, f"{name + sfx}: shard-summed energy off by {rel}")
         del planes, g_whole, p_whole
         if not timed:
             del data, i0, i1
@@ -761,7 +845,7 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
         bh = rows.stop - rows.start
         vl_e, v_e = _ext(v_lin, row0, he), _ext(v, row0, he)
         data_k = LevelData(i0, i1, *(m[rows].contiguous() for m in (data.ui_w, data.ui_v, data.tc_w, data.tc_v)))
-        pl_k = kw.halfway_warp_rows(i0, i1, vl_e, row0)
+        pl_k = kw.halfway_warp_rows(i0, i1, vl_e, row0, dt)
         if p is not p_default:
             time_wide_window(he, w, p,
                              lambda: ks.sweep_grad_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
@@ -773,20 +857,22 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
             torch.cuda.empty_cache()
             continue
         c, kt = 3, int(p.ssim_window)
+        pb = 2 if bf16 else 4  # bytes of a plane or map value
         forms = {
-            "halfway_warp_rows": (lambda: kw.halfway_warp_rows(i0, i1, vl_e, row0),
-                                  lambda: kw.halfway_warp_rows_plain(i0, i1, vl_e, row0),
-                                  bound(4 * he * w * (2 * c + 2 + 6 * c), he * w * warp_ops_per_pixel(c))),
+            "halfway_warp_rows": (lambda: kw.halfway_warp_rows(i0, i1, vl_e, row0, dt),
+                                  lambda: kw.halfway_warp_rows_plain(i0, i1, vl_e, row0, dt),
+                                  bound(he * w * (4 * (2 * c + 2) + pb * 6 * c), he * w * warp_ops_per_pixel(c))),
             "sweep_grad_shard": (lambda: ks.sweep_grad_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
                                  lambda: ks.sweep_grad_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
-                                 bound(4 * (he * w * (6 * c + 4) + bh * w * (6 + 4)),
+                                 bound(he * w * (pb * 6 * c + 16) + bh * w * (pb * 6 + 16),
                                        bh * w * sweep_ops_per_pixel(c, kt, True))),
             "sweep_energy_shard": (lambda: ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
                                    lambda: ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
-                                   bound(4 * (he * w * (6 * c + 4) + bh * w * 6),
+                                   bound(he * w * (pb * 6 * c + 16) + bh * w * pb * 6,
                                          bh * w * sweep_ops_per_pixel(c, kt, False))),
         }
         for name, (kern, plain, bnd) in forms.items():
+            name += sfx
             rec[name]["ms"], rec[name]["plain_ms"], (k1, k2, pl1, pl2), call = timed_pair(kern, plain, 10)
             rec[name]["bound"] = bnd
             log(f"  {name} {he}x{w} block time: kernel {k1:.4f}/{k2:.4f} ms (device), {call:.4f} ms (call), "
@@ -823,15 +909,12 @@ def main_path(dev, card: str) -> dict:
 
     n, n_frames = 1024, 16
     i0, i1, pts = make_pair(n)
-    counters = kernel_counters()
-    torch.cuda.synchronize()
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     frames = api.morph_pair(i0, i1, pts, n_frames=n_frames, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counters(counters)
     log(f"  launches in the pair path: {launches}")
 
     require(tuple(frames.shape) == (n_frames, n, n, 3), f"frames have shape {tuple(frames.shape)}")
@@ -918,17 +1001,13 @@ def video_path(dev, card: str) -> dict:
     ca = torch.from_numpy(clip_a).to(dev)
     cb = torch.from_numpy(clip_b).to(dev)
     del clip_a, clip_b
-    counters = kernel_counters()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     with profiling.record_phases() as rec:
         res = api.morph_clips(ca, cb, pts, device=dev)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counters(counters)
     log(f"  launches in the video path: {launches}")
 
     frames = res.frames
@@ -990,12 +1069,17 @@ def blob_discs(t_len: int, h: int, w: int, x0: float, dev):
 
 
 def kernel_counters():
-    """Every kernel wrapper's launch counter, in ``KERNELS`` order."""
+    """Every kernel's launch counter as (name, wrapper, attribute), in
+    ``KERNELS`` order: a bf16 form's is ``launches_bf16`` of its wrapper."""
     from videomorphing_tpu_torch.kernels import sweep as ks
     from videomorphing_tpu_torch.kernels import warp as kw
 
-    mods = (kw, ks)
-    return tuple(next(getattr(m, name) for m in mods if hasattr(m, name)) for name in KERNELS)
+    out = []
+    for name in KERNELS:
+        base = name.removesuffix("_bf16")
+        fn = getattr(ks, base, None) or getattr(kw, base)
+        out.append((name, fn, "launches" if base == name else "launches_bf16"))
+    return tuple(out)
 
 
 def check_frames(frames, shape) -> None:
@@ -1017,15 +1101,12 @@ def layered_pair_path(dev, card: str) -> dict:
     n, n_frames = 1024, 16
     i0, i1, pts = make_pair(n)
     layer = dict(mask0=blob_discs(1, n, n, 0.45 * n, dev)[0], mask1=blob_discs(1, n, n, 0.55 * n, dev)[0])
-    counters = kernel_counters()
-    torch.cuda.synchronize()
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     frames = api.morph_pair_layered(i0, i1, [layer], pts, n_frames=n_frames, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counters(counters)
     log(f"  launches in the layered pair path: {launches}")
     check_frames(frames, (n_frames, n, n, 3))
     for name in BASE:
@@ -1060,17 +1141,13 @@ def layered_video_path(dev, card: str) -> dict:
     cb = torch.from_numpy(clip_b).to(dev)
     del clip_a, clip_b
     layer = dict(mask0=blob_discs(t_len, h, w, 0.45 * w, dev), mask1=blob_discs(t_len, h, w, 0.55 * w, dev))
-    counters = kernel_counters()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     with profiling.record_phases() as rec:
         res = api.morph_clips_layered(ca, cb, [layer], bench_points(h, w), device=dev)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counters(counters)
     log(f"  launches in the layered video path: {launches}")
     check_frames(res.frames, (t_len, h, w, 3))
     for f in (res.fields_bg,) + tuple(res.fields_layers):
@@ -1167,11 +1244,7 @@ def spatial_path(dev, card: str) -> dict:
     # the single-device solve of the same pair before and after the sharded
     # one, so that neither side carries the first use of the 4K shapes alone
     single, t_single0 = single_solve()
-    counters = kernel_counters()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     res = optimize_pair_spatial(i0, i1, pts, mp, mesh)
     torch.cuda.synchronize()
@@ -1180,7 +1253,7 @@ def spatial_path(dev, card: str) -> dict:
     frames = ImageMorpher(mp, device=str(dev)).render(i0, i1, art, _default_times(n_frames, "cpu"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counters(counters)
     log(f"  launches in the spatial path: {launches}")
     check_frames(frames, (n_frames, h, w, 3))
     for name in ("sweep_grad_shard", "sweep_energy_shard", "halfway_warp_rows") + BASE:
@@ -1252,17 +1325,13 @@ def mesh_video_path(dev, card: str) -> dict:
     cb = torch.from_numpy(clip_b).to(dev)
     del clip_a, clip_b
     mesh = make_mesh((3,), devices=[dev] * 3)
-    counters = kernel_counters()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     with profiling.record_phases() as rec:
         res = api.morph_clips(ca, cb, bench_points(h, w), mesh=mesh, device=dev)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counters(counters)
     log(f"  launches in the mesh video path: {launches}")
     check_frames(res.frames, (t_len, h, w, 3))
     require(bool(torch.isfinite(res.fields).all()), "non-finite fields")
@@ -1375,13 +1444,13 @@ def reset_counters():
     if torch.cuda.is_available():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    for fn in counters:
-        fn.launches = 0
+    for _, fn, attr in counters:
+        setattr(fn, attr, 0)
     return counters
 
 
 def read_counters(counters) -> dict:
-    return {fn.__name__: fn.launches for fn in counters}
+    return {name: getattr(fn, attr) for name, fn, attr in counters}
 
 
 def peak_gib(dev) -> str:
@@ -1970,6 +2039,190 @@ def wide_windows(dev, card: str) -> dict:
     return total
 
 
+@contextlib.contextmanager
+def record_forms():
+    """The set of (kind, rows, columns, plane dtype) of every sweep gradient
+    the level solvers ask for inside the block: ``descent.sweep_grad`` on a
+    whole level ("level"), ``spatial.sweep_grad_shard`` on a row block's
+    owned rows ("block"). The calls go on to the wrappers as before, so the
+    launch counts are unchanged."""
+    from videomorphing_tpu_torch.parallel import spatial
+    from videomorphing_tpu_torch.solver import descent
+
+    seen: set = set()
+    grad, shard = descent.sweep_grad, spatial.sweep_grad_shard
+
+    def whole(planes, v_lin, v, data, p):
+        seen.add(("level", planes.shape[1], planes.shape[2], planes.dtype))
+        return grad(planes, v_lin, v, data, p)
+
+    def block(planes, v_lin, v, data, p, row0, gh, halo):
+        seen.add(("block", planes.shape[1] - 2 * halo, planes.shape[2], planes.dtype))
+        return shard(planes, v_lin, v, data, p, row0, gh, halo)
+
+    descent.sweep_grad, spatial.sweep_grad_shard = whole, block
+    try:
+        yield seen
+    finally:
+        descent.sweep_grad, spatial.sweep_grad_shard = grad, shard
+
+
+def check_level_forms(seen: set, mp, what: str) -> None:
+    """Every level (or row block's owned rows) of at least
+    ``mp.pallas_min_pixels`` pixels ran the bf16 form and every smaller one
+    the float32 form (``backend="auto"`` on the card), and both ran."""
+    import torch
+
+    wrong = sorted((kind, rows, cols, str(dt)) for kind, rows, cols, dt in seen
+                   if dt != (torch.bfloat16 if rows * cols >= mp.pallas_min_pixels else torch.float32))
+    forms = sorted({(kind, rows, cols, str(dt).replace("torch.", "")) for kind, rows, cols, dt in seen})
+    log(f"  {what} forms by level: {forms}")
+    require(not wrong, f"{what}: levels ran the wrong form: {wrong}")
+    require({dt for *_, dt in seen} == {torch.float32, torch.bfloat16},
+            f"{what}: expected float32 levels under {mp.pallas_min_pixels} px and bf16 levels above")
+
+
+def bf16_pack(dev, card: str) -> dict:
+    """Phase 19: ``pack_dtype="bfloat16"`` (``backend="auto"``) through the
+    entry points: ``api.morph_pair`` on phase 3's inputs (endpoints within
+    0.02, a bitwise rerun, the field's median and max |dv| against phase
+    3's float32 field, printed without a gate: the float32 solve itself
+    moves 0.18 px under 1e-7 px of input noise); ``api.morph_clips`` on
+    phase 5's clip pair (``BF16_VIDEO_THW``: shapes, a monotone blob
+    centroid from clip A's first frame to clip B's last); the 4K pair
+    through ``optimize_pair_spatial`` on 4 row blocks of the card (a
+    monotone blob centroid of 16 frames); ``run_golden`` (SSIM >= 0.99,
+    translation error < 0.1 px). Each with its wall and launches, and the
+    forms by level (``record_forms``): float32 under ``pallas_min_pixels``,
+    bf16 from there. Returns the launches of the four runs (the pair's
+    rerun left out), summed."""
+    import torch
+
+    from videomorphing_tpu_torch import api
+    from videomorphing_tpu_torch.config import MorphParams, SynthParams
+    from videomorphing_tpu_torch.models.image_morph import ImageMorpher, MorphArtifacts
+    from videomorphing_tpu_torch.parallel.mesh import make_mesh
+    from videomorphing_tpu_torch.parallel.spatial import optimize_pair_spatial
+    from videomorphing_tpu_torch.synth.paths import bulge_field
+    from videomorphing_tpu_torch.utils.golden import run_golden
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
+    from videomorphing_tpu_torch.video.pipeline import _default_times
+
+    mp = MorphParams(pack_dtype="bfloat16")
+    forms16 = [f"{name}_bf16" for name in BF16_FORMS]
+    total: dict = {}
+
+    def add(launches):
+        for name, k in launches.items():
+            total[name] = total.get(name, 0) + k
+
+    # the pair
+    n, n_frames = 1024, 16
+    i0, i1, pts = make_pair(n)
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    with record_forms() as seen:
+        frames = api.morph_pair(i0, i1, pts, n_frames=n_frames, mp=mp, device=dev)
+        sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    log(f"  launches in the bf16 pair path: {launches}")
+    check_level_forms(seen, mp, "bf16 pair")
+    for name in ("halfway_warp", "sweep_grad", "sweep_energy"):
+        require(launches[name] > 0 and launches[name + "_bf16"] > 0,
+                f"{name}: the pair path launched {launches[name]} float32 and {launches[name + '_bf16']} bf16 forms")
+    check_frames(frames, (n_frames, n, n, 3))
+    check_endpoints(frames.cpu().numpy(), i0, i1, "bf16 pair")
+    again = api.morph_pair(i0, i1, pts, n_frames=n_frames, mp=mp, device=dev)
+    require(torch.equal(frames, again), "bf16: the pair morph's rerun is not bitwise identical")
+    del frames, again
+    # phase 3's float32 field, solved again (the solve is bitwise repeatable)
+    dv = (api.solve_pair(i0, i1, pts, mp, device=dev).v - api.solve_pair(i0, i1, pts, device=dev).v).abs()
+    log(f"  pair_1k bf16: wall {wall:.3f} s for solve + {n_frames} frames (first call), rerun bitwise equal; "
+        f"field against phase 3's float32 field: median |dv| {float(dv.median()):.3e} px, "
+        f"max {float(dv.max()):.3e} px (no gate) on {card}")
+    add(launches)
+
+    # the clip pair
+    t_len, h, w = BF16_VIDEO_THW
+    clip_a, clip_b = make_clips(t_len, h, w, seed=0)
+    ca, cb = torch.from_numpy(clip_a).to(dev), torch.from_numpy(clip_b).to(dev)
+    del clip_a, clip_b
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    with record_forms() as seen:
+        res = api.morph_clips(ca, cb, bench_points(h, w), mp=mp, device=dev)
+        sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    log(f"  launches in the bf16 video path: {launches}")
+    check_level_forms(seen, mp, "bf16 video")
+    for name in ("halfway_warp", "sweep_grad", "sweep_energy"):
+        require(launches[name + "_bf16"] > 0, f"{name}_bf16 was not launched on the video path")
+    check_frames(res.frames, (t_len, h, w, 3))
+    cx = np.concatenate([blob_centroids_x(res.frames[k:k + 10]) for k in range(0, t_len, 10)])
+    ca0, cb_end = blob_centroids_x(ca[:1])[0], blob_centroids_x(cb[-1:])[0]
+    log(f"  blob centroid x per frame: {np.round(cx, 2).tolist()} (A[0] {ca0:.2f}, B[{t_len - 1}] {cb_end:.2f})")
+    require(np.all(np.diff(cx) > 0.0), "bf16 video: blob centroid does not rise monotonically")
+    require(abs(cx[0] - ca0) < 0.01 * w and abs(cx[-1] - cb_end) < 0.01 * w,
+            "bf16 video: blob centroid misses clip A's first or clip B's last frame")
+    log(f"  video_1080p bf16: wall {wall:.3f} s for {t_len} frames, {t_len / wall:.3f} frames/s, "
+        f"peak {peak_gib(dev)} on {card}")
+    add(launches)
+    del res, ca, cb
+    torch.cuda.empty_cache()
+
+    # the 4K pair on 4 row blocks
+    (h, w), n_blocks = SPATIAL_HW, 4
+    clip_a, clip_b = make_clips(1, h, w, seed=0)
+    i0, i1 = torch.from_numpy(clip_a[0]).to(dev), torch.from_numpy(clip_b[0]).to(dev)
+    del clip_a, clip_b
+    mesh = make_mesh((n_blocks,), ("y",), devices=[dev] * n_blocks)
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    with record_forms() as seen:
+        res = optimize_pair_spatial(i0, i1, bench_points(h, w), mp, mesh)
+        sync(dev)
+    t_solve = time.perf_counter() - t0
+    art = MorphArtifacts(v=res.v, b=bulge_field(res.v, SynthParams()), result=res)
+    frames = ImageMorpher(mp, device=str(dev)).render(i0, i1, art, _default_times(n_frames, "cpu"))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    log(f"  launches in the bf16 spatial path: {launches}")
+    check_level_forms(seen, mp, "bf16 spatial")
+    require({kind for kind, *_ in seen} == {"level", "block"}, "bf16 spatial: no sharded or no local level")
+    for name in ("halfway_warp_rows", "sweep_grad_shard", "sweep_energy_shard"):
+        require(launches[name + "_bf16"] > 0, f"{name}_bf16 was not launched on the spatial path")
+    check_frames(frames, (n_frames, h, w, 3))
+    cx = blob_centroids_x(frames)
+    require(np.all(np.diff(cx) > 0.0), "bf16 spatial: blob centroid does not rise monotonically")
+    log(f"  spatial_4k bf16: sharded solve {t_solve:.3f} s, wall {wall:.3f} s with {n_frames} frames, "
+        f"peak {peak_gib(dev)}, {n_blocks} row blocks on one card (in turn) on {card}")
+    add(launches)
+    del frames, res, art, i0, i1
+    torch.cuda.empty_cache()
+
+    # the golden cases
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    with record_forms() as seen:
+        for case in ("translation", "rotation", "scale"):
+            r = run_golden(case, hw=GOLDEN_HW, mp=mp, device=dev)
+            log(f"  golden {case} {GOLDEN_HW[0]}x{GOLDEN_HW[1]} bf16: ssim_mid {r['ssim_mid']}, "
+                f"v_err_mean {r['v_err_mean']} px, v_err_p99 {r['v_err_p99']} px")
+            require(r["ssim_mid"] >= 0.99, f"golden {case} bf16: midpoint SSIM {r['ssim_mid']} < 0.99")
+            if case == "translation":
+                require(r["v_err_mean"] < 0.1, f"golden translation bf16: mean field error {r['v_err_mean']} >= 0.1 px")
+        sync(dev)
+    launches = read_counters(counters)
+    check_level_forms(seen, mp, "bf16 golden")
+    log(f"  golden bf16: wall {time.perf_counter() - t0:.3f} s for 3 cases; launches {launches}")
+    add(launches)
+    require(all(total[name] > 0 for name in forms16), f"bf16 forms not launched in phase 19: {total}")
+    return total
+
+
 def main(argv) -> int:
     import torch
 
@@ -1996,16 +2249,17 @@ def main(argv) -> int:
     lib = build.load()
     from videomorphing_tpu_torch.kernels import sweep as ks
     info = (ctypes.c_int * 5)()
-    for with_grad in (1, 0):
-        # every instantiation, then the wide path (its kernels' extremes; R = 0 and past the instantiated R)
-        radii = [r for r in range(1, 16) if ks.tiled(with_grad, r)]
-        for r in radii + [radii[-1] + 1]:
-            build.check(lib.vm_sweep_kernel_info(r, with_grad, info), "vm_sweep_kernel_info")
-            what = ks.kernel_name(with_grad, r)
-            log(f"  {what}: {info[0]} registers, {info[1]} B static + {info[2]} B dynamic shared memory, "
-                f"{info[3]} B local, {info[4]} resident blocks of "
-                f"{256} threads per SM ({info[4] * 8} warps)")
-            require(info[4] >= 1, f"{what} cannot be resident on an SM")
+    for bf16 in (0, 1):
+        for with_grad in (1, 0):
+            # every instantiation, then the wide path (its kernels' extremes; R = 0 and past the instantiated R)
+            radii = [r for r in range(1, 16) if ks.tiled(with_grad, r)]
+            for r in radii + [radii[-1] + 1]:
+                build.check(lib.vm_sweep_kernel_info(r, with_grad, bf16, info), "vm_sweep_kernel_info")
+                what = ks.kernel_name(with_grad, r) + (" (bf16)" if bf16 else "")
+                log(f"  {what}: {info[0]} registers, {info[1]} B static + {info[2]} B dynamic shared memory, "
+                    f"{info[3]} B local, {info[4]} resident blocks of "
+                    f"{256} threads per SM ({info[4] * 8} warps)")
+                require(info[4] >= 1, f"{what} cannot be resident on an SM")
     for with_grad in (True, False):
         radii = [r for r in range(0, 11) if ks.tiled(with_grad, r)]
         for r in [0] + radii + [radii[-1] + 1, 10]:
@@ -2062,10 +2316,13 @@ def main(argv) -> int:
     log(f"phase 18: wide windows (api.morph_pair and run_golden at ssim_window {WIDE_PAIR_WINDOW}, "
         f"optimize_pair_spatial at {SPATIAL_HW[0]}x{SPATIAL_HW[1]} on 4 row blocks at ssim_window {WIDE_SPATIAL_WINDOW})")
     wide_launches = wide_windows(dev, card)
+    log("phase 19: bf16 pack (pack_dtype='bfloat16': api.morph_pair 1024x1024, api.morph_clips {}x{}x{}, "
+        "optimize_pair_spatial {}x{} on 4 row blocks, run_golden)".format(*BF16_VIDEO_THW, *SPATIAL_HW))
+    bf16_launches = bf16_pack(dev, card)
 
     paths = (launches, golden_launches, video_launches, layered_launches, layered_video_launches, spatial_launches,
              mesh_launches, manifest_launches, stream_launches, stressor_launches, edit_launches, rows_launches,
-             examples_launches, wide_launches)
+             examples_launches, wide_launches, bf16_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]
@@ -2076,6 +2333,7 @@ def main(argv) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"],
         })
+    log("launches in phase 19 (bf16 pack): " + json.dumps(bf16_launches))
     log(f"script: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -8,9 +8,11 @@
 - the functions that export brought into the port, each against the
   reference on the CPU with numpy-seeded inputs;
 - every public function and class of each reference subpackage (its
-  ``__all__`` and every module of it that the port mirrors) and of
-  ``api`` accepts, in the port, every parameter name of the reference's,
-  but for the documented exceptions of ``SIGNATURE_EXCEPTIONS``;
+  ``__all__`` and every module of it that the port mirrors), of ``io``
+  and of the modules ``api``, ``edit``, ``viewer`` and ``config`` accepts,
+  in the port, every parameter name of the reference's, and the port's
+  command line every subcommand and flag of the reference's, but for the
+  documented exceptions of ``SIGNATURE_EXCEPTIONS``;
 - ``utils.synthetic.make_clips`` equals the reference benchmark's
   ``bench._make_clips``;
 - the kernel layer: every public name of the reference's
@@ -87,7 +89,13 @@ SIGNATURE_EXCEPTIONS = {
     "videomorphing_tpu.parallel.halo.halo_exchange_rows":
         "x and axis_name are a shard_map collective's arguments; the port exchanges the rows of a "
         "list of per-device blocks (blocks, halo)",
+    "videomorphing_tpu.cli bench":
+        "the benchmark subcommand is not ported yet (ROADMAP queue 1): it comes with the port's BENCHMARK.json",
+    "videomorphing_tpu.cli --platform":
+        "JAX's platform choice; the port's subcommands take --device (cuda by default, or cpu)",
 }
+# the reference modules (not subpackages) whose public functions the port mirrors
+MODULES = ("api", "io", "edit", "viewer", "config")
 
 
 def _public_callables(mod):
@@ -107,12 +115,12 @@ def _parameter_names(obj):
     return {p.name for p in params if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
 
 
-@pytest.mark.parametrize("name", SUBPACKAGES + ("api",))
+@pytest.mark.parametrize("name", SUBPACKAGES + MODULES)
 def test_functions_accept_the_reference_parameters(name):
     """A caller written against the reference passes the port every
     parameter name the reference's function takes: the names of the
     subpackage's ``__all__`` and the public functions of each of its
-    modules that the port mirrors (for ``api``, its public functions)."""
+    modules that the port mirrors (for a module, its public functions)."""
     ref_pkg = importlib.import_module(f"videomorphing_tpu.{name}")
     pairs = []  # (qualified reference name, reference object, port object)
     port_pkg = importlib.import_module(f"videomorphing_tpu_torch.{name}")
@@ -138,6 +146,38 @@ def test_functions_accept_the_reference_parameters(name):
         if ref_names - port_names:
             missing[qual] = sorted(ref_names - port_names)
     assert not missing, f"the port rejects the reference's parameters: {missing}"
+
+
+def _cli_table(parser):
+    """{subcommand: its option strings} of an argparse parser."""
+    import argparse
+
+    return {name: {s for act in sub._actions for s in act.option_strings}
+            for act in parser._actions if isinstance(act, argparse._SubParsersAction)
+            for name, sub in act.choices.items()}
+
+
+def test_cli_accepts_the_reference_subcommands_and_flags():
+    """Every subcommand of the reference's command line exists in the
+    port's and takes each of the reference's flags, but for the
+    documented exceptions of ``SIGNATURE_EXCEPTIONS``."""
+    from videomorphing_tpu import cli as jcli
+    from videomorphing_tpu_torch import cli as tcli
+
+    ref, port = _cli_table(jcli.build_parser()), _cli_table(tcli.build_parser())
+    assert ref and port
+    missing = {}
+    for sub, flags in ref.items():
+        if f"videomorphing_tpu.cli {sub}" in SIGNATURE_EXCEPTIONS:
+            assert sub not in port, f"{sub} is ported: drop its exception"
+            continue
+        if sub not in port:
+            missing[sub] = "the subcommand"
+            continue
+        lack = sorted(f for f in flags - port[sub] if f"videomorphing_tpu.cli {f}" not in SIGNATURE_EXCEPTIONS)
+        if lack:
+            missing[sub] = lack
+    assert not missing, f"the port's command line rejects the reference's: {missing}"
 
 
 def test_sample_at():

@@ -12,7 +12,9 @@
   their plain versions and leave their launch counters at 0;
 - the seven mesh entry points (the multi-device video paths) run with a
   CPU mesh;
-- ``pack_dtype="bfloat16"`` raises, and ``build.py`` raises without nvcc.
+- an unknown ``pack_dtype`` raises where the reference reads it
+  (``backend="pallas"``) and not under ``"auto"`` on the CPU, and
+  ``build.py`` raises without nvcc.
 """
 
 import dataclasses
@@ -131,7 +133,7 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(s, kw.bilinear_sample_plain(data.i0, v + 3.0))
     for fn in (kw.halfway_warp, kw.bilinear_sample, ks.sweep_grad, ks.sweep_energy,
                kw.halfway_warp_rows, ks.sweep_grad_shard, ks.sweep_energy_shard):
-        assert fn.launches == 0, fn.__name__
+        assert fn.launches == 0 and getattr(fn, "launches_bf16", 0) == 0, fn.__name__
 
 
 def test_batched_sampler_on_cpu_tensors_counts_nothing():
@@ -179,8 +181,16 @@ def test_mixed_devices_raise():
 
 
 def test_bfloat16_pack_raises():
+    """Only a pack dtype the reference does not know raises, and only where
+    the reference reads it: under ``backend="pallas"``, not under
+    ``"auto"`` on the CPU (its jnp path); ``"bfloat16"`` solves."""
+    data, v = _small()
+    bad = port_config.MorphParams(pack_dtype="float16", backend="pallas")
     with pytest.raises(ValueError, match="pack_dtype"):
-        make_level_solver(port_config.MorphParams(pack_dtype="bfloat16"), 4)
+        make_level_solver(bad, 2)(v, data)
+    v_auto, _ = make_level_solver(dataclasses.replace(bad, backend="auto"), 2)(v, data)
+    v_bf16, _ = make_level_solver(port_config.MorphParams(pack_dtype="bfloat16", backend="pallas"), 2)(v, data)
+    assert torch.isfinite(v_auto).all() and torch.isfinite(v_bf16).all()
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

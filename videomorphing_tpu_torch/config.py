@@ -8,10 +8,11 @@ each default is documented in ``videomorphing_tpu/config.py``.
 
 Knobs that only steer TPU machinery are kept for signature parity and are
 ignored by the port (the kernel runs whenever the tensors lie on the card):
-``backend``, ``pallas_min_pixels``, ``fused_warp``, ``warp_into_pack``,
-``warp_prescreen``, ``SynthParams.fused_sampling``, and ``VideoParams``'s
-``fused_occlusion``, ``fused_advect`` and ``fused_flow``. ``pack_dtype`` other
-than ``"float32"`` changes the output and raises in the level solver.
+``fused_warp``, ``warp_into_pack``, ``warp_prescreen``,
+``SynthParams.fused_sampling``, and ``VideoParams``'s ``fused_occlusion``,
+``fused_advect`` and ``fused_flow``. ``backend`` and ``pallas_min_pixels``
+are read for one choice only: where ``pack_dtype="bfloat16"`` takes effect
+(``solver.descent.pack_dtype_for``, the reference's ``_resolve_backend``).
 """
 
 from __future__ import annotations

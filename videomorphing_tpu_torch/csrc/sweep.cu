@@ -150,8 +150,30 @@
 //     starts, so its row shards equal the whole frame's rows bit for bit
 //     too. Each tap of each window sum is a load through the caches rather
 //     than from shared memory: a simple path for rare windows.
+//
+// The bf16 form (MorphParams.pack_dtype = "bfloat16"; the reference's bf16
+// pack, pallas/sweep.py:86-107, whose kernels upcast every read of the
+// pack and compute in float32, :345-360): every kernel above is
+// instantiated for the type PT of the plane stack and the four UI/TC maps,
+// float or __nv_bfloat16, and the entry points vm_sweep_grad_bf16 and
+// vm_sweep_energy_bf16 launch the bf16 instantiations. Each value of the
+// planes and maps is upcast by __bfloat162float as it is read (ld, ldg);
+// v and v_lin stay float32, and so does all arithmetic, but 1/n, which the
+// reference stores in its pack too, is rounded to bf16 by
+// __float2bfloat16_rn before use (pack_round). At C = 3 a pixel's planes
+// and maps are 36 + 12 bytes where float32 has 72 + 24. cp.async copies 4,
+// 8 or 16 bytes, and a 2-byte element at an odd column has no 4-byte
+// aligned pair, so the bf16 instantiations stage their planes through
+// registers: a thread loads its elements, upcasts them and stores float32
+// into the same shared-memory layout that the float instantiations fill by
+// cp.async (v and v_lin still arrive by cp.async). Shared memory, the tiles
+// and the order of every sum are those of the float instantiations, so the
+// bf16 form's row shards equal its whole frame's rows bit for bit too.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 extern "C" {
 // Mirrored by ctypes in kernels/sweep.py (same field order).
@@ -366,6 +388,24 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
+// A value of the planes or the UI/TC maps, upcast to float32 as it is read
+// (ldg through the read-only path).
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+
+// 1/n as the pack of plane type PT holds it: rounded to bf16 in the bf16 form.
+template <class PT>
+__device__ __forceinline__ float pack_round(float x) {
+  if constexpr (std::is_same_v<PT, float>) return x;
+  else return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Whether plane type PT is staged by cp.async (float) or through registers (bf16).
+template <class PT>
+constexpr bool ASYNC_PLANES = std::is_same_v<PT, float>;
+
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // waits until at most the N most recent committed groups are in flight
@@ -535,12 +575,12 @@ __device__ __forceinline__ void pair_sums(const float* __restrict__ row, int x0,
 }
 
 // Kernel 1: energy partials, gradient and preconditioner of one tile.
-template <int R>
+template <int R, class PT>
 __global__ void __launch_bounds__(NT, 2)
-sweep_grad_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
-                  const float* __restrict__ v, const float* __restrict__ ui_w,
-                  const float* __restrict__ ui_v, const float* __restrict__ tc_w,
-                  const float* __restrict__ tc_v, float* __restrict__ grad,
+sweep_grad_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin,
+                  const float* __restrict__ v, const PT* __restrict__ ui_w,
+                  const PT* __restrict__ ui_v, const PT* __restrict__ tc_w,
+                  const PT* __restrict__ tc_v, float* __restrict__ grad,
                   float* __restrict__ precond, float* __restrict__ partials, VmSweepScalars s) {
   using G = Geo<R>;
   constexpr int K = G::K, HS = G::HS, HA = G::HA;
@@ -587,7 +627,8 @@ sweep_grad_kernel(const float* __restrict__ planes, const float* __restrict__ v_
   }
 
   // cp.async of channel c's planes (zero outside the image): its four dw
-  // planes into their buffer, or its w0, w1
+  // planes into their buffer, or its w0, w1; the bf16 form loads, upcasts
+  // and stores them itself
   auto issue = [&](int c, bool dw) {
     float* dst = dw ? sD + (c & 1) * 4 * NA : sW;
 #pragma unroll
@@ -601,7 +642,8 @@ sweep_grad_kernel(const float* __restrict__ planes, const float* __restrict__ v_
           if (!dw && k >= 2) break;
           // dw0 y, dw0 x, dw1 y, dw1 x; or w0, w1
           int plane = dw ? (k < 2 ? 2 : 4) * C + 2 * c + (k & 1) : k * C + c;
-          cp_async4(dst + k * NA + j, planes + (size_t)plane * hw + p, in);
+          if constexpr (ASYNC_PLANES<PT>) cp_async4(dst + k * NA + j, planes + (size_t)plane * hw + p, in);
+          else dst[k * NA + j] = in ? ld(planes + (size_t)plane * hw + p) : 0.0f;
         }
       }
     }
@@ -630,12 +672,12 @@ sweep_grad_kernel(const float* __restrict__ planes, const float* __restrict__ v_
     const int oy = y0 + ly, ox = x0 + lx0 + k;
     const bool own = oy < own_end && ox < w;
     const int qpix = own ? (oy - s.own0) * w + ox : 0;  // in the owned-row maps
-    uw[k] = own ? ui_w[qpix] : 0.0f;
-    tw[k] = own ? tc_w[qpix] : 0.0f;
+    uw[k] = own ? ld(ui_w + qpix) : 0.0f;
+    tw[k] = own ? ld(tc_w + qpix) : 0.0f;
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
-      uiv[k][kk] = own ? ui_v[2 * qpix + kk] : 0.0f;
-      tcv[k][kk] = own ? tc_v[2 * qpix + kk] : 0.0f;
+      uiv[k][kk] = own ? ld(ui_v + 2 * qpix + kk) : 0.0f;
+      tcv[k][kk] = own ? ld(tc_v + 2 * qpix + kk) : 0.0f;
     }
   }
 
@@ -669,7 +711,7 @@ sweep_grad_kernel(const float* __restrict__ planes, const float* __restrict__ v_
     int r = i / SXP, cx = i % SXP;
     int gy = y0 - HS + r, gx = x0 - HS + cx;
     bool in = cx < SX && row_in(s, gy) && gx >= 0 && gx < w;
-    sInvN[i] = in ? 1.0f / (sNy[r] * sNx[cx]) : 0.0f;
+    sInvN[i] = in ? pack_round<PT>(1.0f / (sNy[r] * sNx[cx])) : 0.0f;
   }
 
   float e_sim = 0.0f;
@@ -922,12 +964,12 @@ sweep_grad_kernel(const float* __restrict__ planes, const float* __restrict__ v_
 // of the earlier channels wait in grad / precond (each pixel's own thread
 // reads back what it wrote), and the last channel adds the TPS, UI and TC
 // terms.
-template <int R>
+template <int R, class PT>
 __global__ void __launch_bounds__(NT, 2)
-sweep_grad_strip_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
-                        const float* __restrict__ v, const float* __restrict__ ui_w,
-                        const float* __restrict__ ui_v, const float* __restrict__ tc_w,
-                        const float* __restrict__ tc_v, float* __restrict__ grad,
+sweep_grad_strip_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin,
+                        const float* __restrict__ v, const PT* __restrict__ ui_w,
+                        const PT* __restrict__ ui_v, const PT* __restrict__ tc_w,
+                        const PT* __restrict__ tc_v, float* __restrict__ grad,
                         float* __restrict__ precond, float* __restrict__ partials, VmSweepScalars s) {
   using G = SGeo<R>;
   constexpr int K = G::K, RB = G::RB, SC = STRIP_COLS, SW = G::SW, SWP = G::SWP, AWP = G::AWP,
@@ -960,14 +1002,16 @@ sweep_grad_strip_kernel(const float* __restrict__ planes, const float* __restric
   // this thread's chunk of each step: 4 neighbouring staged columns of one
   // row (tid < NCH), the first at column x0 - AO + ch_col; 16-byte copies
   // where the width and the pointers allow it (every chunk then lies
-  // wholly inside or outside the image), else 4-byte copies
+  // wholly inside or outside the image), else 4-byte copies; the bf16 form
+  // loads, upcasts and stores its planes itself
   const int ch_row = tid / (G::SAW / 4), ch_col = 4 * (tid % (G::SAW / 4));
-  const bool vec = (w & 3) == 0 && (((size_t)planes | (size_t)v | (size_t)v_lin) & 15) == 0;
+  const bool vec = (w & 3) == 0 &&
+                   (((ASYNC_PLANES<PT> ? (size_t)planes : 0) | (size_t)v | (size_t)v_lin) & 15) == 0;
   // cp.async of step i's rows of channel c (zero outside the image): the
   // six planes, then v and v_lin as (y, x) pairs
   auto issue = [&](int c, int i) {
     if (tid < G::NCH) {
-      const float* const src[6] = {planes + (size_t)c * hw, planes + (size_t)(C + c) * hw,
+      const PT* const src[6] = {planes + (size_t)c * hw, planes + (size_t)(C + c) * hw,
                                    planes + (size_t)(2 * C + 2 * c) * hw, planes + (size_t)(2 * C + 2 * c + 1) * hw,
                                    planes + (size_t)(4 * C + 2 * c) * hw, planes + (size_t)(4 * C + 2 * c + 1) * hw};
       const int y = ya + i * RB + ch_row, x = x0 - G::AO + ch_col;
@@ -975,11 +1019,22 @@ sweep_grad_strip_kernel(const float* __restrict__ planes, const float* __restric
       const int e = ch_row * G::SAW + ch_col;  // the chunk's first staged pixel
       float* const pv = sStage + 6 * NST + 2 * e;
       float* const pl = sStage + 8 * NST + 2 * e;
+      if constexpr (!ASYNC_PLANES<PT>) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const bool in = row_ok && x + m >= 0 && x + m < w;
+          const size_t p = in ? (size_t)y * w + x + m : 0;
+#pragma unroll
+          for (int k = 0; k < 6; ++k) sStage[k * NST + e + m] = in ? ld(src[k] + p) : 0.0f;
+        }
+      }
       if (vec) {
         const bool in = row_ok && x >= 0 && x < w;
         const size_t p = in ? (size_t)y * w + x : 0;
+        if constexpr (ASYNC_PLANES<PT>) {
 #pragma unroll
-        for (int k = 0; k < 6; ++k) cp_async16(sStage + k * NST + e, src[k] + p, in);
+          for (int k = 0; k < 6; ++k) cp_async16(sStage + k * NST + e, src[k] + p, in);
+        }
         cp_async16(pv, v + 2 * p, in);
         cp_async16(pv + 4, v + 2 * p + 4, in);
         cp_async16(pl, v_lin + 2 * p, in);
@@ -989,8 +1044,10 @@ sweep_grad_strip_kernel(const float* __restrict__ planes, const float* __restric
         for (int m = 0; m < 4; ++m) {
           const bool in = row_ok && x + m >= 0 && x + m < w;
           const size_t p = in ? (size_t)y * w + x + m : 0;
+          if constexpr (ASYNC_PLANES<PT>) {
 #pragma unroll
-          for (int k = 0; k < 6; ++k) cp_async4(sStage + k * NST + e + m, src[k] + p, in);
+            for (int k = 0; k < 6; ++k) cp_async4(sStage + k * NST + e + m, src[k] + p, in);
+          }
 #pragma unroll
           for (int k = 0; k < 2; ++k) {
             cp_async4(pv + 2 * m + k, v + 2 * p + k, in);
@@ -1004,7 +1061,7 @@ sweep_grad_strip_kernel(const float* __restrict__ planes, const float* __restric
   issue(0, 0);
   // dw0 y, dw0 x, dw1 y, dw1 x (k = 0..3) of channel c at pixel p
   auto dw_at = [&](int c, int k, size_t p) {
-    return __ldg(planes + (size_t)((k < 2 ? 2 : 4) * C + 2 * c + (k & 1)) * hw + p);
+    return ldg(planes + (size_t)((k < 2 ? 2 : 4) * C + 2 * c + (k & 1)) * hw + p);
   };
 
   // the tap-sum tables of the in-image window: 1/n of a statistics pixel
@@ -1136,7 +1193,7 @@ sweep_grad_strip_kernel(const float* __restrict__ planes, const float* __restric
 #pragma unroll
             for (int qq = 0; qq < NQ; ++qq) out[qq][j] = 0.0f;
             if (row_ok && js < SW && x >= 0 && x < w) {
-              const float inv_n = 1.0f / (sNy[q - R] * sNx[js]);
+              const float inv_n = pack_round<PT>(1.0f / (sNy[q - R] * sNx[js]));
               const SsimPixel sp = ssim_pixel(st[j], inv_n, s);
               if (q >= 2 * R && q < 2 * R + nrow && js >= R && js < R + SC) e_sim += 1.0f - sp.ssim;
               const SsimCoeffs k = ssim_coeffs(sp, inv_n, s);
@@ -1218,12 +1275,12 @@ sweep_grad_strip_kernel(const float* __restrict__ planes, const float* __restric
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) dw[k][kk] = dw_at(c, kk, p);
         if (last) {
-          uw[k] = ui_w[qpix];
-          tw[k] = tc_w[qpix];
+          uw[k] = ld(ui_w + qpix);
+          tw[k] = ld(tc_w + qpix);
 #pragma unroll
           for (int kk = 0; kk < 2; ++kk) {
-            uiv[k][kk] = ui_v[2 * qpix + kk];
-            tcv[k][kk] = tc_v[2 * qpix + kk];
+            uiv[k][kk] = ld(ui_v + 2 * qpix + kk);
+            tcv[k][kk] = ld(tc_v + 2 * qpix + kk);
           }
         }
       }
@@ -1358,12 +1415,12 @@ sweep_grad_strip_kernel(const float* __restrict__ planes, const float* __restric
 // comes from the neighbouring lanes by shuffles. Each lane reads back only
 // the shared memory it wrote, so the kernel's one barrier is the block's
 // reduction.
-template <int R>
+template <int R, class PT>
 __global__ void __launch_bounds__(ENT, R <= 3 ? 4 : 2)
-sweep_energy_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
-                    const float* __restrict__ v, const float* __restrict__ ui_w,
-                    const float* __restrict__ ui_v, const float* __restrict__ tc_w,
-                    const float* __restrict__ tc_v, float* __restrict__ partials,
+sweep_energy_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin,
+                    const float* __restrict__ v, const PT* __restrict__ ui_w,
+                    const PT* __restrict__ ui_v, const PT* __restrict__ tc_w,
+                    const PT* __restrict__ tc_v, float* __restrict__ partials,
                     VmSweepScalars s) {
   constexpr int K = 2 * R + 1;
   constexpr unsigned FULL = 0xffffffffu;
@@ -1409,7 +1466,7 @@ sweep_energy_kernel(const float* __restrict__ planes, const float* __restrict__ 
     if (u >= R && u < R + ESEG) {
       const int yo = yw + u - R;
       s_invn[(u - R) * 32 + lane] =
-          owner && yo < own_end ? 1.0f / (tap_sum_range(taps, R, yo + s.row0, s.gh) * nx) : 0.0f;
+          owner && yo < own_end ? pack_round<PT>(1.0f / (tap_sum_range(taps, R, yo + s.row0, s.gh) * nx)) : 0.0f;
     }
   }
 
@@ -1418,7 +1475,8 @@ sweep_energy_kernel(const float* __restrict__ planes, const float* __restrict__ 
   // from a register ring, horizontal by shuffles) and the SSIM map of the
   // owned pixels. The planes of walk step i = c NU + u arrive by 4-byte
   // cp.async (zero-filled outside the image) into ring slot i % EDEPTH,
-  // issued EDEPTH - 1 steps ahead, across the channel boundary too.
+  // issued EDEPTH - 1 steps ahead, across the channel boundary too (the
+  // bf16 form loads, upcasts and stores them itself, at the same step).
   auto issue = [&](int c, int u, int slot) {
     const bool ok = (in & (1u << u)) != 0;
     const int p = ok ? (yw - R + u) * w + x : 0;
@@ -1426,7 +1484,8 @@ sweep_energy_kernel(const float* __restrict__ planes, const float* __restrict__ 
     for (int k = 0; k < 6; ++k) {
       // w0, w1, dw0 y, dw0 x, dw1 y, dw1 x of channel c
       const int plane = k < 2 ? k * C + c : (k < 4 ? 2 * C : 4 * C) + 2 * c + (k & 1);
-      cp_async4(s_pl + (slot * 6 + k) * 32 + lane, planes + (plane * hw + p), ok);
+      if constexpr (ASYNC_PLANES<PT>) cp_async4(s_pl + (slot * 6 + k) * 32 + lane, planes + (plane * hw + p), ok);
+      else s_pl[(slot * 6 + k) * 32 + lane] = ok ? ld(planes + (plane * hw + p)) : 0.0f;
     }
   };
 #pragma unroll
@@ -1498,14 +1557,14 @@ sweep_energy_kernel(const float* __restrict__ planes, const float* __restrict__ 
     const int j = u - 2, yo = yw + j;
     if (owner && yo < own_end) {
       const size_t q = (size_t)(yo - s.own0) * w + x;  // in the owned-row maps
-      const float uw = ui_w[q], tw = tc_w[q];
+      const float uw = ld(ui_w + q), tw = ld(tc_w + q);
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         float vxx, vxy, vyy;
         tps_maps_at([&](int dy, int dx) { return rv[(j + 1 + dy) % 3][dx + 1][k]; }, yo, x, s, vxx,
                     vxy, vyy);
         e_tps += tps_energy(vxx, vxy, vyy);
-        quad_terms(rv[(j + 1) % 3][1][k], ui_v[2 * q + k], tc_v[2 * q + k], uw, tw, e_ui, e_tc);
+        quad_terms(rv[(j + 1) % 3][1][k], ld(ui_v + 2 * q + k), ld(tc_v + 2 * q + k), uw, tw, e_ui, e_tc);
       }
     }
   }
@@ -1620,8 +1679,9 @@ __device__ __forceinline__ float wide_hsum(const float* __restrict__ row, int x,
 }
 
 // a0 = w0 - dw0.dv and a1 = w1 + dw1.dv of channel c on the A band
+template <class PT>
 __global__ void __launch_bounds__(WT)
-wide_warps_kernel(const float* __restrict__ planes, const float* __restrict__ v_lin,
+wide_warps_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin,
                   const float* __restrict__ v, float* __restrict__ A, int c, VmSweepScalars s) {
   const int R = s.radius, w = s.w, C = s.C;
   const long long na = s.nown + 4LL * R;
@@ -1633,10 +1693,10 @@ wide_warps_kernel(const float* __restrict__ planes, const float* __restrict__ v_
   if (row_in(s, y)) {
     const size_t hw = (size_t)s.h * w, p = (size_t)y * w + x;
     const float dvy = v[2 * p] - v_lin[2 * p], dvx = v[2 * p + 1] - v_lin[2 * p + 1];
-    a = planes[c * hw + p] -
-        (planes[(2 * C + 2 * c) * hw + p] * dvy + planes[(2 * C + 2 * c + 1) * hw + p] * dvx);
-    b = planes[(C + c) * hw + p] +
-        (planes[(4 * C + 2 * c) * hw + p] * dvy + planes[(4 * C + 2 * c + 1) * hw + p] * dvx);
+    a = ld(planes + c * hw + p) -
+        (ld(planes + (2 * C + 2 * c) * hw + p) * dvy + ld(planes + (2 * C + 2 * c + 1) * hw + p) * dvx);
+    b = ld(planes + (C + c) * hw + p) +
+        (ld(planes + (4 * C + 2 * c) * hw + p) * dvy + ld(planes + (4 * C + 2 * c + 1) * hw + p) * dvx);
   }
   A[(size_t)i * w + x] = a;
   A[((size_t)na + i) * w + x] = b;
@@ -1670,9 +1730,9 @@ wide_stats_vertical_kernel(const float* __restrict__ A, float* __restrict__ V, V
 // horizontal window sums -> statistics and the SSIM of channel c on the S
 // band: the owned pixels' 1 - SSIM added to es; with the gradient also the
 // coefficient maps (q0, q1, qv, qc) into Q and the curvature added to curv
-template <bool WITH_GRAD>
+template <bool WITH_GRAD, class PT>
 __global__ void __launch_bounds__(WT)
-wide_ssim_kernel(const float* __restrict__ planes, const float* __restrict__ V, float* __restrict__ Q,
+wide_ssim_kernel(const PT* __restrict__ planes, const float* __restrict__ V, float* __restrict__ Q,
                  float* __restrict__ curv, float* __restrict__ es, int c, VmSweepScalars s) {
   const int R = s.radius, w = s.w, C = s.C;
   const long long ns = s.nown + 2LL * R;
@@ -1686,7 +1746,7 @@ wide_ssim_kernel(const float* __restrict__ planes, const float* __restrict__ V, 
   float q0 = 0.f, q1 = 0.f, qv = 0.f, qc = 0.f, cy = 0.f, cx = 0.f;
   if (row_in(s, y)) {
     const float inv_n =
-        1.0f / (tap_sum_range(s.taps, R, y + s.row0, s.gh) * tap_sum_range(s.taps, R, x, w));
+        pack_round<PT>(1.0f / (tap_sum_range(s.taps, R, y + s.row0, s.gh) * tap_sum_range(s.taps, R, x, w)));
     const SsimPixel sp = ssim_pixel(st, inv_n, s);
     if (y >= s.own0 && y < s.own0 + s.nown) {
       float* e = es + (size_t)(y - s.own0) * w + x;
@@ -1700,8 +1760,8 @@ wide_ssim_kernel(const float* __restrict__ planes, const float* __restrict__ V, 
       qc = k.qc;
       const float ib2 = k.ib2;
       const size_t hw = (size_t)s.h * w, p = (size_t)y * w + x;
-      const float d0y = planes[(2 * C + 2 * c) * hw + p], d0x = planes[(2 * C + 2 * c + 1) * hw + p];
-      const float d1y = planes[(4 * C + 2 * c) * hw + p], d1x = planes[(4 * C + 2 * c + 1) * hw + p];
+      const float d0y = ld(planes + (2 * C + 2 * c) * hw + p), d0x = ld(planes + (2 * C + 2 * c + 1) * hw + p);
+      const float d1y = ld(planes + (4 * C + 2 * c) * hw + p), d1x = ld(planes + (4 * C + 2 * c + 1) * hw + p);
       cy = (d0y * d0y + d1y * d1y) * ib2;
       cx = (d0x * d0x + d1x * d1x) * ib2;
     }
@@ -1736,8 +1796,9 @@ wide_vertical_kernel(const float* __restrict__ in, float* __restrict__ out, int 
 
 // the horizontal transposed sums at the owned pixels, chained through dw0
 // and dw1 of channel c into the SSIM gradient (summed over the channels)
+template <class PT>
 __global__ void __launch_bounds__(WT)
-wide_chain_kernel(const float* __restrict__ planes, const float* __restrict__ A,
+wide_chain_kernel(const PT* __restrict__ planes, const float* __restrict__ A,
                   const float* __restrict__ VQ, float* __restrict__ gs, int c, VmSweepScalars s) {
   const int R = s.radius, w = s.w, C = s.C, nown = s.nown;
   const long long na = s.nown + 4LL * R;
@@ -1749,8 +1810,8 @@ wide_chain_kernel(const float* __restrict__ planes, const float* __restrict__ A,
   for (int q = 0; q < 4; ++q) tq[q] = wide_hsum(VQ + ((size_t)q * nown + j) * w, x, w, s.taps, R);
   const float a0 = A[(size_t)(j + 2 * R) * w + x], a1 = A[((size_t)na + j + 2 * R) * w + x];
   const size_t hw = (size_t)s.h * w, p = (size_t)(s.own0 + j) * w + x;
-  const float d0y = planes[(2 * C + 2 * c) * hw + p], d0x = planes[(2 * C + 2 * c + 1) * hw + p];
-  const float d1y = planes[(4 * C + 2 * c) * hw + p], d1x = planes[(4 * C + 2 * c + 1) * hw + p];
+  const float d0y = ld(planes + (2 * C + 2 * c) * hw + p), d0x = ld(planes + (2 * C + 2 * c + 1) * hw + p);
+  const float d1y = ld(planes + (4 * C + 2 * c) * hw + p), d1x = ld(planes + (4 * C + 2 * c + 1) * hw + p);
   const float g0 = tq[0] + 2.0f * a0 * tq[2] + a1 * tq[3];
   const float g1 = tq[1] + 2.0f * a1 * tq[2] + a0 * tq[3];
   const size_t o = (size_t)j * w + x, plane = (size_t)nown * w;
@@ -1762,11 +1823,11 @@ wide_chain_kernel(const float* __restrict__ planes, const float* __restrict__ A,
 // TC terms; with the gradient also the TPS adjoint, the outputs and the
 // preconditioner (the curvature's horizontal sums from vc); the tile's
 // energy partials by a fixed-order tree
-template <bool WITH_GRAD>
+template <bool WITH_GRAD, class PT>
 __global__ void __launch_bounds__(WT)
-wide_final_kernel(const float* __restrict__ v, const float* __restrict__ ui_w,
-                  const float* __restrict__ ui_v, const float* __restrict__ tc_w,
-                  const float* __restrict__ tc_v, const float* __restrict__ es,
+wide_final_kernel(const float* __restrict__ v, const PT* __restrict__ ui_w,
+                  const PT* __restrict__ ui_v, const PT* __restrict__ tc_w,
+                  const PT* __restrict__ tc_v, const float* __restrict__ es,
                   const float* __restrict__ gs, const float* __restrict__ vc,
                   float* __restrict__ grad, float* __restrict__ precond,
                   float* __restrict__ partials, VmSweepScalars s) {
@@ -1779,7 +1840,7 @@ wide_final_kernel(const float* __restrict__ v, const float* __restrict__ ui_w,
     const int y = s.own0 + j;
     const size_t q = (size_t)j * w + x;  // in the owned-row maps and outputs
     e_sim = es[q];
-    const float uw = ui_w[q], tw = tc_w[q];
+    const float uw = ld(ui_w + q), tw = ld(tc_w + q);
     float gk[2];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
@@ -1793,7 +1854,7 @@ wide_final_kernel(const float* __restrict__ v, const float* __restrict__ ui_w,
       float vxx, vxy, vyy;
       maps_at(y, x, vxx, vxy, vyy);
       e_tps += tps_energy(vxx, vxy, vyy);
-      const QuadDiff d = quad_terms(vt_at(y, x), ui_v[2 * q + k], tc_v[2 * q + k], uw, tw, e_ui, e_tc);
+      const QuadDiff d = quad_terms(vt_at(y, x), ld(ui_v + 2 * q + k), ld(tc_v + 2 * q + k), uw, tw, e_ui, e_tc);
       if constexpr (WITH_GRAD) {
         // self-adjoint stencils of the three maps (descent.py tps_adj_*)
         float l_xx, r_xx, u_yy, d_yy, m0, m1, m2, m3, unused0, unused1;
@@ -1850,20 +1911,20 @@ dim3 tile_grid(bool with_grad, int w, int nown, int R) {
 
 // The instantiation for R: the gradient's tile (R < STRIP_MIN_RADIUS) or
 // strip, or the energy kernel; its threads and dynamic shared memory.
-template <int R, bool WITH_GRAD>
+template <int R, bool WITH_GRAD, class PT>
 struct Instance {
   static constexpr bool STRIP = WITH_GRAD && R >= STRIP_MIN_RADIUS;
   static constexpr int THREADS = WITH_GRAD ? NT : ENT;
   static constexpr size_t BYTES = !WITH_GRAD ? EGeo<R>::BYTES : (STRIP ? SGeo<R>::BYTES : Geo<R>::BYTES);
   static const void* fn() {
-    if constexpr (!WITH_GRAD) return (const void*)sweep_energy_kernel<R>;
-    else if constexpr (STRIP) return (const void*)sweep_grad_strip_kernel<R>;
-    else return (const void*)sweep_grad_kernel<R>;
+    if constexpr (!WITH_GRAD) return (const void*)sweep_energy_kernel<R, PT>;
+    else if constexpr (STRIP) return (const void*)sweep_grad_strip_kernel<R, PT>;
+    else return (const void*)sweep_grad_kernel<R, PT>;
   }
 };
 
 // Opt each instantiation in to its dynamic shared memory, once per device.
-template <int R, bool WITH_GRAD>
+template <int R, bool WITH_GRAD, class PT>
 cudaError_t allow_smem() {
   constexpr int MAX_DEVICES = 64;
   static bool done[MAX_DEVICES] = {};
@@ -1871,36 +1932,49 @@ cudaError_t allow_smem() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  using I = Instance<R, WITH_GRAD>;
+  using I = Instance<R, WITH_GRAD, PT>;
   err = cudaFuncSetAttribute(I::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)I::BYTES);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return err;
 }
 
+// planes and the UI/TC maps are of the instantiation's plane type PT
 struct Args {
-  const float *planes, *v_lin, *v, *ui_w, *ui_v, *tc_w, *tc_v;
+  const void *planes;
+  const float *v_lin, *v;
+  const void *ui_w, *ui_v, *tc_w, *tc_v;
   float *grad, *precond, *partials, *out, *scratch;
   int n_partials;
   long long n_scratch;
 };
 
-template <int R, bool WITH_GRAD>
+// The PT pointers of a launch: planes, ui_w, ui_v, tc_w, tc_v.
+template <class PT>
+struct Typed {
+  const PT *planes, *ui_w, *ui_v, *tc_w, *tc_v;
+  explicit Typed(const Args& a)
+      : planes((const PT*)a.planes), ui_w((const PT*)a.ui_w), ui_v((const PT*)a.ui_v),
+        tc_w((const PT*)a.tc_w), tc_v((const PT*)a.tc_v) {}
+};
+
+template <int R, bool WITH_GRAD, class PT>
 int launch(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
   dim3 grid = tile_grid(WITH_GRAD, s.w, s.nown, R);
   if ((long long)grid.x * grid.y > a.n_partials) return (int)cudaErrorInvalidValue;
   // the energy kernel's plane offsets are ints
   if (!WITH_GRAD && 6LL * s.C * s.h * s.w > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<R, WITH_GRAD>();
+  cudaError_t err = allow_smem<R, WITH_GRAD, PT>();
   if (err != cudaSuccess) return (int)err;
-  if constexpr (Instance<R, WITH_GRAD>::STRIP)
-    sweep_grad_strip_kernel<R><<<grid, NT, SGeo<R>::BYTES, stream>>>(
-        a.planes, a.v_lin, a.v, a.ui_w, a.ui_v, a.tc_w, a.tc_v, a.grad, a.precond, a.partials, s);
+  const Typed<PT> t(a);
+  if constexpr (Instance<R, WITH_GRAD, PT>::STRIP)
+    sweep_grad_strip_kernel<R, PT><<<grid, NT, SGeo<R>::BYTES, stream>>>(
+        t.planes, a.v_lin, a.v, t.ui_w, t.ui_v, t.tc_w, t.tc_v, a.grad, a.precond, a.partials, s);
   else if constexpr (WITH_GRAD)
-    sweep_grad_kernel<R><<<grid, NT, Geo<R>::BYTES, stream>>>(
-        a.planes, a.v_lin, a.v, a.ui_w, a.ui_v, a.tc_w, a.tc_v, a.grad, a.precond, a.partials, s);
+    sweep_grad_kernel<R, PT><<<grid, NT, Geo<R>::BYTES, stream>>>(
+        t.planes, a.v_lin, a.v, t.ui_w, t.ui_v, t.tc_w, t.tc_v, a.grad, a.precond, a.partials, s);
   else
-    sweep_energy_kernel<R><<<grid, ENT, EGeo<R>::BYTES, stream>>>(
-        a.planes, a.v_lin, a.v, a.ui_w, a.ui_v, a.tc_w, a.tc_v, a.partials, s);
+    sweep_energy_kernel<R, PT><<<grid, ENT, EGeo<R>::BYTES, stream>>>(
+        t.planes, a.v_lin, a.v, t.ui_w, t.ui_v, t.tc_w, t.tc_v, a.partials, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sweep_reduce_kernel<<<1, RED, 0, stream>>>(a.partials, (int)(grid.x * grid.y), a.out, s);
@@ -1910,7 +1984,7 @@ int launch(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
 // The wide path: per channel its warps, statistics and SSIM (and, with the
 // gradient, the transposed sums and the chain), then the tiles' terms and
 // partials, then the reduction; all on `stream`, in order.
-template <bool WITH_GRAD>
+template <bool WITH_GRAD, class PT>
 int launch_wide(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
   const int R = s.radius;
   const dim3 grid = tile_grid(WITH_GRAD, s.w, s.nown, R);
@@ -1924,20 +1998,21 @@ int launch_wide(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
   float* const Q = a.scratch + L.q;
   float* const curv = a.scratch + L.curv;
   float* const gs = a.scratch + L.gs;
+  const Typed<PT> t(a);
   for (int c = 0; c < s.C; ++c) {
-    wide_warps_kernel<<<band(L.na), block, 0, stream>>>(a.planes, a.v_lin, a.v, A, c, s);
+    wide_warps_kernel<PT><<<band(L.na), block, 0, stream>>>(t.planes, a.v_lin, a.v, A, c, s);
     wide_stats_vertical_kernel<<<band(L.ns), block, 0, stream>>>(A, V, s);
-    wide_ssim_kernel<WITH_GRAD><<<band(L.ns), block, 0, stream>>>(a.planes, V, Q, curv, es, c, s);
+    wide_ssim_kernel<WITH_GRAD, PT><<<band(L.ns), block, 0, stream>>>(t.planes, V, Q, curv, es, c, s);
     if constexpr (WITH_GRAD) {
       wide_vertical_kernel<<<band(s.nown), block, 0, stream>>>(Q, V, 4, s);
-      wide_chain_kernel<<<band(s.nown), block, 0, stream>>>(a.planes, A, V, gs, c, s);
+      wide_chain_kernel<PT><<<band(s.nown), block, 0, stream>>>(t.planes, A, V, gs, c, s);
     }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if constexpr (WITH_GRAD) wide_vertical_kernel<<<band(s.nown), block, 0, stream>>>(curv, V, 2, s);
-  wide_final_kernel<WITH_GRAD><<<grid, block, 0, stream>>>(a.v, a.ui_w, a.ui_v, a.tc_w, a.tc_v, es, gs, V,
-                                                          a.grad, a.precond, a.partials, s);
+  wide_final_kernel<WITH_GRAD, PT><<<grid, block, 0, stream>>>(a.v, t.ui_w, t.ui_v, t.tc_w, t.tc_v, es, gs, V,
+                                                              a.grad, a.precond, a.partials, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sweep_reduce_kernel<<<1, RED, 0, stream>>>(a.partials, (int)(grid.x * grid.y), a.out, s);
@@ -1965,23 +2040,23 @@ int at_radius(int R, const F& f, const W& wide) {
 static_assert(TILED_MAX_RADIUS == 6 && STRIP_MAX_RADIUS == 7,
               "at_radius() instantiates R = 1 .. 6 of the energy kernel and 1 .. 7 of the gradient's");
 
-template <bool WITH_GRAD>
+template <bool WITH_GRAD, class PT>
 struct LaunchAt {
   const Args& a;
   const VmSweepScalars& s;
   cudaStream_t st;
   template <int R>
-  int operator()() const { return launch<R, WITH_GRAD>(a, s, st); }
+  int operator()() const { return launch<R, WITH_GRAD, PT>(a, s, st); }
 };
 
 // The launch for the window radius: an instantiated kernel where tiled(),
-// the wide path for any other R >= 0.
-template <bool WITH_GRAD>
+// the wide path for any other R >= 0; PT is the planes' and maps' type.
+template <bool WITH_GRAD, class PT>
 int dispatch(const Args& a, const VmSweepScalars* s, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (s->radius < 0) return (int)cudaErrorInvalidValue;
-  return at_radius<WITH_GRAD>(s->radius, LaunchAt<WITH_GRAD>{a, *s, st},
-                              [&]() { return launch_wide<WITH_GRAD>(a, *s, st); });
+  return at_radius<WITH_GRAD>(s->radius, LaunchAt<WITH_GRAD, PT>{a, *s, st},
+                              [&]() { return launch_wide<WITH_GRAD, PT>(a, *s, st); });
 }
 
 // Registers, static and dynamic shared memory, local (spill) bytes and
@@ -2000,29 +2075,30 @@ cudaError_t func_info(const void* fn, int threads, size_t dyn, int* info) {
   return cudaSuccess;
 }
 
-template <int R, bool WITH_GRAD>
+template <int R, bool WITH_GRAD, class PT>
 int kernel_info(int* info) {
-  using I = Instance<R, WITH_GRAD>;
-  cudaError_t err = allow_smem<R, WITH_GRAD>();
+  using I = Instance<R, WITH_GRAD, PT>;
+  cudaError_t err = allow_smem<R, WITH_GRAD, PT>();
   if (err == cudaSuccess) err = func_info(I::fn(), I::THREADS, I::BYTES, info);
   return (int)err;
 }
 
-template <bool WITH_GRAD>
+template <bool WITH_GRAD, class PT>
 struct InfoAt {
   int* info;
   template <int R>
-  int operator()() const { return kernel_info<R, WITH_GRAD>(info); }
+  int operator()() const { return kernel_info<R, WITH_GRAD, PT>(info); }
 };
 
 // The wide path's kernels: the most registers, shared and local memory and
 // the fewest resident blocks of any of them.
+template <class PT>
 int wide_kernel_info(bool with_grad, int* info) {
-  const void* grad_fns[] = {(const void*)wide_warps_kernel, (const void*)wide_stats_vertical_kernel,
-                            (const void*)wide_ssim_kernel<true>, (const void*)wide_vertical_kernel,
-                            (const void*)wide_chain_kernel, (const void*)wide_final_kernel<true>};
-  const void* energy_fns[] = {(const void*)wide_warps_kernel, (const void*)wide_stats_vertical_kernel,
-                              (const void*)wide_ssim_kernel<false>, (const void*)wide_final_kernel<false>};
+  const void* grad_fns[] = {(const void*)wide_warps_kernel<PT>, (const void*)wide_stats_vertical_kernel,
+                            (const void*)wide_ssim_kernel<true, PT>, (const void*)wide_vertical_kernel,
+                            (const void*)wide_chain_kernel<PT>, (const void*)wide_final_kernel<true, PT>};
+  const void* energy_fns[] = {(const void*)wide_warps_kernel<PT>, (const void*)wide_stats_vertical_kernel,
+                              (const void*)wide_ssim_kernel<false, PT>, (const void*)wide_final_kernel<false, PT>};
   const void* const* fns = with_grad ? grad_fns : energy_fns;
   const int n = with_grad ? 6 : 4;
   int one[5];
@@ -2055,15 +2131,24 @@ extern "C" long long vm_sweep_scratch_floats(int w, int nown, int with_grad, int
   return tiled(with_grad != 0, radius) ? 0 : wide_layout(w, nown, radius, with_grad != 0).total;
 }
 
+namespace {
+template <class PT>
+int kernel_info_of(int radius, int with_grad, int* info) {
+  auto wide = [&]() { return wide_kernel_info<PT>(with_grad != 0, info); };
+  if (with_grad) return at_radius<true>(radius, InfoAt<true, PT>{info}, wide);
+  return at_radius<false>(radius, InfoAt<false, PT>{info}, wide);
+}
+}  // namespace
+
 // info[0..4]: registers per thread, static shared memory, dynamic shared
 // memory (bytes), local memory (bytes) and resident blocks per SM of the
 // gradient (with_grad) or energy kernel at a window radius (for the wide
-// path, the extremes over its kernels); returns the CUDA error.
-extern "C" int vm_sweep_kernel_info(int radius, int with_grad, int* info) {
+// path, the extremes over its kernels), in its float (bf16 = 0) or bf16
+// instantiation; returns the CUDA error.
+extern "C" int vm_sweep_kernel_info(int radius, int with_grad, int bf16, int* info) {
   if (radius < 0) return (int)cudaErrorInvalidValue;
-  auto wide = [&]() { return wide_kernel_info(with_grad != 0, info); };
-  if (with_grad) return at_radius<true>(radius, InfoAt<true>{info}, wide);
-  return at_radius<false>(radius, InfoAt<false>{info}, wide);
+  return bf16 ? kernel_info_of<__nv_bfloat16>(radius, with_grad, info)
+              : kernel_info_of<float>(radius, with_grad, info);
 }
 
 // partials holds n_partials sets of 4 floats and scratch n_scratch floats
@@ -2076,7 +2161,7 @@ extern "C" int vm_sweep_grad(const float* planes, const float* v_lin, const floa
                              const VmSweepScalars* s, void* stream) {
   const Args a{planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, grad, precond, partials, out, scratch,
                n_partials, n_scratch};
-  return dispatch<true>(a, s, stream);
+  return dispatch<true, float>(a, s, stream);
 }
 
 extern "C" int vm_sweep_energy(const float* planes, const float* v_lin, const float* v,
@@ -2086,5 +2171,27 @@ extern "C" int vm_sweep_energy(const float* planes, const float* v_lin, const fl
                                void* stream) {
   const Args a{planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, nullptr, nullptr, partials, out, scratch,
                n_partials, n_scratch};
-  return dispatch<false>(a, s, stream);
+  return dispatch<false, float>(a, s, stream);
+}
+
+// The bf16 form: planes and the UI/TC maps in bfloat16, everything else as
+// vm_sweep_grad / vm_sweep_energy.
+extern "C" int vm_sweep_grad_bf16(const __nv_bfloat16* planes, const float* v_lin, const float* v,
+                                  const __nv_bfloat16* ui_w, const __nv_bfloat16* ui_v,
+                                  const __nv_bfloat16* tc_w, const __nv_bfloat16* tc_v, float* grad,
+                                  float* precond, float* partials, int n_partials, float* scratch,
+                                  long long n_scratch, float* out, const VmSweepScalars* s, void* stream) {
+  const Args a{planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, grad, precond, partials, out, scratch,
+               n_partials, n_scratch};
+  return dispatch<true, __nv_bfloat16>(a, s, stream);
+}
+
+extern "C" int vm_sweep_energy_bf16(const __nv_bfloat16* planes, const float* v_lin, const float* v,
+                                    const __nv_bfloat16* ui_w, const __nv_bfloat16* ui_v,
+                                    const __nv_bfloat16* tc_w, const __nv_bfloat16* tc_v,
+                                    float* partials, int n_partials, float* scratch, long long n_scratch,
+                                    float* out, const VmSweepScalars* s, void* stream) {
+  const Args a{planes, v_lin, v, ui_w, ui_v, tc_w, tc_v, nullptr, nullptr, partials, out, scratch,
+               n_partials, n_scratch};
+  return dispatch<false, __nv_bfloat16>(a, s, stream);
 }

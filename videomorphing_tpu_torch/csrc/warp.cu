@@ -46,7 +46,16 @@
 // warps ho rows starting at global row row0 of the full images, with v of
 // those rows, and writes zero planes for rows outside [0, h). Offset 0 with
 // ho = h is the whole-frame warp.
+//
+// The halfway warp writes its plane stack in float32 or in bfloat16 (the
+// static pack of MorphParams.pack_dtype = "bfloat16", the reference's
+// _build_warp_call(..., out_dtype=), pallas/warp.py:206): every value is
+// computed in float32 as above and rounded to nearest even by
+// __float2bfloat16_rn as it is stored, so the bf16 stack is the float32
+// stack cast, bit for bit. At C = 3 it writes 36 bytes a pixel where
+// float32 writes 72, the larger part of what the kernel moves.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -79,12 +88,16 @@ __device__ __forceinline__ float lerp_rn(float a, float b, float f) {
   return __fadd_rn(a, __fmul_rn(__fsub_rn(b, a), f));
 }
 
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
 // One halfway image: sample img at p -/+ v and write C value planes and
 // 2C derivative planes (y, x per channel) of the (6C, H, W) stack.
+template <class OT>
 __device__ __forceinline__ void warp_one(const float* __restrict__ img, float yr, float xr,
                                          int h, int w, int C, int pix, int hw,
-                                         float* __restrict__ out_val,
-                                         float* __restrict__ out_d) {
+                                         OT* __restrict__ out_val,
+                                         OT* __restrict__ out_d) {
   Taps t = corner_taps(yr, xr, h, w);
   float oky = (yr > 0.0f && yr < (float)(h - 1)) ? 1.0f : 0.0f;
   float okx = (xr > 0.0f && xr < (float)(w - 1)) ? 1.0f : 0.0f;
@@ -94,16 +107,17 @@ __device__ __forceinline__ void warp_one(const float* __restrict__ img, float yr
     float v10 = img[t.i10 * C + c], v11 = img[t.i11 * C + c];
     float top = lerp_rn(v00, v01, t.fx);
     float bot = lerp_rn(v10, v11, t.fx);
-    out_val[c * hw + pix] = lerp_rn(top, bot, t.fy);
-    out_d[(2 * c) * hw + pix] = __fmul_rn(__fsub_rn(bot, top), oky);
+    store(out_val + c * hw + pix, lerp_rn(top, bot, t.fy));
+    store(out_d + (2 * c) * hw + pix, __fmul_rn(__fsub_rn(bot, top), oky));
     float dx = __fadd_rn(__fmul_rn(__fsub_rn(v01, v00), gy),
                          __fmul_rn(__fsub_rn(v11, v10), t.fy));
-    out_d[(2 * c + 1) * hw + pix] = __fmul_rn(dx, okx);
+    store(out_d + (2 * c + 1) * hw + pix, __fmul_rn(dx, okx));
   }
 }
 
+template <class OT>
 __global__ void halfway_warp_kernel(const float* __restrict__ i0, const float* __restrict__ i1,
-                                    const float* __restrict__ v, float* __restrict__ out,
+                                    const float* __restrict__ v, OT* __restrict__ out,
                                     int h, int w, int C, int row0, int ho) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -112,7 +126,7 @@ __global__ void halfway_warp_kernel(const float* __restrict__ i0, const float* _
   int hw = ho * w;  // plane stride of the output
   int gy = y + row0;
   if (gy < 0 || gy >= h) {
-    for (int q = 0; q < 6 * C; ++q) out[(size_t)q * hw + pix] = 0.0f;
+    for (int q = 0; q < 6 * C; ++q) store(out + (size_t)q * hw + pix, 0.0f);
     return;
   }
   float vy = v[2 * pix], vx = v[2 * pix + 1];
@@ -264,13 +278,16 @@ constexpr int BX = 32, BY = 8;
 }  // namespace
 
 // i0, i1 (h, w, C); v (ho, w, 2) and out (6C, ho, w) for the global rows
-// [row0, row0 + ho)
-extern "C" int vm_halfway_warp(const float* i0, const float* i1, const float* v, float* out,
-                               int h, int w, int C, int row0, int ho, void* stream) {
+// [row0, row0 + ho); out is float32, or bfloat16 when bf16 != 0
+extern "C" int vm_halfway_warp(const float* i0, const float* i1, const float* v, void* out,
+                               int h, int w, int C, int row0, int ho, int bf16, void* stream) {
   dim3 block(BX, BY);
   dim3 grid((w + BX - 1) / BX, (ho + BY - 1) / BY);
-  halfway_warp_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(i0, i1, v, out, h, w, C, row0,
-                                                                 ho);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    halfway_warp_kernel<<<grid, block, 0, st>>>(i0, i1, v, (__nv_bfloat16*)out, h, w, C, row0, ho);
+  else
+    halfway_warp_kernel<<<grid, block, 0, st>>>(i0, i1, v, (float*)out, h, w, C, row0, ho);
   return (int)cudaGetLastError();
 }
 

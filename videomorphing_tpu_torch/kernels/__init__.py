@@ -73,7 +73,7 @@ REFERENCE_COUNTERPARTS = {
     "pallas_available": ("not ported: the port has no backend to probe; a wrapper launches its kernel for "
                          "CUDA tensors and runs its plain version for CPU tensors (kernels.warp.on_cuda)"),
     "LANE": _PACKING,
-    "quantize_v_lin": _PACKING,
+    "quantize_v_lin": _PORT + "kernels.sweep.quantize_v_lin",
     "make_sweep_pack": _PACKING,
     "make_sweep_pack_planes": _PACKING,
     "make_const_pack": _PACKING,

@@ -106,13 +106,15 @@ def build() -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
-        "vm_halfway_warp": [P, P, P, P, I, I, I, I, I, P],
+        "vm_halfway_warp": [P, P, P, P, I, I, I, I, I, I, P],
         "vm_bilinear_sample": [P, P, P, I, I, I, I, L, I, P],
         "vm_sweep_grad": [P] * 10 + [I, P, L] + [P] * 3,
         "vm_sweep_energy": [P] * 8 + [I, P, L] + [P] * 3,
+        "vm_sweep_grad_bf16": [P] * 10 + [I, P, L] + [P] * 3,
+        "vm_sweep_energy_bf16": [P] * 8 + [I, P, L] + [P] * 3,
         "vm_sweep_n_partials": [I, I, I, I],
         "vm_sweep_scratch_floats": [I, I, I, I],
-        "vm_sweep_kernel_info": [I, I, P],
+        "vm_sweep_kernel_info": [I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

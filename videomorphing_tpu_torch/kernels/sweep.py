@@ -42,6 +42,17 @@ per strip and channel. The energy kernel needs no gradient halo: each warp
 walks a column strip with the window's rows in registers and the
 neighbouring columns from its lanes. The inputs are the warp kernel's
 plane stack as it comes, with no pack.
+
+Two forms, chosen by the tensors (``MorphParams.pack_dtype``): float32,
+and bfloat16, where the plane stack and the four UI/TC maps are bfloat16
+(``halfway_warp(..., dtype=torch.bfloat16)``) and ``v_lin``, ``v`` stay
+float32. The bfloat16 form is the reference's bf16 pack: every value read
+in bf16 is upcast and all arithmetic is float32, but 1/n, which the
+reference stores in its pack too, is rounded to bf16 before use. Its
+plain version is the float32 one on the upcast inputs with 1/n so
+rounded (``inv_n_dtype``); :func:`quantize_v_lin` rounds the
+linearization point as the reference does before each re-warp. Other
+dtypes, or planes and maps of different dtypes, raise.
 Energy partials reduce in a fixed order (no float atomics), so reruns are
 bitwise identical.
 
@@ -58,7 +69,8 @@ Dispatch: a CPU tensor runs the plain PyTorch version (``linearized_warps``
 port of the reference's jnp shard branch, ``parallel/spatial.py:44-61,
 172-224``); a CUDA tensor launches the kernel or raises. Launch counts:
 ``sweep_grad.launches``, ``sweep_energy.launches``,
-``sweep_grad_shard.launches`` and ``sweep_energy_shard.launches``.
+``sweep_grad_shard.launches`` and ``sweep_energy_shard.launches``; the
+bfloat16 form counts under ``launches_bf16`` of the same wrapper instead.
 """
 
 from __future__ import annotations
@@ -72,7 +84,7 @@ import torch
 
 from videomorphing_tpu_torch.config import MorphParams
 from videomorphing_tpu_torch.kernels import build
-from videomorphing_tpu_torch.kernels.warp import check_cuda_input, on_cuda, stream_of
+from videomorphing_tpu_torch.kernels.warp import PLANE_DTYPES, check_cuda_input, count_launch, on_cuda, stream_of
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, separable_filter
 
 _GEOMETRY = ("TILE_ROWS", "TILE_COLS", "ENERGY_TILE_ROWS", "ENERGY_TILE_COLS", "TILED_MAX_RADIUS",
@@ -239,21 +251,77 @@ def _scalars(p: MorphParams, h: int, w: int, c: int, row0: int = 0, gh: int = 0,
     return s
 
 
+_PACK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def pack_dtype(p: MorphParams) -> torch.dtype:
+    """The dtype of ``p.pack_dtype`` (the reference's ``_pack_dtype``);
+    raises ``ValueError`` for any other value."""
+    if p.pack_dtype not in _PACK_DTYPES:
+        raise ValueError(f"unknown pack_dtype {p.pack_dtype!r}")
+    return _PACK_DTYPES[p.pack_dtype]
+
+
+def quantize_v_lin(v: torch.Tensor, p: MorphParams) -> torch.Tensor:
+    """The linearization point rounded to the pack's dtype (nearest even)
+    and back, so that the warp planes and ``v_lin`` describe one point and
+    ``v - v_lin`` absorbs the rounding; a no-op at float32 (the reference's
+    ``quantize_v_lin``, ``pallas/sweep.py:95``)."""
+    dt = pack_dtype(p)
+    return v if dt == torch.float32 else v.to(dt).to(v.dtype)
+
+
+_MAP_NAMES = ("ui_w", "ui_v", "tc_w", "tc_v")
+
+
+def _maps(data) -> tuple:
+    return tuple(getattr(data, k) for k in _MAP_NAMES)
+
+
+def pack_maps(data, dtype: torch.dtype):
+    """``data`` (a ``LevelData``) with its four UI/TC maps in ``dtype``, the
+    images as they are: the bf16 pack stores the maps in bfloat16, the
+    plain versions read them in float32."""
+    if all(m.dtype == dtype for m in _maps(data)):
+        return data
+    return data._replace(**{k: m.to(dtype) for k, m in zip(_MAP_NAMES, _maps(data))})
+
+
+def plane_dtype(planes, data) -> torch.dtype:
+    """The form of a call: the dtype of ``planes`` (6C, H, W) and of the
+    four UI/TC maps, float32 or bfloat16; raises if they differ."""
+    dtypes = {planes.dtype} | {m.dtype for m in _maps(data)}
+    if len(dtypes) != 1 or planes.dtype not in PLANE_DTYPES:
+        raise TypeError(
+            "the planes and the UI/TC maps are all float32 or all bfloat16, got "
+            + ", ".join(str(t.dtype) for t in (planes,) + _maps(data))
+        )
+    return planes.dtype
+
+
+def _upcast(planes, data):
+    """The plain versions' inputs: the planes and the UI/TC maps in
+    float32 (exact from bfloat16), and the dtype 1/n is rounded to."""
+    dt = plane_dtype(planes, data)
+    return planes.float(), pack_maps(data, torch.float32), dt
+
+
 def _check(planes, v_lin, v, data, halo: int = 0):
     """Shapes of a (whole or shard) call: ``planes`` (6C, H, W), ``v_lin``
-    and ``v`` (H, W, 2), the data maps on the H - 2 halo owned rows."""
+    and ``v`` (H, W, 2), the data maps on the H - 2 halo owned rows; the
+    planes and maps in one of ``PLANE_DTYPES``, ``v_lin`` and ``v``
+    float32. Returns (H, W, C, the planes' dtype)."""
     c6, h, w = planes.shape
     if c6 % 6:
         raise ValueError(f"planes: expected (6C, H, W), got {tuple(planes.shape)}")
     bh = h - 2 * halo
-    check_cuda_input(planes, "planes")
+    dt = plane_dtype(planes, data)
+    check_cuda_input(planes, "planes", dtype=dt)
     check_cuda_input(v_lin, "v_lin", (h, w, 2))
     check_cuda_input(v, "v", (h, w, 2))
-    check_cuda_input(data.ui_w, "ui_w", (bh, w, 1))
-    check_cuda_input(data.ui_v, "ui_v", (bh, w, 2))
-    check_cuda_input(data.tc_w, "tc_w", (bh, w, 1))
-    check_cuda_input(data.tc_v, "tc_v", (bh, w, 2))
-    return h, w, c6 // 6
+    for name, m, k in zip(_MAP_NAMES, _maps(data), (1, 2, 1, 2)):
+        check_cuda_input(m, name, (bh, w, k), dt)
+    return h, w, c6 // 6, dt
 
 
 def sweep_grad_plain(planes, v_lin, v, data, p: MorphParams):
@@ -265,9 +333,10 @@ def sweep_grad_plain(planes, v_lin, v, data, p: MorphParams):
         value_grad_precond_planes,
     )
 
+    planes, data, dt = _upcast(planes, data)
     w0, dw0, w1, dw1 = bundle_from_planes(planes)
     w0e, w1e = linearized_warps(WarpBundle(v_lin, w0, dw0, w1, dw1), v)
-    return value_grad_precond_planes(w0e, dw0, w1e, dw1, v, data, p)
+    return value_grad_precond_planes(w0e, dw0, w1e, dw1, v, data, p, inv_n_dtype=dt)
 
 
 def sweep_energy_plain(planes, v_lin, v, data, p: MorphParams):
@@ -279,16 +348,18 @@ def sweep_energy_plain(planes, v_lin, v, data, p: MorphParams):
         total_energy_planes,
     )
 
+    planes, data, dt = _upcast(planes, data)
     w0, dw0, w1, dw1 = bundle_from_planes(planes)
     w0e, w1e = linearized_warps(WarpBundle(v_lin, w0, dw0, w1, dw1), v)
-    return total_energy_planes(w0e, w1e, v, data, p)
+    return total_energy_planes(w0e, w1e, v, data, p, inv_n_dtype=dt)
 
 
 def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int = 0, gh: int = 0,
             halo: int = 0):
     """One launch of a sweep kernel (and its reduce) on a whole frame or,
     with ``halo`` > 0, on a row shard; returns (out (5,), grad, precond)."""
-    h, w, c = _check(planes, v_lin, v, data, halo)
+    h, w, c, dt = _check(planes, v_lin, v, data, halo)
+    bf16 = dt == torch.bfloat16
     r = kernel_radius(p)
     bh = h - 2 * halo
     dev = v.device
@@ -306,7 +377,7 @@ def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int =
         if with_grad:
             grad = torch.empty((bh, w, 2), dtype=torch.float32, device=dev)
             precond = torch.empty((bh, w, 2), dtype=torch.float32, device=dev)
-            err = lib.vm_sweep_grad(
+            err = (lib.vm_sweep_grad_bf16 if bf16 else lib.vm_sweep_grad)(
                 planes.data_ptr(), v_lin.data_ptr(), v.data_ptr(),
                 data.ui_w.data_ptr(), data.ui_v.data_ptr(),
                 data.tc_w.data_ptr(), data.tc_v.data_ptr(),
@@ -314,14 +385,14 @@ def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int =
                 scratch_ptr, n_scratch, out.data_ptr(), ctypes.addressof(s), stream_of(v),
             )
         else:
-            err = lib.vm_sweep_energy(
+            err = (lib.vm_sweep_energy_bf16 if bf16 else lib.vm_sweep_energy)(
                 planes.data_ptr(), v_lin.data_ptr(), v.data_ptr(),
                 data.ui_w.data_ptr(), data.ui_v.data_ptr(),
                 data.tc_w.data_ptr(), data.tc_v.data_ptr(),
                 partials.data_ptr(), n_parts, scratch_ptr, n_scratch, out.data_ptr(),
                 ctypes.addressof(s), stream_of(v),
             )
-    build.check(err, "vm_sweep_grad" if with_grad else "vm_sweep_energy")
+    build.check(err, ("vm_sweep_grad" if with_grad else "vm_sweep_energy") + ("_bf16" if bf16 else ""))
     return out, grad, precond
 
 
@@ -332,11 +403,12 @@ def sweep_grad(planes, v_lin, v, data, p: MorphParams):
     if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
         return sweep_grad_plain(planes, v_lin, v, data, p)
     out, grad, precond = _launch(True, planes, v_lin, v, data, p)
-    sweep_grad.launches += 1
+    count_launch(sweep_grad, planes.dtype)
     return out[4], grad, precond
 
 
 sweep_grad.launches = 0
+sweep_grad.launches_bf16 = 0
 
 
 def sweep_energy(planes, v_lin, v, data, p: MorphParams):
@@ -344,11 +416,12 @@ def sweep_energy(planes, v_lin, v, data, p: MorphParams):
     if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
         return sweep_energy_plain(planes, v_lin, v, data, p)
     out, _, _ = _launch(False, planes, v_lin, v, data, p)
-    sweep_energy.launches += 1
+    count_launch(sweep_energy, planes.dtype)
     return out[4]
 
 
 sweep_energy.launches = 0
+sweep_energy.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +471,7 @@ def _shard_plain(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: 
         tps_adj_yy,
     )
 
+    planes, data, dt = _upcast(planes, data)
     he, w = v.shape[0], v.shape[1]
     c = planes.shape[0] // 6
     npix = gh * w
@@ -409,7 +483,7 @@ def _shard_plain(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: 
     vld = vld_rows.expand(he, w, 1)
     bundle = dssim_grad_bundle(
         w0e, w1e, window=p.ssim_window, sigma=p.ssim_sigma,
-        c1=p.ssim_c1, c2=p.ssim_c2, use_luminance=p.ssim_use_luminance, valid=vld,
+        c1=p.ssim_c1, c2=p.ssim_c2, use_luminance=p.ssim_use_luminance, valid=vld, inv_n_dtype=dt,
     )
     vxx, vxy, vyy = _masked_tps_maps(v, vld_rows)
     tmap = torch.sum(vxx * vxx + 2.0 * vxy * vxy + vyy * vyy, dim=-1)
@@ -479,11 +553,12 @@ def sweep_grad_shard(planes, v_lin, v, data, p: MorphParams, row0: int, gh: int,
     if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
         return sweep_grad_shard_plain(planes, v_lin, v, data, p, row0, gh, halo)
     out, grad, precond = _launch(True, planes, v_lin, v, data, p, row0, gh, halo)
-    sweep_grad_shard.launches += 1
+    count_launch(sweep_grad_shard, planes.dtype)
     return out[:4], grad, precond
 
 
 sweep_grad_shard.launches = 0
+sweep_grad_shard.launches_bf16 = 0
 
 
 def sweep_energy_shard(planes, v_lin, v, data, p: MorphParams, row0: int, gh: int, halo: int):
@@ -492,8 +567,9 @@ def sweep_energy_shard(planes, v_lin, v, data, p: MorphParams, row0: int, gh: in
     if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
         return sweep_energy_shard_plain(planes, v_lin, v, data, p, row0, gh, halo)
     out, _, _ = _launch(False, planes, v_lin, v, data, p, row0, gh, halo)
-    sweep_energy_shard.launches += 1
+    count_launch(sweep_energy_shard, planes.dtype)
     return out[:4]
 
 
 sweep_energy_shard.launches = 0
+sweep_energy_shard.launches_bf16 = 0

@@ -11,6 +11,12 @@ Source: ``csrc/warp.cu`` (``vm_halfway_warp``, ``vm_bilinear_sample``).
   ``videomorphing_tpu/pallas/warp.py:311`` (``_build_sample_call``, driven
   by ``fused_sample``); both launch one kernel, the first with n = 1.
 
+Kernel 3 writes its plane stack in float32 or, with ``dtype=torch.bfloat16``,
+in bfloat16 (each value rounded to nearest even as it is stored, the
+reference's ``_build_warp_call(..., out_dtype=)``): the static pack of
+``MorphParams.pack_dtype="bfloat16"``, which the sweep kernels read in that
+dtype. Its plain version is the float32 plain version cast.
+
 Both are bound by memory on the H100 (4 taps x C reads per image, one write
 per output value). The TPU kernels enumerate per-tile residual offsets over
 row-phase copies and fall back to an XLA gather when a tile's field is too
@@ -24,7 +30,8 @@ Dispatch: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in a plain
 integer attribute (``halfway_warp.launches``, ``bilinear_sample.launches``,
 ``bilinear_sample_batched.launches``); the row-offset form counts only
-under ``halfway_warp_rows.launches``.
+under ``halfway_warp_rows.launches``, and a bfloat16 output under
+``launches_bf16`` of the same wrapper instead.
 """
 
 from __future__ import annotations
@@ -49,9 +56,9 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     return True
 
 
-def check_cuda_input(t: torch.Tensor, name: str, shape=None) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+def check_cuda_input(t: torch.Tensor, name: str, shape=None, dtype=torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {str(dtype).replace('torch.', '')}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -88,48 +95,74 @@ def bundle_from_planes(planes: torch.Tensor):
     return w0, dw0, w1, dw1
 
 
-def halfway_warp_plain(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel 3: ``bilinear_sample_with_grad`` at g -/+ v."""
+PLANE_DTYPES = (torch.float32, torch.bfloat16)  # kernel 3's outputs; the sweep kernels' plane inputs
+
+
+def _check_plane_dtype(dtype) -> None:
+    if dtype not in PLANE_DTYPES:
+        raise TypeError(f"the plane stack is float32 or bfloat16, not {dtype}")
+
+
+def halfway_warp_plain(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of kernel 3: ``bilinear_sample_with_grad`` at g -/+ v,
+    cast to ``dtype``."""
     g = resample.grid_coords(i0.shape[0], i0.shape[1], dtype=v.dtype, device=v.device)
     w0, dw0 = resample.bilinear_sample_with_grad(i0, g - v)
     w1, dw1 = resample.bilinear_sample_with_grad(i1, g + v)
-    return planes_from_bundle(w0, dw0, w1, dw1)
+    return planes_from_bundle(w0, dw0, w1, dw1).to(dtype)
 
 
-def _launch_warp(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor, row0: int) -> torch.Tensor:
-    """Kernel 3 on the ``v.shape[0]`` rows from global row ``row0``."""
+def _launch_warp(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor, row0: int, dtype) -> torch.Tensor:
+    """Kernel 3 on the ``v.shape[0]`` rows from global row ``row0``, its
+    planes stored in ``dtype``."""
     h, w, c = i0.shape
     ho = v.shape[0]
     check_cuda_input(i0, "i0")
     check_cuda_input(i1, "i1", (h, w, c))
     check_cuda_input(v, "v", (ho, w, 2))
-    out = torch.empty((6 * c, ho, w), dtype=torch.float32, device=v.device)
+    out = torch.empty((6 * c, ho, w), dtype=dtype, device=v.device)
     lib = build.load()
     with torch.cuda.device(v.device):
         err = lib.vm_halfway_warp(
-            i0.data_ptr(), i1.data_ptr(), v.data_ptr(), out.data_ptr(), h, w, c, row0, ho, stream_of(v)
+            i0.data_ptr(), i1.data_ptr(), v.data_ptr(), out.data_ptr(), h, w, c, row0, ho,
+            int(dtype == torch.bfloat16), stream_of(v)
         )
     build.check(err, "vm_halfway_warp")
     return out
 
 
-def halfway_warp(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def count_launch(wrapper, dtype) -> None:
+    """One launch of ``wrapper``'s kernel in the form of ``dtype``: under
+    ``launches_bf16`` for bfloat16, else under ``launches``."""
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
+def halfway_warp(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Both halfway warps ``I0(p - v)``, ``I1(p + v)`` and their exact
-    interpolant derivatives as one (6C, H, W) plane stack, in the order of
-    the reference's ``fused_warp_planes``; the sweep kernels read it as is."""
+    interpolant derivatives as one (6C, H, W) plane stack in ``dtype``
+    (float32 or bfloat16), in the order of the reference's
+    ``fused_warp_planes``; the sweep kernels read it as is."""
+    _check_plane_dtype(dtype)
     if not on_cuda(i0, i1, v):
-        return halfway_warp_plain(i0, i1, v)
-    out = _launch_warp(i0, i1, v, 0)
-    halfway_warp.launches += 1
+        return halfway_warp_plain(i0, i1, v, dtype)
+    out = _launch_warp(i0, i1, v, 0, dtype)
+    count_launch(halfway_warp, dtype)
     return out
 
 
 halfway_warp.launches = 0
+halfway_warp.launches_bf16 = 0
 
 
-def halfway_warp_rows_plain(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor, row0: int) -> torch.Tensor:
+def halfway_warp_rows_plain(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor, row0: int,
+                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of kernel 3's row-offset form: the sampler at the
-    offset coordinates, times the row mask of the frame."""
+    offset coordinates, times the row mask of the frame, cast to ``dtype``."""
     h, w = i0.shape[0], i0.shape[1]
     ys = torch.arange(row0, row0 + v.shape[0], dtype=v.dtype, device=v.device)
     xs = torch.arange(w, dtype=v.dtype, device=v.device)
@@ -137,22 +170,25 @@ def halfway_warp_rows_plain(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor,
     w0, dw0 = resample.bilinear_sample_with_grad(i0, g - v)
     w1, dw1 = resample.bilinear_sample_with_grad(i1, g + v)
     inside = ((ys >= 0) & (ys < h)).to(v.dtype)[None, :, None]
-    return planes_from_bundle(w0, dw0, w1, dw1) * inside
+    return (planes_from_bundle(w0, dw0, w1, dw1) * inside).to(dtype)
 
 
-def halfway_warp_rows(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor, row0: int) -> torch.Tensor:
-    """Kernel 3 on a block of rows: the (6C, Ho, W) planes of the global
-    rows ``[row0, row0 + Ho)`` of the full frames ``i0``/``i1`` (H, W, C)
-    at the block's field ``v`` (Ho, W, 2); rows outside ``[0, H)`` are zero
-    planes. ``row0 = 0`` with ``Ho = H`` is :func:`halfway_warp`."""
+def halfway_warp_rows(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor, row0: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Kernel 3 on a block of rows: the (6C, Ho, W) planes, in ``dtype``, of
+    the global rows ``[row0, row0 + Ho)`` of the full frames ``i0``/``i1``
+    (H, W, C) at the block's field ``v`` (Ho, W, 2); rows outside ``[0, H)``
+    are zero planes. ``row0 = 0`` with ``Ho = H`` is :func:`halfway_warp`."""
+    _check_plane_dtype(dtype)
     if not on_cuda(i0, i1, v):
-        return halfway_warp_rows_plain(i0, i1, v, row0)
-    out = _launch_warp(i0, i1, v, int(row0))
-    halfway_warp_rows.launches += 1
+        return halfway_warp_rows_plain(i0, i1, v, row0, dtype)
+    out = _launch_warp(i0, i1, v, int(row0), dtype)
+    count_launch(halfway_warp_rows, dtype)
     return out
 
 
 halfway_warp_rows.launches = 0
+halfway_warp_rows.launches_bf16 = 0
 
 
 MAX_BATCH = 65535  # the launch grid's y extent: one grid row per image

@@ -7,6 +7,9 @@ backward here is the plain version of what the sweep kernel
 (``csrc/sweep.cu``) fuses into one pass. ``valid=`` (an (H, W, 1) mask of
 in-frame pixels) serves the row-sharded solve: a block extended by zero
 rows beyond the frame plus this mask gives the frame's window sums.
+``inv_n_dtype=torch.bfloat16`` rounds ``1/n`` to bfloat16 before use, as
+the reference's bf16 sweep pack stores it (``MorphParams.pack_dtype``); all
+else stays float32.
 """
 
 from __future__ import annotations
@@ -22,11 +25,18 @@ def _wsum(x: torch.Tensor, taps) -> torch.Tensor:
     return separable_filter(x, taps, taps, mode="same_zero")
 
 
+def _rounded(inv_n: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``inv_n`` rounded to ``dtype`` (nearest even) and back."""
+    return inv_n if dtype == inv_n.dtype else inv_n.to(dtype).to(inv_n.dtype)
+
+
 def ssim_parts(
-    w0: torch.Tensor, w1: torch.Tensor, window: int = 5, sigma: float = 1.0, valid=None
+    w0: torch.Tensor, w1: torch.Tensor, window: int = 5, sigma: float = 1.0, valid=None, *,
+    inv_n_dtype: torch.dtype = torch.float32,
 ) -> Dict[str, torch.Tensor]:
     """Windowed SSIM statistics of two (H, W, C) images; with ``valid``
-    (H, W, 1) the images are masked to it and ``n`` is its window sum."""
+    (H, W, 1) the images are masked to it and ``n`` is its window sum;
+    ``1/n`` is rounded to ``inv_n_dtype``."""
     k = gaussian_taps(int(window), float(sigma))
     if valid is None:
         valid = w0.new_ones(w0.shape[:2] + (1,))
@@ -34,7 +44,7 @@ def ssim_parts(
         w0 = w0 * valid
         w1 = w1 * valid
     n = _wsum(valid, k)
-    inv_n = torch.where(n > 1e-8, 1.0 / torch.clamp(n, min=1e-8), torch.zeros_like(n))
+    inv_n = _rounded(torch.where(n > 1e-8, 1.0 / torch.clamp(n, min=1e-8), torch.zeros_like(n)), inv_n_dtype)
     mu0 = _wsum(w0, k) * inv_n
     mu1 = _wsum(w1, k) * inv_n
     e00 = _wsum(w0 * w0, k) * inv_n
@@ -54,9 +64,11 @@ def dssim_map(
     c1: float = 1e-4,
     c2: float = 9e-4,
     use_luminance: bool = True,
+    *,
+    inv_n_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Per-pixel structural dissimilarity in [0, 2], channel-averaged (H, W)."""
-    parts = ssim_parts(w0, w1, window, sigma)
+    parts = ssim_parts(w0, w1, window, sigma, inv_n_dtype=inv_n_dtype)
     a2 = 2.0 * parts["cov"] + c2
     b2 = parts["var0"] + parts["var1"] + c2
     if use_luminance:
@@ -85,6 +97,8 @@ def dssim_grad_bundle(
     c2: float = 9e-4,
     use_luminance: bool = True,
     valid=None,
+    *,
+    inv_n_dtype: torch.dtype = torch.float32,
 ) -> DssimGradBundle:
     """Value, analytic gradients and curvature scale in one pass.
 
@@ -100,7 +114,7 @@ def dssim_grad_bundle(
     """
     h, w, c = w0.shape
     k = gaussian_taps(int(window), float(sigma))
-    parts = ssim_parts(w0, w1, window, sigma, valid)
+    parts = ssim_parts(w0, w1, window, sigma, valid, inv_n_dtype=inv_n_dtype)
     if valid is not None:
         w0 = w0 * valid
         w1 = w1 * valid
@@ -135,9 +149,10 @@ def dssim_grad_bundle(
 
     scale = -1.0 / (h * w * c)
     if valid is None:
-        inv_n = 1.0 / n
+        inv_n = _rounded(1.0 / n, inv_n_dtype)
     else:
-        inv_n = torch.where(n > 1e-8, 1.0 / torch.clamp(n, min=1e-8), torch.zeros_like(n)) * valid
+        inv_n = _rounded(torch.where(n > 1e-8, 1.0 / torch.clamp(n, min=1e-8), torch.zeros_like(n)),
+                         inv_n_dtype) * valid
 
     def grad_one(c_mu_a, mu_a, mu_b, w_a, w_b):
         t0 = _wsum(scale * (c_mu_a - 2.0 * mu_a * c_var - mu_b * c_cov) * inv_n, k)

@@ -34,12 +34,18 @@ import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import MorphParams
-from videomorphing_tpu_torch.kernels.sweep import combine_parts, sweep_energy_shard, sweep_grad_shard
+from videomorphing_tpu_torch.kernels.sweep import (
+    combine_parts,
+    pack_maps,
+    quantize_v_lin,
+    sweep_energy_shard,
+    sweep_grad_shard,
+)
 from videomorphing_tpu_torch.kernels.warp import halfway_warp_rows
 from videomorphing_tpu_torch.ops.windows import median3x3
 from videomorphing_tpu_torch.parallel.halo import halo_exchange_rows
 from videomorphing_tpu_torch.parallel.mesh import as_mesh, make_mesh
-from videomorphing_tpu_torch.solver.descent import LevelStats, _axis_gaps, make_level_solver
+from videomorphing_tpu_torch.solver.descent import LevelStats, _axis_gaps, make_level_solver, pack_dtype_for
 from videomorphing_tpu_torch.solver.energy import LevelData
 
 f32 = np.float32
@@ -121,11 +127,13 @@ def make_spatial_level_solver(
     reference keeps this layout on its jnp backend (a vmap of a
     ``pallas_call`` risked Mosaic's compiler); the port has no such risk
     and runs the shard kernels here too.
+
+    The sweeps' pack dtype follows ``descent.pack_dtype_for`` on a block's
+    owned rows (the reference's ``_resolve_backend(p, bh, w)``), with the
+    linearization point rounded to it before each re-warp; with
+    ``batch_axis`` it is float32, as the reference keeps that layout off
+    its Pallas path.
     """
-    if p.pack_dtype != "float32":
-        raise ValueError(
-            f"pack_dtype={p.pack_dtype!r} changes the output; the port computes in float32 only"
-        )
     mesh = as_mesh(mesh)
     halo = exchange_halo(p)
     armijo_c, shrink, grow = f32(p.armijo_c), f32(p.step_shrink), f32(p.step_grow)
@@ -141,6 +149,7 @@ def make_spatial_level_solver(
                 f"{h} rows do not split into {n_dev} blocks of at least {halo} rows"
             )
         bh = h // n_dev
+        dt = torch.float32 if batch_axis is not None else pack_dtype_for(p, bh, w, devs[0])
         home = v.device
         c = data.i0.shape[-1]
         npix = h * w
@@ -156,7 +165,7 @@ def make_spatial_level_solver(
             bmask = torch.ones((bh, w, 2), dtype=v.dtype, device=dev)
             bmask[..., 0] = ((ys != 0) & (ys != h - 1)).to(v.dtype)[:, None]
             bmask[..., 1] = ((xs != 0) & (xs != w - 1)).to(v.dtype)[None, :]
-            blocks.append(_Block(dev, k * bh - halo, LevelData(*images[dev], *maps),
+            blocks.append(_Block(dev, k * bh - halo, pack_maps(LevelData(*images[dev], *maps), dt),
                                  _parity(ys, xs, p.n_colors), bmask))
         v_blks = [v[k * bh:(k + 1) * bh].to(b.dev).contiguous() for k, b in enumerate(blocks)]
 
@@ -172,7 +181,9 @@ def make_spatial_level_solver(
             return combine_parts(_sum_rows(gather(parts)), p, npix, c)
 
         def warp_states(v_ext):
-            return [(halfway_warp_rows(b.data.i0, b.data.i1, ve, b.row0), ve) for b, ve in zip(blocks, v_ext)]
+            """Per block (the warp planes, v_lin) of a re-warp at ``v_ext``."""
+            v_q = v_ext if dt == torch.float32 else [quantize_v_lin(ve, p) for ve in v_ext]
+            return [(halfway_warp_rows(b.data.i0, b.data.i1, vq, b.row0, dt), vq) for b, vq in zip(blocks, v_q)]
 
         hist = torch.full((max(n_iters, 0),), float("nan"), dtype=torch.float32)
         if n_iters <= 0:

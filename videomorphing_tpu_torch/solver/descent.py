@@ -9,13 +9,16 @@ sweep kernels (1 and 2) work on the first-order expansion around that
 linearization point.
 
 Backend: the kernels run whenever the tensors lie on the card and their
-plain versions run on the CPU (``kernels/``). The reference's
-``backend``, ``fused_warp`` and ``pallas_min_pixels`` knobs, and its
-``_resolve_backend`` rule that sends small levels to the plain path, are
-ignored: both paths compute the same numbers, and on the card no plain
-version may run on the main path. ``warp_into_pack`` and
-``warp_prescreen`` are exact TPU options and are ignored too;
-``pack_dtype="bfloat16"`` changes the output and raises.
+plain versions run on the CPU (``kernels/``); both compute the same
+numbers, and on the card no plain version may run on the main path.
+``backend`` and ``pallas_min_pixels`` are read for one choice only, the
+dtype of the sweeps' static pack (:func:`pack_dtype_for`, the reference's
+``_resolve_backend``): ``pack_dtype="bfloat16"`` takes effect where the
+reference's Pallas path would run, with ``backend="pallas"`` on any
+device and with ``"auto"`` on the card on levels of at least
+``pallas_min_pixels`` pixels; elsewhere the pack is float32, as the
+reference's jnp path is. ``fused_warp``, ``warp_into_pack`` and
+``warp_prescreen`` are exact TPU options and are ignored.
 
 The level loop runs in Python and keeps v, the warp planes and the step
 direction on the device; it reads back only the scalars the loop
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import MorphParams
-from videomorphing_tpu_torch.kernels.sweep import sweep_energy, sweep_grad
+from videomorphing_tpu_torch.kernels.sweep import pack_dtype, pack_maps, quantize_v_lin, sweep_energy, sweep_grad
 from videomorphing_tpu_torch.kernels.warp import bundle_from_planes, halfway_warp
 from videomorphing_tpu_torch.ops.ssim import dssim_grad_bundle, dssim_map
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, median3x3, separable_filter
@@ -132,22 +135,25 @@ def linearized_warps(wb: WarpBundle, v: torch.Tensor) -> Tuple[torch.Tensor, tor
     return w0, w1
 
 
-def total_energy_planes(w0, w1, v: torch.Tensor, data: LevelData, p: MorphParams) -> torch.Tensor:
+def total_energy_planes(w0, w1, v: torch.Tensor, data: LevelData, p: MorphParams, *,
+                        inv_n_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Total energy from (possibly linearized) warp planes: the plain
-    version of the sweep energy kernel."""
+    version of the sweep energy kernel (``inv_n_dtype``: see
+    ``ops.ssim``)."""
     e_sim = torch.mean(
         dssim_map(
             w0, w1, window=p.ssim_window, sigma=p.ssim_sigma,
-            c1=p.ssim_c1, c2=p.ssim_c2, use_luminance=p.ssim_use_luminance,
+            c1=p.ssim_c1, c2=p.ssim_c2, use_luminance=p.ssim_use_luminance, inv_n_dtype=inv_n_dtype,
         )
     )
     e_tps, e_ui, e_tc = quadratic_energies(v, data, p)
     return e_sim + e_tps + e_ui + e_tc
 
 
-def value_grad_precond_planes(w0, dw0, w1, dw1, v: torch.Tensor, data: LevelData, p: MorphParams):
+def value_grad_precond_planes(w0, dw0, w1, dw1, v: torch.Tensor, data: LevelData, p: MorphParams, *,
+                              inv_n_dtype: torch.dtype = torch.float32):
     """(E, dE/dv, preconditioner) from warp planes: the plain version of the
-    sweep gradient kernel.
+    sweep gradient kernel (``inv_n_dtype``: see ``ops.ssim``).
 
     dE/dv chains the analytic SSIM image gradients through the interpolant
     derivatives (-dw0 for I0(p - v), +dw1 for I1(p + v)) and adds the TPS
@@ -159,7 +165,7 @@ def value_grad_precond_planes(w0, dw0, w1, dw1, v: torch.Tensor, data: LevelData
     npix = h * w
     bundle = dssim_grad_bundle(
         w0, w1, window=p.ssim_window, sigma=p.ssim_sigma,
-        c1=p.ssim_c1, c2=p.ssim_c2, use_luminance=p.ssim_use_luminance,
+        c1=p.ssim_c1, c2=p.ssim_c2, use_luminance=p.ssim_use_luminance, inv_n_dtype=inv_n_dtype,
     )
     g_sim = -(bundle.g0[..., None] * dw0).sum(2) + (bundle.g1[..., None] * dw1).sum(2)
     lam_n = p.lambda_tps / npix
@@ -223,19 +229,36 @@ def _tps_grad_unnormalized(v: torch.Tensor) -> torch.Tensor:
     return 2.0 * tps_adj_xx(vxx) + 4.0 * tps_adj_xy(vxy) + 2.0 * tps_adj_yy(vyy)
 
 
+def pack_dtype_for(p: MorphParams, h: int, w: int, device) -> torch.dtype:
+    """The dtype of the sweeps' static pack (kernel 3's planes and the UI/TC
+    maps) on an h x w level whose tensors lie on ``device``: the reference's
+    ``_resolve_backend`` read for this choice only. ``backend="jnp"``:
+    float32; ``"pallas"``: ``p.pack_dtype``; ``"auto"``: ``p.pack_dtype`` on
+    a CUDA device where ``h * w >= p.pallas_min_pixels`` (the reference's
+    TPU rule), float32 elsewhere (its CPU path). An unknown ``backend``
+    raises ``ValueError``, and so does an unknown ``pack_dtype`` where it
+    is read."""
+    if p.backend == "jnp":
+        return torch.float32
+    if p.backend == "auto":
+        if torch.device(device).type != "cuda" or h * w < p.pallas_min_pixels:
+            return torch.float32
+    elif p.backend != "pallas":
+        raise ValueError(f"unknown backend {p.backend!r}")
+    return pack_dtype(p)
+
+
 def make_level_solver(p: MorphParams, n_iters: int):
     """The per-level solve ``(v, data) -> (v', LevelStats)``.
 
     Per outer block of ``relin_every`` iterations: 3x3-median the field
     (``relin_median``, skipped at the first block), re-warp both images
-    (kernel 3). Per iteration: energy, gradient and preconditioner
-    (kernel 1); a masked, foldover-clamped preconditioned step; Armijo
-    backtracking on the linearized energy (kernel 2 per trial).
+    (kernel 3) at the linearization point, rounded to the pack's dtype
+    (:func:`pack_dtype_for`, :func:`~videomorphing_tpu_torch.kernels.sweep.quantize_v_lin`).
+    Per iteration: energy, gradient and preconditioner (kernel 1); a masked,
+    foldover-clamped preconditioned step; Armijo backtracking on the
+    linearized energy (kernel 2 per trial).
     """
-    if p.pack_dtype != "float32":
-        raise ValueError(
-            f"pack_dtype={p.pack_dtype!r} changes the output; the port computes in float32 only"
-        )
     armijo_c, shrink, grow = f32(p.armijo_c), f32(p.step_shrink), f32(p.step_grow)
     min_step, tol = f32(p.min_step), f32(p.tol)
 
@@ -244,10 +267,16 @@ def make_level_solver(p: MorphParams, n_iters: int):
         v = v.contiguous()
         bmask = boundary_mask(h, w, v.dtype, v.device)
         hist = torch.full((max(n_iters, 0),), float("nan"), dtype=torch.float32)
-        warp = lambda v_: halfway_warp(data.i0, data.i1, v_)
+        dt = pack_dtype_for(p, h, w, v.device)
+        data_k = pack_maps(data, dt)
+
+        def linearize(v_):
+            """(the warp planes, v_lin) of a re-warp at ``v_``."""
+            v_q = v_ if dt == torch.float32 else quantize_v_lin(v_, p)
+            return halfway_warp(data.i0, data.i1, v_q, dt), v_q
 
         if n_iters <= 0:
-            e0 = f32(sweep_energy(warp(v), v, v, data, p).item())
+            e0 = f32(sweep_energy(*linearize(v), v, data_k, p).item())
             return v, LevelStats(e0=float(e0), e_final=float(e0), iters=0,
                                  step=float(f32(p.init_step)), energy_history=hist)
 
@@ -262,10 +291,9 @@ def make_level_solver(p: MorphParams, n_iters: int):
             it0 = it
             if p.relin_median and it0 > 0:
                 v = v + (median3x3(v) - v) * bmask
-            v_lin = v
-            planes = warp(v_lin)
+            planes, v_lin = linearize(v)
             while cond() and it < it0 + relin:
-                e_cur_t, grad, precond = sweep_grad(planes, v_lin, v, data, p)
+                e_cur_t, grad, precond = sweep_grad(planes, v_lin, v, data_k, p)
                 cmask = color_mask(h, w, it % p.n_colors, p.n_colors, v.dtype, v.device)
                 d = (-grad / precond) * cmask * bmask
                 d = foldover_scale(v, d, p.fold_margin)
@@ -275,7 +303,7 @@ def make_level_solver(p: MorphParams, n_iters: int):
 
                 def trial(alpha):
                     v_try = v + float(alpha) * d
-                    return v_try, f32(sweep_energy(planes, v_lin, v_try, data, p).item())
+                    return v_try, f32(sweep_energy(planes, v_lin, v_try, data_k, p).item())
 
                 alpha = step
                 v_try, e_try = trial(alpha)
