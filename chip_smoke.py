@@ -43,7 +43,12 @@ Phases:
      also at ``WIDE_WINDOWS``, timed; and the bf16 forms of kernels 1-3
      (``pack_dtype="bfloat16"``: bf16 planes and maps, v_lin rounded to
      bf16) against their plain bf16 versions at the same shapes and
-     windows (the 4K splits at the default window), kernel 3's bf16 output
+     windows (the 4K splits at the default window), and at windows 3, 5
+     and 11 also on 135 x 242, 135 x 243 and 135 x 244
+     (``BF16_PARITY_HW``: every width mod 4 with the ragged shape, odd and
+     even h w) and on 4 row blocks of 132 x 243 and 132 x 242
+     (``BF16_PARITY_SHARD_HW``, shard rows against the whole frame's), where
+     the bf16 forms' word staging could pick the wrong half; kernel 3's bf16 output
      bitwise its float32 output cast, shard rows and reruns bitwise, with
      times and bounds (planes and maps at 2 bytes) beside the float32
      forms' at 1024^2, 1080 x 1920 and the 4K block;
@@ -192,6 +197,16 @@ WIDE_SPATIAL_WINDOW = 9
 WIDE_PAIR_N = 1024
 # phase 19's clip pair (phase 5's), a module constant so a rehearsal can shrink it
 BF16_VIDEO_THW = (30, 1080, 1920)
+# phase 2's shapes for the bf16 forms' word staging (an element's half of
+# its 4-byte word follows the parity of its flat index): whole frames of
+# widths 2, 3 and 0 mod 4 beside the ragged 135 x 241 (1 mod 4; 135 x 241
+# and 135 x 243 hold an odd h w), and 4 row blocks of 33 rows (blocks 1
+# and 3 start on an odd row) of frames of odd and even width, each against
+# the whole frame's rows; at the tile's, the energy kernel's and the
+# strip's windows
+BF16_PARITY_HW = ((135, 242), (135, 243), (135, 244))
+BF16_PARITY_SHARD_HW = ((132, 243), (132, 242))
+BF16_PARITY_WINDOWS = (3, 5, 11)
 BASE = ("halfway_warp", "bilinear_sample", "bilinear_sample_batched", "sweep_grad", "sweep_energy")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -521,6 +536,23 @@ def check_kernels(dev) -> dict:
                 log(f"  {name} 1024x1024 bound: {b_ms:.4f} ms ({b_by})"
                     + (f"; F.grid_sample {rec[name]['library_ms']:.4f} ms (device), {lib_call:.4f} ms (call)"
                        if rec[name]["library_ms"] else ""))
+    # the bf16 forms' word staging on widths of every residue mod 4 and an odd h w
+    for h, w in BF16_PARITY_HW:
+        rng = np.random.default_rng(h + w)
+        i0 = t(rng.random((h, w, 3), dtype=np.float32))
+        i1 = t(rng.random((h, w, 3), dtype=np.float32))
+        vq = t(smooth_field(h, w, 20.0, 1)).to(BF16).float()
+        v = t(smooth_field(h, w, 20.0, 1) + smooth_field(h, w, 0.5, 2))
+        data16 = ks.pack_maps(make_level_data(
+            i0, i1,
+            t(rng.random((h, w, 1), dtype=np.float32)),
+            v + t(0.1 * rng.standard_normal((h, w, 2)).astype(np.float32)),
+            t(rng.random((h, w, 1), dtype=np.float32)),
+            v + t(0.5 * rng.standard_normal((h, w, 2)).astype(np.float32)),
+        ), BF16)
+        planes16 = kw.halfway_warp(i0, i1, vq, BF16)
+        for win in BF16_PARITY_WINDOWS:
+            check_sweeps(planes16, vq, v, data16, windows[win], f"{h}x{w} window {win} bf16")
     check_sampler_forms(dev, compare, rec, t)
     check_shard_forms(dev, compare, rec, t, p)
     return rec
@@ -720,17 +752,19 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
     at ``WIDE_WINDOWS``; ``PAIRS_ROWS_BLOCKS`` blocks of a ``PAIRS_ROWS_HW``
     level (phase 16's block shape); and 4 blocks of a ragged 132 x 241 one
     at every window of ``WINDOW_SIGMA``; the bf16 form (planes and maps in
-    bf16, v_lin rounded to bf16) on the two 4K splits at the default window
-    and on the ragged split at every window. Each
+    bf16, v_lin rounded to bf16) on the two 4K splits at the default window,
+    on the ragged split at every window and on ``BF16_PARITY_SHARD_HW``'s
+    splits at ``BF16_PARITY_WINDOWS`` (with the whole-frame checks). Each
     block's row-offset warp, (partials, grad, precond) and energy partials
     against their plain versions on the same inputs (the warp 1e-6
     absolute, in bf16 one bf16 step of max|ref|; grad and precond kernel
     1's gate, 1e-5 of max|ref|; each raw partial 1e-5 of its own size). At
-    the 4K splits also: the row-offset warp equals the whole-frame warp's
-    rows bitwise (zero planes outside the frame; in bf16 also the float32
-    row-offset warp cast), each block's grad and precond equal the
-    whole-frame kernel's rows (bitwise expected, else within 1e-6 of
-    max|ref|), and the shard-summed energies are within 1e-6 relative of
+    the 4K splits and ``BF16_PARITY_SHARD_HW``'s also: the row-offset warp
+    equals the whole-frame warp's rows bitwise (zero planes outside the
+    frame; in bf16 also the float32 row-offset warp cast), each block's
+    grad and precond equal the whole-frame kernel's rows (bitwise required
+    in bf16, expected in float32, else within 1e-6 of max|ref|), and the
+    shard-summed energies are within 1e-6 relative of
     the whole-frame energy. Then the times, bounds and plain times of the
     forms at the 4-block 4K block shape (at the wide windows logged
     only)."""
@@ -758,7 +792,8 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
              + [(SHARD_SHAPES[1], at(k), 4, False, False, F32) for k in WINDOW_SIGMA]
              + [(SHARD_SHAPES[0], p_default, 4, True, True, BF16),
                 (PAIRS_ROWS_HW, p_default, PAIRS_ROWS_BLOCKS, True, False, BF16)]
-             + [(SHARD_SHAPES[1], at(k), 4, False, False, BF16) for k in WINDOW_SIGMA])
+             + [(SHARD_SHAPES[1], at(k), 4, False, False, BF16) for k in WINDOW_SIGMA]
+             + [(hw, at(k), 4, True, False, BF16) for hw in BF16_PARITY_SHARD_HW for k in BF16_PARITY_WINDOWS])
     for (h, w), p, n, big, timed, dt in cases:
         halo = exchange_halo(p)
         rng = np.random.default_rng(h + w + 1)
@@ -822,6 +857,9 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
                 parts_e.append(pe)
         if not big:
             continue
+        # the bf16 staging picks each element's half from its flat index in
+        # the block's arrays, whose parities differ from the whole frame's
+        require(bitwise or not bf16, f"{shape}: bf16 shard rows differ from the whole frame's")
         log(f"  shard forms on {shape}: row-offset warp rows bitwise equal, zero planes outside; "
             f"grad and precond {'bitwise equal to' if bitwise else 'within 1e-6 of'} the whole frame's rows")
         for name, parts, e_ref in (("sweep_grad_shard", parts_g, e_whole), ("sweep_energy_shard", parts_e, e2_whole)):

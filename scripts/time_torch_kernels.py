@@ -3,6 +3,7 @@
 shapes, on one CUDA card, for one checkout of the port.
 
     python3 scripts/time_torch_kernels.py [--root DIR] [--label NAME] [--only K1,K2] [--window K]
+                                          [--pack-dtype bfloat16]
 
 Imports ``videomorphing_tpu_torch`` from ``DIR`` (default: this checkout;
 an unpacked older commit builds its own kernels into its own ``build/``)
@@ -28,8 +29,11 @@ at 1024^2 and 1080 x 1920 (C = 3, default parameters); their shard forms on
 block 1 of 4 row blocks of 2160 x 3840; kernel 3 at 1024^2. Kernels 1-2
 and their shard forms run at ``ssim_window`` K (default 5, the default
 parameters; other windows take ``chip_smoke.WINDOW_SIGMA``'s sigma), the
-block's halo following the window. The last line is the card's name and
-power limit.
+block's halo following the window. With ``--pack-dtype bfloat16`` each
+of kernels 1-2 and their shard forms is also timed in its bf16 form
+(``<name>_bf16``: bf16 planes and maps, ``v_lin`` rounded to bf16, as
+``chip_smoke.py``'s phase 2 makes them), right after its float32 twin on
+the same pixels. The last line is the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--only", default="", help="comma-separated kernel names to time (default: all)")
     ap.add_argument("--window", type=int, default=5, help="ssim_window of kernels 1-2 (default 5)")
+    ap.add_argument("--pack-dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="bfloat16: also time the bf16 forms of kernels 1-2 and their shard forms")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
     root = os.path.abspath(args.root)
@@ -81,6 +87,8 @@ def main() -> int:
         raise RuntimeError(f"imported the port from {pkg}, not {root}")
     label = args.label or root
     dev = torch.device("cuda")
+    BF16 = torch.bfloat16
+    bf16 = args.pack_dtype == "bfloat16"
     p = MorphParams() if args.window == MorphParams().ssim_window else MorphParams(
         ssim_window=args.window, ssim_sigma=cs.WINDOW_SIGMA.get(args.window, 1.5))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
@@ -141,11 +149,18 @@ def main() -> int:
         if h == 1024:
             emit("halfway_warp", shape, lambda: kw.halfway_warp(i0, i1, v_lin),
                  4 * npx * (2 * c + 2 + 6 * c), npx * cs.warp_ops_per_pixel(c))
-        emit("sweep_grad", shape, lambda: ks.sweep_grad(planes, v_lin, v, data, p),
-             4 * npx * (6 * c + 10 + 4), npx * cs.sweep_ops_per_pixel(c, k, True))
-        emit("sweep_energy", shape, lambda: ks.sweep_energy(planes, v_lin, v, data, p),
-             4 * npx * (6 * c + 10), npx * cs.sweep_ops_per_pixel(c, k, False))
-        del planes, data
+        # the float32 forms, then (--pack-dtype bfloat16) the bf16 forms on the same pixels
+        forms = [("", planes, v_lin, data, 4)]
+        if bf16:
+            vq = v_lin.to(BF16).float()
+            forms.append(("_bf16", kw.halfway_warp(i0, i1, vq, BF16), vq, ks.pack_maps(data, BF16), 2))
+        for with_grad in (True, False):
+            for sfx, pl, vl, dt, pb in forms:
+                fn = ks.sweep_grad if with_grad else ks.sweep_energy
+                emit(("sweep_grad" if with_grad else "sweep_energy") + sfx, shape,
+                     lambda fn=fn, pl=pl, vl=vl, dt=dt: fn(pl, vl, v, dt, p),
+                     npx * cs.sweep_bytes(c, with_grad, pb), npx * cs.sweep_ops_per_pixel(c, k, with_grad))
+        del planes, data, forms
 
     # shard forms: block 1 of 4 row blocks of 2160 x 3840, with its halo
     h, w = 2160, 3840
@@ -170,10 +185,18 @@ def main() -> int:
     shape = f"{he}x{w} block"
     emit("halfway_warp_rows", shape, lambda: kw.halfway_warp_rows(i0, i1, vl_e, row0),
          4 * he * w * (2 * c + 2 + 6 * c), he * w * cs.warp_ops_per_pixel(c))
-    emit("sweep_grad_shard", shape, lambda: ks.sweep_grad_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
-         4 * (he * w * (6 * c + 4) + bh * w * (6 + 4)), bh * w * cs.sweep_ops_per_pixel(c, k, True))
-    emit("sweep_energy_shard", shape, lambda: ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
-         4 * (he * w * (6 * c + 4) + bh * w * 6), bh * w * cs.sweep_ops_per_pixel(c, k, False))
+    # the extended block's planes, v and v_lin; the owned rows' maps (and grad, precond)
+    forms = [("", pl_k, vl_e, data_k, 4)]
+    if bf16:
+        vq_e = vl_e.to(BF16).float()
+        forms.append(("_bf16", kw.halfway_warp_rows(i0, i1, vq_e, row0, BF16), vq_e, ks.pack_maps(data_k, BF16), 2))
+    for with_grad in (True, False):
+        for sfx, pl, vl, dt, pb in forms:
+            fn = ks.sweep_grad_shard if with_grad else ks.sweep_energy_shard
+            emit(("sweep_grad_shard" if with_grad else "sweep_energy_shard") + sfx, shape,
+                 lambda fn=fn, pl=pl, vl=vl, dt=dt: fn(pl, vl, v_e, dt, p, row0, h, halo),
+                 he * w * (pb * 6 * c + 16) + bh * w * (pb * 6 + (16 if with_grad else 0)),
+                 bh * w * cs.sweep_ops_per_pixel(c, k, with_grad))
     print(cs.card_line(), flush=True)
     return 0
 

@@ -104,10 +104,18 @@ def _reference_bf16(arrs, v_lin, v, p):
     return float(e), np.asarray(g), np.asarray(pc), float(et)
 
 
-@pytest.mark.parametrize("window", [5, 11])
-def test_plain_bf16_sweeps_match_the_reference(window):
+# widths of every residue mod 4 (33 x 57 and 33 x 59 with an odd h w): the
+# bf16 kernels take each element's half of its 4-byte word from the parity
+# of its flat index, and the card holds them to this plain version on the
+# same kinds of shapes
+@pytest.mark.parametrize(
+    "window, hw",
+    [pytest.param(k, (40, 56), id=str(k)) for k in (5, 11)]
+    + [pytest.param(k, (33, w), id=f"{k}-33x{w}") for k in (5, 11) for w in (57, 58, 59)],
+)
+def test_plain_bf16_sweeps_match_the_reference(window, hw):
     p = _params(window)
-    arrs, v_lin, v = _case(40, 56, 0)
+    arrs, v_lin, v = _case(*hw, 0)
     e_r, g_r, p_r, et_r = _reference_bf16(arrs, v_lin, v, p)
     data = level_data_from_numpy(**arrs)
     t = torch.from_numpy
@@ -125,6 +133,22 @@ def test_plain_bf16_sweeps_match_the_reference(window):
     _, g32, _ = ks.sweep_grad(planes32, t(v_lin), t(v), data, p)
     assert np.max(np.abs(g32.numpy() - g_r)) > 1e-3 * np.max(np.abs(g_r))
     assert ks.sweep_grad.launches == ks.sweep_grad.launches_bf16 == 0
+
+
+def test_bf16_planes_off_a_4_byte_boundary_raise():
+    """The bf16 kernels copy the aligned 4-byte word that holds each plane
+    element, so the wrapper refuses a stack that starts on a half word."""
+    arrs, v_lin, v = _case(4, 5, 1)
+    data = ks.pack_maps(level_data_from_numpy(**arrs), BF16)
+    buf = torch.zeros(18 * 4 * 5 + 2, dtype=BF16)
+    t = torch.from_numpy
+    assert buf.data_ptr() % 4 == 0
+    assert ks._check(buf[2:].view(18, 4, 5), t(v_lin), t(v), data) == (4, 5, 3, BF16)
+    with pytest.raises(ValueError, match="4-byte"):
+        ks._check(buf[1:-1].view(18, 4, 5), t(v_lin), t(v), data)
+    # float32 planes are aligned by their type
+    f32 = torch.zeros(18 * 4 * 5, dtype=torch.float32).view(18, 4, 5)
+    assert ks._check(f32, t(v_lin), t(v), ks.pack_maps(data, torch.float32))[3] == torch.float32
 
 
 def test_mixed_plane_and_map_dtypes_raise():

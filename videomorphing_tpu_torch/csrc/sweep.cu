@@ -161,14 +161,30 @@
 // v and v_lin stay float32, and so does all arithmetic, but 1/n, which the
 // reference stores in its pack too, is rounded to bf16 by
 // __float2bfloat16_rn before use (pack_round). At C = 3 a pixel's planes
-// and maps are 36 + 12 bytes where float32 has 72 + 24. cp.async copies 4,
-// 8 or 16 bytes, and a 2-byte element at an odd column has no 4-byte
-// aligned pair, so the bf16 instantiations stage their planes through
-// registers: a thread loads its elements, upcasts them and stores float32
-// into the same shared-memory layout that the float instantiations fill by
-// cp.async (v and v_lin still arrive by cp.async). Shared memory, the tiles
-// and the order of every sum are those of the float instantiations, so the
-// bf16 form's row shards equal its whole frame's rows bit for bit too.
+// and maps are 36 + 12 bytes where float32 has 72 + 24.
+//
+// The bf16 planes arrive by cp.async like the float ones, into the same
+// 4-byte slots of the same shared-memory layout, with the same zero-fill,
+// commit and wait points, so their loads stay in flight while the window
+// sums run. cp.async copies 4, 8 or 16 aligned bytes, so a slot receives
+// the aligned 4-byte word that holds its element (bf16_word; the energy
+// warp masks the element's index instead, for its registers): element idx
+// of the stack, counted from its base, lies in the word of elements
+// idx & ~1 and idx | 1, in its high half where idx is odd. The reader of a
+// slot takes that half and widens it (slot_value; a bf16 is the high half
+// of a float32, so the widening is exact); the parity comes from the flat
+// index plane * hw + p, never from the column, since an odd h * w or w
+// alternates it between planes and rows. Two neighbouring lanes fetch one
+// sector, so the device-memory bytes still halve. The wrapper requires a
+// 4-byte-aligned stack; it holds 6C planes, an even count of elements, so
+// every word lies inside it. The strip copies a chunk of 4 elements as one
+// 8-byte word pair where the width is a multiple of 4 (then each chunk
+// starts at a multiple of 4 elements) and the stack 8-byte aligned, into
+// the chunk's first two slots. The UI/TC maps are read once per owned
+// pixel, outside the channel loop, by 2-byte loads (ld). Shared memory, the
+// tiles and the order of every sum are those of the float instantiations,
+// so the bf16 form's row shards equal its whole frame's rows bit for bit
+// too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -378,6 +394,14 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in)
                : "memory");
 }
 
+// 8-byte asynchronous copy global -> shared (both 8-byte aligned); zero-fills when !in
+__device__ __forceinline__ void cp_async8(float* dst, const void* src, bool in) {
+  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 8 : 0)
+               : "memory");
+}
+
 // 16-byte asynchronous copy global -> shared (both 16-byte aligned); zero-fills when !in
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
   unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -402,9 +426,31 @@ __device__ __forceinline__ float pack_round(float x) {
   else return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Whether plane type PT is staged by cp.async (float) or through registers (bf16).
+// The aligned 4-byte word that holds the bf16 element at address e of an
+// array that starts on a 4-byte boundary: element idx lies in the word of
+// elements idx & ~1 (low half) and idx | 1 (high half). Dropping bit 1 of
+// the byte address leaves the element's own address arithmetic, the float
+// form's.
+__device__ __forceinline__ const float* bf16_word(const __nv_bfloat16* e) {
+  return reinterpret_cast<const float*>(reinterpret_cast<size_t>(e) & ~(size_t)3);
+}
+
+// The __byte_perm selectors that widen a word's low half (an even
+// element) or its high half (an odd one) into a float32: the half in the
+// high bytes, zeros below. SEL_FLIP turns either into the other, so a
+// reader keeps one selector per parity and flips it where a plane's
+// offset or a neighbour's column is odd.
+constexpr unsigned SEL_LO = 0x1044u, SEL_HI = 0x3244u, SEL_FLIP = SEL_LO ^ SEL_HI;
+__device__ __forceinline__ unsigned half_sel(unsigned odd) { return odd ? SEL_HI : SEL_LO; }
+
+// A staged slot of plane type PT as float32: the float itself, or the half
+// of a bf16 word that selector `sel` (half_sel of the element's index & 1)
+// takes, widened.
 template <class PT>
-constexpr bool ASYNC_PLANES = std::is_same_v<PT, float>;
+__device__ __forceinline__ float slot_value(float slot, unsigned sel) {
+  if constexpr (std::is_same_v<PT, float>) return slot;
+  else return __uint_as_float(__byte_perm(__float_as_uint(slot), 0u, sel));
+}
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
@@ -627,8 +673,8 @@ sweep_grad_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin
   }
 
   // cp.async of channel c's planes (zero outside the image): its four dw
-  // planes into their buffer, or its w0, w1; the bf16 form loads, upcasts
-  // and stores them itself
+  // planes into their buffer, or its w0, w1; the bf16 form copies the word
+  // that holds each element into the element's slot
   auto issue = [&](int c, bool dw) {
     float* dst = dw ? sD + (c & 1) * 4 * NA : sW;
 #pragma unroll
@@ -642,13 +688,18 @@ sweep_grad_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin
           if (!dw && k >= 2) break;
           // dw0 y, dw0 x, dw1 y, dw1 x; or w0, w1
           int plane = dw ? (k < 2 ? 2 : 4) * C + 2 * c + (k & 1) : k * C + c;
-          if constexpr (ASYNC_PLANES<PT>) cp_async4(dst + k * NA + j, planes + (size_t)plane * hw + p, in);
-          else dst[k * NA + j] = in ? ld(planes + (size_t)plane * hw + p) : 0.0f;
+          if constexpr (std::is_same_v<PT, float>) cp_async4(dst + k * NA + j, planes + (size_t)plane * hw + p, in);
+          else cp_async4(dst + k * NA + j, bf16_word(planes + (size_t)plane * hw + p), in);
         }
       }
     }
     cp_async_commit();
   };
+  // the bf16 form's halves: element plane * hw + p has the parity of the
+  // pixel's p, flipped where plane and hw are odd (the dw x planes, w0's
+  // plane c and w1's C + c when odd; never the dw y planes)
+  const unsigned hb = (unsigned)hw & 1u, hfl = hb * SEL_FLIP;
+  const unsigned own_sel = half_sel((unsigned)((y0 + ly) * w + x0 + lx0) & 1u);  // the thread's owned pair
   issue(0, true);
   issue(0, false);
 
@@ -726,13 +777,22 @@ sweep_grad_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin
     if (c + 1 < C) issue(c + 1, true);  // buffer (c+1)&1 was channel c-1's
 
     // 1. linearized warps at halo HA (zero outside the image: zero planes, zero dv)
+    const unsigned fw0 = ((unsigned)c & hb) * SEL_FLIP, fw1 = ((unsigned)(C + c) & hb) * SEL_FLIP;  // w0's, w1's flips
 #pragma unroll
     for (int u = 0; u < NJ; ++u) {
       int j = tid + u * NT;
       if (j < NA) {
         float dvy = sDv[j], dvx = sDv[NA + j];
-        sA[j] = sW[j] - (sDc[j] * dvy + sDc[NA + j] * dvx);
-        sA[NA + j] = sW[NA + j] + (sDc[2 * NA + j] * dvy + sDc[3 * NA + j] * dvx);
+        if constexpr (std::is_same_v<PT, float>) {
+          sA[j] = sW[j] - (sDc[j] * dvy + sDc[NA + j] * dvx);
+          sA[NA + j] = sW[NA + j] + (sDc[2 * NA + j] * dvy + sDc[3 * NA + j] * dvx);
+        } else {
+          const unsigned sy = half_sel((unsigned)jp[u] & 1u), sx = sy ^ hfl;  // any half of a zero-filled slot is 0
+          sA[j] = slot_value<PT>(sW[j], sy ^ fw0) -
+                  (slot_value<PT>(sDc[j], sy) * dvy + slot_value<PT>(sDc[NA + j], sx) * dvx);
+          sA[NA + j] = slot_value<PT>(sW[NA + j], sy ^ fw1) +
+                       (slot_value<PT>(sDc[2 * NA + j], sy) * dvy + slot_value<PT>(sDc[3 * NA + j], sx) * dvx);
+        }
       }
     }
     __syncthreads();
@@ -806,6 +866,7 @@ sweep_grad_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin
       }
       const float4 invn4 = *reinterpret_cast<const float4*>(sInvN + r * SXP + c0);
       const float invn[4] = {invn4.x, invn4.y, invn4.z, invn4.w};
+      const unsigned sel0 = half_sel((unsigned)(gy * w + x0 - HS + c0) & 1u);  // the item's first pixel (bf16)
       float qv[4], qc[4], q0[4], q1[4], cy_[4], cx_[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -823,7 +884,9 @@ sweep_grad_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin
           qc[j] = k.qc;
           const float ib2 = k.ib2;
           int a = (r + R) * AW + cx + R;  // the same pixel in the staged planes
-          float d0y = sDc[a], d0x = sDc[NA + a], d1y = sDc[2 * NA + a], d1x = sDc[3 * NA + a];
+          const unsigned sy = (j & 1) ? sel0 ^ SEL_FLIP : sel0, sx = sy ^ hfl;
+          float d0y = slot_value<PT>(sDc[a], sy), d0x = slot_value<PT>(sDc[NA + a], sx),
+                d1y = slot_value<PT>(sDc[2 * NA + a], sy), d1x = slot_value<PT>(sDc[3 * NA + a], sx);
           cy_[j] = (d0y * d0y + d1y * d1y) * ib2;
           cx_[j] = (d0x * d0x + d1x * d1x) * ib2;
         }
@@ -860,8 +923,11 @@ sweep_grad_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin
       const float2 d1y = *reinterpret_cast<const float2*>(sDc + 2 * NA + a);
       const float2 d1x = *reinterpret_cast<const float2*>(sDc + 3 * NA + a);
       const float w0p[2] = {w0c.x, w0c.y}, w1p[2] = {w1c.x, w1c.y};
-      const float d0yp[2] = {d0y.x, d0y.y}, d0xp[2] = {d0x.x, d0x.y};
-      const float d1yp[2] = {d1y.x, d1y.y}, d1xp[2] = {d1x.x, d1x.y};
+      const unsigned sy0 = own_sel, sy1 = own_sel ^ SEL_FLIP;  // the pair's selectors (bf16)
+      const float d0yp[2] = {slot_value<PT>(d0y.x, sy0), slot_value<PT>(d0y.y, sy1)};
+      const float d0xp[2] = {slot_value<PT>(d0x.x, sy0 ^ hfl), slot_value<PT>(d0x.y, sy1 ^ hfl)};
+      const float d1yp[2] = {slot_value<PT>(d1y.x, sy0), slot_value<PT>(d1y.y, sy1)};
+      const float d1xp[2] = {slot_value<PT>(d1x.x, sy0 ^ hfl), slot_value<PT>(d1x.y, sy1 ^ hfl)};
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         float g0 = tq[k][0] + 2.0f * w0p[k] * tq[k][2] + w1p[k] * tq[k][3];
@@ -994,19 +1060,23 @@ sweep_grad_strip_kernel(const PT* __restrict__ planes, const float* __restrict__
   // this thread's owned pair in each step: row ro of the step's output
   // rows, columns jo and jo + 1 of the strip
   const int ro = tid / (SC / 2), jo = 2 * (tid % (SC / 2));
+  const unsigned hb = (unsigned)hw & 1u;  // bf16: an odd plane flips its elements' parity
 
   float taps[K];
 #pragma unroll
   for (int t = 0; t < K; ++t) taps[t] = s.taps[t];
 
   // this thread's chunk of each step: 4 neighbouring staged columns of one
-  // row (tid < NCH), the first at column x0 - AO + ch_col; 16-byte copies
-  // where the width and the pointers allow it (every chunk then lies
-  // wholly inside or outside the image), else 4-byte copies; the bf16 form
-  // loads, upcasts and stores its planes itself
+  // row (tid < NCH), the first at column x0 - AO + ch_col. Where the width
+  // is a multiple of 4 and the pointers allow it (every chunk then lies
+  // wholly inside or outside the image), one copy a plane: 16 bytes, or in
+  // the bf16 form 8 bytes into the chunk's first two slots (element m in
+  // slot m / 2); else 4-byte copies, one a slot (in the bf16 form the word
+  // that holds the slot's element)
   const int ch_row = tid / (G::SAW / 4), ch_col = 4 * (tid % (G::SAW / 4));
   const bool vec = (w & 3) == 0 &&
-                   (((ASYNC_PLANES<PT> ? (size_t)planes : 0) | (size_t)v | (size_t)v_lin) & 15) == 0;
+                   (std::is_same_v<PT, float> ? (((size_t)planes | (size_t)v | (size_t)v_lin) & 15) == 0
+                                              : (((size_t)planes & 7) | (((size_t)v | (size_t)v_lin) & 15)) == 0);
   // cp.async of step i's rows of channel c (zero outside the image): the
   // six planes, then v and v_lin as (y, x) pairs
   auto issue = [&](int c, int i) {
@@ -1019,21 +1089,13 @@ sweep_grad_strip_kernel(const PT* __restrict__ planes, const float* __restrict__
       const int e = ch_row * G::SAW + ch_col;  // the chunk's first staged pixel
       float* const pv = sStage + 6 * NST + 2 * e;
       float* const pl = sStage + 8 * NST + 2 * e;
-      if constexpr (!ASYNC_PLANES<PT>) {
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const bool in = row_ok && x + m >= 0 && x + m < w;
-          const size_t p = in ? (size_t)y * w + x + m : 0;
-#pragma unroll
-          for (int k = 0; k < 6; ++k) sStage[k * NST + e + m] = in ? ld(src[k] + p) : 0.0f;
-        }
-      }
       if (vec) {
         const bool in = row_ok && x >= 0 && x < w;
         const size_t p = in ? (size_t)y * w + x : 0;
-        if constexpr (ASYNC_PLANES<PT>) {
 #pragma unroll
-          for (int k = 0; k < 6; ++k) cp_async16(sStage + k * NST + e, src[k] + p, in);
+        for (int k = 0; k < 6; ++k) {
+          if constexpr (std::is_same_v<PT, float>) cp_async16(sStage + k * NST + e, src[k] + p, in);
+          else cp_async8(sStage + k * NST + e, src[k] + p, in);
         }
         cp_async16(pv, v + 2 * p, in);
         cp_async16(pv + 4, v + 2 * p + 4, in);
@@ -1044,9 +1106,10 @@ sweep_grad_strip_kernel(const PT* __restrict__ planes, const float* __restrict__
         for (int m = 0; m < 4; ++m) {
           const bool in = row_ok && x + m >= 0 && x + m < w;
           const size_t p = in ? (size_t)y * w + x + m : 0;
-          if constexpr (ASYNC_PLANES<PT>) {
 #pragma unroll
-            for (int k = 0; k < 6; ++k) cp_async4(sStage + k * NST + e + m, src[k] + p, in);
+          for (int k = 0; k < 6; ++k) {
+            if constexpr (std::is_same_v<PT, float>) cp_async4(sStage + k * NST + e + m, src[k] + p, in);
+            else cp_async4(sStage + k * NST + e + m, bf16_word(src[k] + p), in);
           }
 #pragma unroll
           for (int k = 0; k < 2; ++k) {
@@ -1091,15 +1154,30 @@ sweep_grad_strip_kernel(const PT* __restrict__ planes, const float* __restrict__
       cp_async_wait_all();
       if (tid < G::NCH) {
         const int e = ch_row * G::SAW + ch_col, slot = ((u0 + ch_row) % DR) * AWP;
+        // bf16: the parity of the chunk's element 0 in each plane, from its
+        // row's y w (the same every step: a step moves RB rows, an even
+        // count; x is a multiple of 4) and the plane's offset
+        const unsigned pr = (unsigned)(ya + ch_row) & (unsigned)w & 1u;
+        const unsigned s0 = half_sel(pr ^ ((unsigned)c & hb)), s1 = half_sel(pr ^ ((unsigned)(C + c) & hb)),
+                       sy = half_sel(pr), sx = half_sel(pr ^ hb);
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           const int j = ch_col + m - (G::AO - 2 * R);  // the ring's column
           if (j < 0 || j >= AWP) continue;
-          const float* const st = sStage + e + m;
           const float* const sv = sStage + 6 * NST + 2 * (e + m);
           const float dvy = sv[0] - sv[2 * NST], dvx = sv[1] - sv[2 * NST + 1];
-          sA[slot + j] = st[0] - (st[2 * NST] * dvy + st[3 * NST] * dvx);
-          sA[DR * AWP + slot + j] = st[NST] + (st[4 * NST] * dvy + st[5 * NST] * dvx);
+          if constexpr (std::is_same_v<PT, float>) {
+            const float* const st = sStage + e + m;
+            sA[slot + j] = st[0] - (st[2 * NST] * dvy + st[3 * NST] * dvx);
+            sA[DR * AWP + slot + j] = st[NST] + (st[4 * NST] * dvy + st[5 * NST] * dvx);
+          } else {
+            const float* const st = sStage + e + (vec ? m >> 1 : m);
+            const unsigned o = (m & 1) ? SEL_FLIP : 0u;  // element m's parity is element 0's, flipped on odd m
+            sA[slot + j] = slot_value<PT>(st[0], s0 ^ o) -
+                           (slot_value<PT>(st[2 * NST], sy ^ o) * dvy + slot_value<PT>(st[3 * NST], sx ^ o) * dvx);
+            sA[DR * AWP + slot + j] = slot_value<PT>(st[NST], s1 ^ o) +
+                                      (slot_value<PT>(st[4 * NST], sy ^ o) * dvy + slot_value<PT>(st[5 * NST], sx ^ o) * dvx);
+          }
         }
       }
       {
@@ -1476,7 +1554,7 @@ sweep_energy_kernel(const PT* __restrict__ planes, const float* __restrict__ v_l
   // owned pixels. The planes of walk step i = c NU + u arrive by 4-byte
   // cp.async (zero-filled outside the image) into ring slot i % EDEPTH,
   // issued EDEPTH - 1 steps ahead, across the channel boundary too (the
-  // bf16 form loads, upcasts and stores them itself, at the same step).
+  // bf16 form copies the word that holds each element).
   auto issue = [&](int c, int u, int slot) {
     const bool ok = (in & (1u << u)) != 0;
     const int p = ok ? (yw - R + u) * w + x : 0;
@@ -1484,10 +1562,18 @@ sweep_energy_kernel(const PT* __restrict__ planes, const float* __restrict__ v_l
     for (int k = 0; k < 6; ++k) {
       // w0, w1, dw0 y, dw0 x, dw1 y, dw1 x of channel c
       const int plane = k < 2 ? k * C + c : (k < 4 ? 2 * C : 4 * C) + 2 * c + (k & 1);
-      if constexpr (ASYNC_PLANES<PT>) cp_async4(s_pl + (slot * 6 + k) * 32 + lane, planes + (plane * hw + p), ok);
-      else s_pl[(slot * 6 + k) * 32 + lane] = ok ? ld(planes + (plane * hw + p)) : 0.0f;
+      // the bf16 word by its index: with bf16_word's byte address the
+      // compiler keeps six plane pointers, which spill at the 64-register
+      // cap of R <= 3 beside the halves' bits below
+      if constexpr (std::is_same_v<PT, float>) cp_async4(s_pl + (slot * 6 + k) * 32 + lane, planes + (plane * hw + p), ok);
+      else cp_async4(s_pl + (slot * 6 + k) * 32 + lane, reinterpret_cast<const float*>(planes + ((plane * hw + p) & ~1)), ok);
     }
   };
+  // bf16: the parity of this lane's element in walk row u's planes is that
+  // of its pixel, (yw - R + u) w + x (row 0's, flipped on odd rows of an odd
+  // width), flipped on an odd plane of an odd hw (dw x; w0's, w1's by c)
+  const unsigned hb = (unsigned)hw & 1u, wb = (unsigned)w & 1u;
+  const unsigned par0 = (unsigned)((yw - R) * w + x) & 1u;
 #pragma unroll
   for (int u = 0; u < EDEPTH - 1; ++u) {
     issue(0, u, u);
@@ -1498,6 +1584,7 @@ sweep_energy_kernel(const PT* __restrict__ planes, const float* __restrict__ v_l
   for (int c = 0; c < C; ++c) {
     const int slot0 = c * NU;  // ring position of the channel's first row
     float ra[K], rb[K];        // rows u - 2R .. u of a0 and a1, row u at u % K
+    const unsigned f0 = (unsigned)c & hb, f1 = (unsigned)(C + c) & hb;  // bf16: w0's and w1's flips
 #pragma unroll
     for (int u = 0; u < NU; ++u) {
       constexpr int AHEAD = EDEPTH - 1;
@@ -1507,8 +1594,12 @@ sweep_energy_kernel(const PT* __restrict__ planes, const float* __restrict__ v_l
       cp_async_wait<AHEAD>();  // step u's planes are in
       const float* const cur = s_pl + ((slot0 + u) & (EDEPTH - 1)) * 6 * 32 + lane;
       const float dvy = s_dv[u * 32 + lane], dvx = s_dv[(NU + u) * 32 + lane];
-      const float a = cur[0] - (cur[2 * 32] * dvy + cur[3 * 32] * dvx);
-      const float b = cur[32] + (cur[4 * 32] * dvy + cur[5 * 32] * dvx);
+      const unsigned py = par0 ^ ((u & 1) ? wb : 0u);  // bf16: the row's parity
+      const unsigned sy = half_sel(py), sx = half_sel(py ^ hb);
+      const float a = slot_value<PT>(cur[0], half_sel(py ^ f0)) -
+                      (slot_value<PT>(cur[2 * 32], sy) * dvy + slot_value<PT>(cur[3 * 32], sx) * dvx);
+      const float b = slot_value<PT>(cur[32], half_sel(py ^ f1)) +
+                      (slot_value<PT>(cur[4 * 32], sy) * dvy + slot_value<PT>(cur[5 * 32], sx) * dvx);
       ra[u % K] = a;
       rb[u % K] = b;
       if (u < 2 * R) continue;

@@ -310,13 +310,17 @@ def _check(planes, v_lin, v, data, halo: int = 0):
     """Shapes of a (whole or shard) call: ``planes`` (6C, H, W), ``v_lin``
     and ``v`` (H, W, 2), the data maps on the H - 2 halo owned rows; the
     planes and maps in one of ``PLANE_DTYPES``, ``v_lin`` and ``v``
-    float32. Returns (H, W, C, the planes' dtype)."""
+    float32; bfloat16 planes 4-byte aligned (the kernels copy the aligned
+    word that holds each element; the maps are read element by element).
+    Returns (H, W, C, the planes' dtype)."""
     c6, h, w = planes.shape
     if c6 % 6:
         raise ValueError(f"planes: expected (6C, H, W), got {tuple(planes.shape)}")
     bh = h - 2 * halo
     dt = plane_dtype(planes, data)
     check_cuda_input(planes, "planes", dtype=dt)
+    if dt == torch.bfloat16 and planes.data_ptr() % 4:
+        raise ValueError("planes: a bfloat16 stack must start on a 4-byte boundary")
     check_cuda_input(v_lin, "v_lin", (h, w, 2))
     check_cuda_input(v, "v", (h, w, 2))
     for name, m, k in zip(_MAP_NAMES, _maps(data), (1, 2, 1, 2)):
