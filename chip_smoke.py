@@ -11,15 +11,15 @@ Phases:
      ``build.log``) and each sweep kernel's registers, shared memory and
      resident blocks per SM (``vm_sweep_kernel_info``: every instantiated
      radius, the gradient kernel's tile at 1-2 and strip at 3-7, the energy
-     kernel's 1-6, and the wide path, each in its float32 and bf16
-     instantiation), and check the partials counts the wrapper sizes
+     kernel's tile at 1-3 and strip at 4-7, and the wide path, each in its
+     float32 and bf16 instantiation), and check the partials counts the wrapper sizes
      against ``vm_sweep_n_partials`` at every radius;
   2. each kernel against its plain PyTorch version on the card, at the
      slices' shapes (1024 x 1024, 1080 x 1920 and a ragged 135 x 241,
      C = 3; kernels 1-2 also at every ``ssim_window`` of ``WINDOW_SIGMA``,
      1-17, on the ragged shape (every instantiated radius and the wide
-     path) and at ``WIDE_WINDOWS`` (7-15) at 1024^2, timed, each rerun
-     bitwise;
+     path) and at ``WIDE_WINDOWS`` (7-15) at 1024^2, timed in both forms,
+     each rerun bitwise;
      the sampler, bitwise, also at C = 4 on
      the stacked [disp, v] planes, on a grey 540 x 960 image, at 4 points,
      and batched: 29 and 58 grey 540 x 960 images as the flow warps take
@@ -48,7 +48,10 @@ Phases:
      (``BF16_PARITY_HW``: every width mod 4 with the ragged shape, odd and
      even h w) and on 4 row blocks of 132 x 243 and 132 x 242
      (``BF16_PARITY_SHARD_HW``, shard rows against the whole frame's), where
-     the bf16 forms' word staging could pick the wrong half; kernel 3's bf16 output
+     the bf16 forms' word staging could pick the wrong half; kernels 1-2 in
+     both forms where the energy strip's walk of 16 rows meets the image's
+     edges (``ENERGY_STRIP_HW``: 17 x 30 and 53 x 37 at windows 9-15, and
+     ``BF16_PARITY_SHARD_HW``'s splits at windows 9, 11 and 15); kernel 3's bf16 output
      bitwise its float32 output cast, shard rows and reruns bitwise, with
      times and bounds (planes and maps at 2 bytes) beside the float32
      forms' at 1024^2, 1080 x 1920 and the 4K block;
@@ -185,11 +188,10 @@ PAIRS_ROWS_HW = (2160, 3840)
 PAIRS_ROWS_BLOCKS = 2
 # the SSIM windows (ssim_window: ssim_sigma) that phase 2 holds the sweeps
 # at on its ragged shapes: every instantiated radius (1-7), the wide path's
-# R = 0 and the first radius past each kernel's instantiations (R = 7 for
-# kernel 2, R = 8 for kernel 1); WIDE_WINDOWS are also held and timed at
-# 1024^2 and on 4 row blocks of the 4K level; phase 18 runs the pair and
-# the golden cases at WIDE_PAIR_WINDOW and the 4K spatial solve at
-# WIDE_SPATIAL_WINDOW
+# R = 0 and R = 8 (window 17), the first radius past both kernels'
+# instantiations; WIDE_WINDOWS are also held and timed at 1024^2 and on 4
+# row blocks of the 4K level; phase 18 runs the pair and the golden cases
+# at WIDE_PAIR_WINDOW and the 4K spatial solve at WIDE_SPATIAL_WINDOW
 WINDOW_SIGMA = {1: 1.0, 3: 1.0, 5: 1.0, 7: 1.5, 9: 1.5, 11: 1.5, 13: 2.0, 15: 2.5, 17: 3.0}
 WIDE_WINDOWS = (7, 9, 11, 13, 15)
 WIDE_PAIR_WINDOW = 11
@@ -207,6 +209,14 @@ BF16_VIDEO_THW = (30, 1080, 1920)
 BF16_PARITY_HW = ((135, 242), (135, 243), (135, 244))
 BF16_PARITY_SHARD_HW = ((132, 243), (132, 242))
 BF16_PARITY_WINDOWS = (3, 5, 11)
+# phase 2's whole frames where the energy strip's walk of 16 rows meets
+# the image's edges (heights under one walk, a pyramid level's width of
+# 30), held with the ragged 135 x 241 at ENERGY_STRIP_WINDOWS, and the
+# windows at which BF16_PARITY_SHARD_HW's 4-block splits of 33 rows hold
+# the strip's row-shard form, both forms
+ENERGY_STRIP_HW = ((17, 30), (53, 37))
+ENERGY_STRIP_WINDOWS = (9, 11, 13, 15)
+ENERGY_STRIP_SHARD_WINDOWS = (9, 11, 15)
 BASE = ("halfway_warp", "bilinear_sample", "bilinear_sample_batched", "sweep_grad", "sweep_energy")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -475,6 +485,12 @@ def check_kernels(dev) -> dict:
         data16 = ks.pack_maps(data, BF16)
         for win, pw in held.items():
             check_sweeps(planes16, vq, v, data16, pw, f"{shape} window {win} bf16")
+            if full and win in WIDE_WINDOWS:
+                time_wide_window(h, w, pw,
+                                 lambda: ks.sweep_grad(planes16, vq, v, data16, pw),
+                                 lambda: ks.sweep_grad_plain(planes16, vq, v, data16, pw),
+                                 lambda: ks.sweep_energy(planes16, vq, v, data16, pw),
+                                 lambda: ks.sweep_energy_plain(planes16, vq, v, data16, pw), plane_bytes=2)
 
         if (h, w) == (1080, 1920):
             # the warm loop's level: kernels 1-2 timed beside the 1024^2 shape,
@@ -536,44 +552,51 @@ def check_kernels(dev) -> dict:
                 log(f"  {name} 1024x1024 bound: {b_ms:.4f} ms ({b_by})"
                     + (f"; F.grid_sample {rec[name]['library_ms']:.4f} ms (device), {lib_call:.4f} ms (call)"
                        if rec[name]["library_ms"] else ""))
-    # the bf16 forms' word staging on widths of every residue mod 4 and an odd h w
-    for h, w in BF16_PARITY_HW:
+    # the bf16 forms' word staging on widths of every residue mod 4 and an
+    # odd h w; the energy strip's walks against the edges of small frames,
+    # both forms
+    for (h, w), wins, forms in ([(hw, BF16_PARITY_WINDOWS, ("bf16",)) for hw in BF16_PARITY_HW]
+                                + [(hw, ENERGY_STRIP_WINDOWS, ("", "bf16")) for hw in ENERGY_STRIP_HW]):
         rng = np.random.default_rng(h + w)
         i0 = t(rng.random((h, w, 3), dtype=np.float32))
         i1 = t(rng.random((h, w, 3), dtype=np.float32))
-        vq = t(smooth_field(h, w, 20.0, 1)).to(BF16).float()
+        v_lin = t(smooth_field(h, w, 20.0, 1))
         v = t(smooth_field(h, w, 20.0, 1) + smooth_field(h, w, 0.5, 2))
-        data16 = ks.pack_maps(make_level_data(
+        data = make_level_data(
             i0, i1,
             t(rng.random((h, w, 1), dtype=np.float32)),
             v + t(0.1 * rng.standard_normal((h, w, 2)).astype(np.float32)),
             t(rng.random((h, w, 1), dtype=np.float32)),
             v + t(0.5 * rng.standard_normal((h, w, 2)).astype(np.float32)),
-        ), BF16)
-        planes16 = kw.halfway_warp(i0, i1, vq, BF16)
-        for win in BF16_PARITY_WINDOWS:
-            check_sweeps(planes16, vq, v, data16, windows[win], f"{h}x{w} window {win} bf16")
+        )
+        vq = v_lin.to(BF16).float()
+        inputs = {"": (kw.halfway_warp(i0, i1, v_lin), v_lin, data),
+                  "bf16": (kw.halfway_warp(i0, i1, vq, BF16), vq, ks.pack_maps(data, BF16))}
+        for form in forms:
+            planes_f, vl_f, data_f = inputs[form]
+            for win in wins:
+                check_sweeps(planes_f, vl_f, v, data_f, windows[win], f"{h}x{w} window {win} {form}".rstrip())
     check_sampler_forms(dev, compare, rec, t)
     check_shard_forms(dev, compare, rec, t, p)
     return rec
 
 
 def time_wide_window(h: int, w: int, pw, grad, grad_plain, energy, energy_plain, rows: int = 0,
-                     shard: bool = False) -> None:
+                     shard: bool = False, plane_bytes: int = 4) -> None:
     """Kernels 1 and 2 (or their shard forms, ``shard``) at one of
     ``WIDE_WINDOWS`` on an h x w whole frame or on a row block of ``rows`` owned
-    rows: device time (``graph_ms``, twice), call time, the plain version's
-    call time and the bound, logged (the kernels' result line stays at the
-    default window)."""
-    c, k = 3, int(pw.ssim_window)
+    rows, in float32 or (``plane_bytes`` 2) the bf16 form: device time
+    (``graph_ms``, twice), call time, the plain version's call time and the
+    bound, logged (the kernels' result line stays at the default window)."""
+    c, k, pb = 3, int(pw.ssim_window), plane_bytes
     own = rows or h
     for name, kern, plain, with_grad in (("sweep_grad", grad, grad_plain, True),
                                          ("sweep_energy", energy, energy_plain, False)):
-        name = name + ("_shard" if shard else "")
+        name = name + ("_shard" if shard else "") + ("_bf16" if pb == 2 else "")
         if shard:  # the extended block's planes, v and v_lin; the owned rows' maps and outputs
-            nbytes = 4 * (h * w * (6 * c + 4) + own * w * ((6 + 4) if with_grad else 6))
+            nbytes = h * w * (pb * 6 * c + 16) + own * w * (pb * 6 + (16 if with_grad else 0))
         else:
-            nbytes = 4 * h * w * (6 * c + 10 + (4 if with_grad else 0))
+            nbytes = h * w * sweep_bytes(c, with_grad, pb)
         b_ms, b_by = bound(nbytes, own * w * sweep_ops_per_pixel(c, k, with_grad))
         ms, _, (k1, k2, pl1, pl2), call = timed_pair(kern, plain, 10)
         shape = f"{h}x{w}" + (" block" if shard else "")
@@ -754,7 +777,8 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
     at every window of ``WINDOW_SIGMA``; the bf16 form (planes and maps in
     bf16, v_lin rounded to bf16) on the two 4K splits at the default window,
     on the ragged split at every window and on ``BF16_PARITY_SHARD_HW``'s
-    splits at ``BF16_PARITY_WINDOWS`` (with the whole-frame checks). Each
+    splits at ``BF16_PARITY_WINDOWS`` (with the whole-frame checks), and
+    those splits in both forms at ``ENERGY_STRIP_SHARD_WINDOWS``. Each
     block's row-offset warp, (partials, grad, precond) and energy partials
     against their plain versions on the same inputs (the warp 1e-6
     absolute, in bf16 one bf16 step of max|ref|; grad and precond kernel
@@ -793,7 +817,9 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
              + [(SHARD_SHAPES[0], p_default, 4, True, True, BF16),
                 (PAIRS_ROWS_HW, p_default, PAIRS_ROWS_BLOCKS, True, False, BF16)]
              + [(SHARD_SHAPES[1], at(k), 4, False, False, BF16) for k in WINDOW_SIGMA]
-             + [(hw, at(k), 4, True, False, BF16) for hw in BF16_PARITY_SHARD_HW for k in BF16_PARITY_WINDOWS])
+             + [(hw, at(k), 4, True, False, BF16) for hw in BF16_PARITY_SHARD_HW for k in BF16_PARITY_WINDOWS]
+             + [(hw, at(k), 4, True, False, dt) for dt in (F32, BF16) for hw in BF16_PARITY_SHARD_HW
+                for k in ENERGY_STRIP_SHARD_WINDOWS if not (dt == BF16 and k in BF16_PARITY_WINDOWS)])
     for (h, w), p, n, big, timed, dt in cases:
         halo = exchange_halo(p)
         rng = np.random.default_rng(h + w + 1)
@@ -2286,7 +2312,7 @@ def main(argv) -> int:
             log("  ptxas: " + line.strip())
     lib = build.load()
     from videomorphing_tpu_torch.kernels import sweep as ks
-    info = (ctypes.c_int * 5)()
+    info = (ctypes.c_int * 6)()
     for bf16 in (0, 1):
         for with_grad in (1, 0):
             # every instantiation, then the wide path (its kernels' extremes; R = 0 and past the instantiated R)
@@ -2296,7 +2322,7 @@ def main(argv) -> int:
                 what = ks.kernel_name(with_grad, r) + (" (bf16)" if bf16 else "")
                 log(f"  {what}: {info[0]} registers, {info[1]} B static + {info[2]} B dynamic shared memory, "
                     f"{info[3]} B local, {info[4]} resident blocks of "
-                    f"{256} threads per SM ({info[4] * 8} warps)")
+                    f"{info[5]} threads per SM ({info[4] * info[5] // 32} warps)")
                 require(info[4] >= 1, f"{what} cannot be resident on an SM")
     for with_grad in (True, False):
         radii = [r for r in range(0, 11) if ks.tiled(with_grad, r)]

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Whether two checkouts compile the float32 sweep kernels to the same
-machine code, and how the bf16 instantiations differ from the float32
-ones.
+"""Whether two checkouts compile the sweep kernels to the same machine
+code, and how the bf16 instantiations differ from the float32 ones.
 
     python3 scripts/compare_sweep_sass.py --root DIR
     python3 scripts/compare_sweep_sass.py --forms
@@ -9,11 +8,13 @@ ones.
 Compiles ``videomorphing_tpu_torch/csrc/sweep.cu`` of this checkout and of
 ``DIR`` to ``sm_90a`` cubins with the port's nvcc flags (both at once, into
 ``build/sweep_sass/``), disassembles them with ``cuobjdump -sass`` and
-compares, function by function, every float32 instantiation of kernels
-1-2 (the tile, the strip, the energy kernel, the wide path's kernels and
-the reduction), after removing the per-file name of the anonymous
-namespace. Prints one JSON line per function (``equal``, the instruction
-counts of both), then a summary line; exits 1 if any differs. With
+compares, function by function, every instantiation of kernels 1-2 that
+both compile, float32 and bf16 (the tiles, the strips, the wide path's
+kernels and the reduction), after removing the per-file name of the
+anonymous namespace. Prints one JSON line per function (``equal``, the
+instruction counts of both), then a summary line that also names the
+functions only one of them compiles; exits 1 if any common function
+differs. With
 ``--forms`` it compiles this checkout only and prints, for every kernel
 instantiated in both forms, the instruction counts of its float32 and
 bf16 instantiations and the opcodes whose counts differ. Needs ``nvcc``
@@ -98,16 +99,18 @@ def main() -> int:
             print(json.dumps({"function": twin, "instructions": [sum(a.values()), sum(b.values())],
                               "opcodes_float32_bf16": diff}), flush=True)
         return 0
-    float_fns = sorted(n for n in listings["this"] if "bfloat16" not in n)
+    this, other = listings["this"], listings["other"]
+    common = sorted(set(this) & set(other))
     differ = 0
-    for name in float_fns:
-        a, b = listings["this"][name], listings["other"].get(name)
-        equal = a == b
+    count = lambda lines: sum(1 for x in lines if re.match(r"/\*[0-9a-f]{4,}\*/", x))
+    for name in common:
+        equal = this[name] == other[name]
         differ += not equal
-        count = lambda lines: sum(1 for x in lines or [] if re.match(r"/\*[0-9a-f]{4,}\*/", x))
-        print(json.dumps({"function": name, "equal": equal, "instructions": [count(a), count(b)]}), flush=True)
-    print(json.dumps({"float32_functions": len(float_fns), "differ": differ,
-                      "missing_in_other": [n for n in float_fns if n not in listings["other"]]}), flush=True)
+        print(json.dumps({"function": name, "equal": equal, "instructions": [count(this[name]), count(other[name])]}),
+              flush=True)
+    print(json.dumps({"common_functions": len(common), "differ": differ,
+                      "only_in_this": sorted(set(this) - set(other)),
+                      "only_in_other": sorted(set(other) - set(this))}), flush=True)
     return 1 if differ else 0
 
 

@@ -5,12 +5,13 @@ behind ``kernels.sweep.sweep_grad``) and kernel 2's (``total_energy_planes``
 behind ``sweep_energy``) against the JAX reference's oracles, on warps
 linearized around ``v_lin != v`` with non-zero UI and TC maps.
 Tolerances: energy relative error <= 1e-5; grad and precond max abs
-<= 1e-5 * max|ref|. The windows run from 3 to 15 (the kernels' tiled
-radii and the wide path past radius 6); the row-shard forms sum to the
+<= 1e-5 * max|ref|. The windows run from 3 to 15 (the kernels'
+instantiated radii, 1-7); the row-shard forms sum to the
 reference's whole-frame energy and, on their owned rows, give its
 gradient. The CUDA kernels themselves are held to these plain versions on
 the card by ``chip_smoke.py``; here also the tiles that size their
-partials and the even-window rule.
+partials, the even-window rule and the symmetric taps the energy strip
+relies on.
 """
 
 import dataclasses
@@ -240,12 +241,11 @@ def test_scalars_hold_every_tap_of_a_wide_window():
 @pytest.mark.parametrize("radius", [4, 7])
 def test_n_partials_covers_every_tile_at_wide_radii(radius, with_grad):
     """Past radius 2 the gradient kernel walks strips of 72 x 64 pixels (R
-    = 4 and 7), the energy kernel owns 32 - 2R columns of a warp (R = 4),
-    and the energy kernel's wide path (R = 7, past its instantiated radii)
-    has tiles of its own; the partials buffer holds one set per block of
-    each."""
-    geometry = {(4, True): (72, 64), (4, False): (32, 24), (7, True): (72, 64), (7, False): (8, 32)}
-    assert ks.tiled(with_grad, radius) == (radius == 4 or with_grad)
+    = 4 and 7), and past radius 3 the energy kernel's blocks are 16 rows of
+    4 warps side by side, each owning 32 - 2R columns (4 x 24 at R = 4, 4 x
+    18 at R = 7); the partials buffer holds one set per block of each."""
+    geometry = {(4, True): (72, 64), (4, False): (16, 96), (7, True): (72, 64), (7, False): (16, 72)}
+    assert ks.tiled(with_grad, radius)
     assert ks.sweep_tile(with_grad, radius) == geometry[radius, with_grad]
     for w, nown in [(1024, 1024), (241, 135), (1, 1), (30, 17), (3840, 540), (37, 53)]:
         assert ks.n_partials(w, nown, with_grad, radius) == _blocks_by_origin(w, nown, with_grad, radius)
@@ -268,9 +268,9 @@ def test_gradient_kernel_by_radius_comes_from_the_source(radius):
     ``TILE_COLS`` (16 x 32); ``STRIP_MIN_RADIUS`` .. ``STRIP_MAX_RADIUS``
     (3 .. 7) run the strip kernel on ``STRIP_ROWS`` x ``STRIP_COLS``; R = 0
     and the radii past the strip run the wide path. The energy kernel keeps
-    its own radii (1 .. ``TILED_MAX_RADIUS``)."""
+    its own radii (1 .. ``ENERGY_STRIP_MAX_RADIUS``)."""
     lo, hi = _source_constant("STRIP_MIN_RADIUS"), _source_constant("STRIP_MAX_RADIUS")
-    assert (lo, hi) == (3, 7) and _source_constant("TILED_MAX_RADIUS") == 6
+    assert (lo, hi) == (3, 7) and _source_constant("ENERGY_STRIP_MAX_RADIUS") == 7
     tile = (_source_constant("TILE_ROWS"), _source_constant("TILE_COLS"))
     strip = (_source_constant("STRIP_ROWS"), _source_constant("STRIP_COLS"))
     wide = (_source_constant("WIDE_TILE_ROWS"), _source_constant("WIDE_TILE_COLS"))
@@ -278,25 +278,83 @@ def test_gradient_kernel_by_radius_comes_from_the_source(radius):
     expect = tile if 1 <= radius < lo else strip if lo <= radius <= hi else wide
     assert ks.sweep_tile(True, radius) == expect
     assert ks.tiled(True, radius) == (1 <= radius <= hi)
-    assert ks.tiled(False, radius) == (1 <= radius <= 6)
+    assert ks.tiled(False, radius) == (1 <= radius <= 7)
     name = ks.kernel_name(True, radius)
     assert name == ("wide path (gradient)" if expect == wide else
                     f"sweep_grad{'_strip' if expect == strip else ''}_kernel<{radius}>")
 
 
-@pytest.mark.parametrize("radius", [3, 5, 7])
-@pytest.mark.parametrize(
+STRIP_SHAPES = pytest.mark.parametrize(
     "w,nown",
     [(1024, 1024), (241, 135), (1, 1), (30, 17), (65, 72), (3840, 540), (241, 33), (1920, 1080), (37, 53),
      (3840, 572)],
     ids=["1k", "ragged", "one-pixel", "4k-level-width-30", "one-column-over", "4k-row-block",
          "ragged-row-block", "1080p", "37x53", "4k-row-block-window-15"],
 )
+
+
+@pytest.mark.parametrize("radius", [3, 5, 7])
+@STRIP_SHAPES
 def test_n_partials_covers_every_strip(w, nown, radius):
     """The strip kernel's partials: one set per strip of owned rows and
     columns, counted from the strips' origins, for whole frames and for a
     row shard's owned rows (the 4K row blocks)."""
     assert ks.n_partials(w, nown, True, radius) == _blocks_by_origin(w, nown, True, radius)
+
+
+@pytest.mark.parametrize("radius", [4, 5, 7])
+@STRIP_SHAPES
+def test_n_partials_covers_every_energy_strip(w, nown, radius):
+    """The energy strip's partials: one set per block of 16 owned rows and
+    4 warps' owned columns, counted from the blocks' origins, for whole
+    frames and for a row shard's owned rows."""
+    assert ks.sweep_tile(False, radius) == (16, 4 * (32 - 2 * radius))
+    assert ks.n_partials(w, nown, False, radius) == _blocks_by_origin(w, nown, False, radius)
+
+
+@pytest.mark.parametrize("radius", range(0, 10))
+def test_energy_kernel_by_radius_comes_from_the_source(radius):
+    """The energy kernel's blocks at each radius, from the constants of
+    ``csrc/sweep.cu``: R = 1 .. 3 keep the tile of ``ENERGY_TILE_ROWS`` x
+    ``ENERGY_TILE_COLS`` (32 x 26); ``ENERGY_STRIP_MIN_RADIUS`` ..
+    ``ENERGY_STRIP_MAX_RADIUS`` (4 .. 7) run the strip on blocks of
+    ``ENERGY_STRIP_ROWS`` rows and ``ENERGY_STRIP_WARPS`` warps of 32 - 2R
+    owned columns; R = 0 and the radii past the strip run the wide path."""
+    lo, hi = _source_constant("ENERGY_STRIP_MIN_RADIUS"), _source_constant("ENERGY_STRIP_MAX_RADIUS")
+    assert (lo, hi) == (4, 7)
+    tile = (_source_constant("ENERGY_TILE_ROWS"), _source_constant("ENERGY_TILE_COLS"))
+    strip = (_source_constant("ENERGY_STRIP_ROWS"), _source_constant("ENERGY_STRIP_WARPS") * (32 - 2 * radius))
+    wide = (_source_constant("WIDE_TILE_ROWS"), _source_constant("WIDE_TILE_COLS"))
+    assert tile == (32, 26) and strip[0] == 16
+    expect = tile if 1 <= radius < lo else strip if lo <= radius <= hi else wide
+    assert ks.sweep_tile(False, radius) == expect
+    assert ks.tiled(False, radius) == (1 <= radius <= hi)
+    assert ks.kernel_name(False, radius) == ("wide path (energy)" if expect == wide else
+                                             f"sweep_energy{'_strip' if expect == strip else ''}_kernel<{radius}>")
+
+
+@pytest.mark.parametrize("window", [3, 5, 9, 11, 15, 17, 31])
+def test_window_taps_are_symmetric_as_the_reference_s(window):
+    """The energy strip keeps R + 1 taps for the K = 2R + 1 of a window, so
+    every product and sum keeps its value only if ``taps[t] ==
+    taps[K - 1 - t]`` exactly: so it is for the reference's taps
+    (``gaussian_kernel_1d``) and the port's at every sigma phase 2 runs."""
+    from videomorphing_tpu.ops.windows import gaussian_kernel_1d
+
+    for sigma in (1.0, 1.5, 2.0, 2.5, 3.0):
+        ref = np.asarray(gaussian_kernel_1d(window, sigma), np.float32)
+        np.testing.assert_array_equal(ref, ref[::-1])
+        taps = ks.window_taps(MorphParams(ssim_window=window, ssim_sigma=sigma), "cpu").numpy()
+        np.testing.assert_array_equal(taps, ref)
+
+
+def test_window_taps_refuses_asymmetric_taps(monkeypatch):
+    """``window_taps`` raises ``ValueError`` on taps that are not symmetric
+    rather than hand the energy strip a buffer whose mirrored half it would
+    misread."""
+    monkeypatch.setattr(ks, "gaussian_taps", lambda k, sigma: (0.25, 0.5, 0.2500001))
+    with pytest.raises(ValueError, match="not symmetric"):
+        ks.window_taps(MorphParams(ssim_window=3, ssim_sigma=0.731), "cpu")
 
 
 def test_even_windows_are_refused_by_the_kernels():

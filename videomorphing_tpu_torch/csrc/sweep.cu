@@ -4,7 +4,8 @@
 // Replaces the Pallas builders videomorphing_tpu/pallas/sweep.py:293
 // (_build_grad_call, kernel 1: sweep_grad_kernel<R> and
 // sweep_grad_strip_kernel<R>) and :502 (_build_energy_call, kernel 2:
-// sweep_energy_kernel<R>). The kernels have their own designs but share
+// sweep_energy_kernel<R> and sweep_energy_strip_kernel<R>). The kernels
+// have their own designs but share
 // the per-pixel arithmetic of the energy (ssim_pixel, ssim_coeffs,
 // tps_maps_at, tps_energy, quad_terms) and the order of every
 // window sum, so the energy the line search sees and the energy of the
@@ -74,30 +75,45 @@
 // a1, and runs once per Armijo trial, so it has a design of its own. Its
 // bound is the same kind (bytes on paper; 117 MB at 1024^2, C = 3), and
 // what held kernel 1's staging back there was the memory path: per channel
-// ten staged planes, four barrier-separated stages and 24 warps an SM. Per
-// block of ENERGY_TILE_ROWS x ENERGY_TILE_COLS owned pixels, 8 warps:
-//   - a warp walks a column strip of ESEG owned rows plus 2R halo rows;
-//     lane l holds column x0 - EH + l (energy_tile_cols(R) owned lanes, the
-//     EH = max(3, R) lanes each side the window's halo), so each row's
-//     loads are coalesced, at any width and origin;
-//   - dv = v - v_lin and 1/n are computed once per strip into shared
-//     memory that only the lane itself reads back (no barrier), so a
-//     channel's walk loads only its six planes;
-//   - those planes arrive by 4-byte cp.async into a per-warp ring of
-//     EDEPTH rows in shared memory, EDEPTH - 1 rows ahead of the row in
-//     use and across the channel boundary, so loads stay in flight while
-//     the window sums run (the memory path, not arithmetic, bounds it);
+// ten staged planes, four barrier-separated stages and 24 warps an SM. A
+// warp walks a column strip, lane l holding column x0 - H + l (H halo
+// lanes each side of the owned ones), so each row's loads are coalesced,
+// at any width and origin:
+//   - the planes arrive by 4-byte cp.async into a per-warp ring of EDEPTH
+//     rows in shared memory, EDEPTH - 1 rows ahead of the row in use and
+//     across the channel boundary, so loads stay in flight while the window
+//     sums run; dv = v - v_lin is staged once per strip, so a channel's walk
+//     loads only its six planes;
 //   - per channel and row, a0 and a1 go into a register ring of K rows;
 //     the vertical window sums come from the ring, the horizontal ones from
 //     the neighbouring lanes by shuffles, then the SSIM of the owned lanes;
 //   - TPS, UI and TC after the channels: v in a register ring of 3 rows,
 //     the neighbouring columns by shuffles (the v tile's ring of 1);
 //   - partials reduce by a shuffle tree per warp and the warps in order.
-// No barrier in the channel loop; registers capped at 64 for 4 blocks (32
-// warps) an SM up to R = 3, and at 128 for 2 blocks from R = 4, whose
-// register rings hold 2R + 1 rows and taps (R = 4-6 compile to 128
-// registers without spills); dynamic shared memory (EGeo) opted in like
-// kernel 1's.
+// No barrier in the channel loop. Two designs, by window radius R:
+//
+// sweep_energy_kernel<R>, R = 1 .. 3 (windows 3-7; the default): blocks of
+// ENERGY_TILE_ROWS x ENERGY_TILE_COLS owned pixels, 8 warps, each walking
+// ESEG = 4 owned rows plus 2R with H = 3; dv and 1/n per warp in shared
+// memory that only the lane itself reads back; registers capped at 64 for
+// 4 blocks (32 warps) an SM.
+//
+// sweep_energy_strip_kernel<R>, R = ENERGY_STRIP_MIN_RADIUS ..
+// ENERGY_STRIP_MAX_RADIUS (windows 9-15): with 4-row walks, the halo rows'
+// copies and a0, a1 were 3.0-4.5x the owned rows' at these R, and knocking
+// them out took 21-31 % off (scripts/time_torch_energy_stages.py), the
+// shuffles only 8-13 %. So a warp walks ENERGY_STRIP_ROWS = 16 owned rows
+// plus 2R (1.5-1.9x) with H = R (32 - 2R owned lanes), and
+// ENERGY_STRIP_WARPS = 4 warps sit side by side in a block:
+//   - dv for the block's walk rows and columns is staged once by all its
+//     threads, behind one barrier (the strip's only other barrier is the
+//     reduction's); 1/n of an owned pixel is formed where it is used, from
+//     the row's tap sum in shared memory and the column's in a register;
+//   - the taps are symmetric (the wrapper checks it), so R + 1 registers
+//     hold all K, and the walk is unrolled by K rows (compile-time ring
+//     slots) inside a loop, to bound the code;
+//   - 32 KB of shared memory a block: six blocks (24 warps) an SM at R = 4,
+//     5 within 80 registers, four at R = 6, 7.
 //
 // cp.async rather than TMA: a TMA tile needs a 16-byte-aligned row stride,
 // W % 4 == 0, and the pyramid's levels break that (a 135 x 241 level, 4K
@@ -127,12 +143,10 @@
 // buffer that VmSweepScalars points at. dispatch() chooses by R
 // (tiled()):
 //   - kernel 1: the tile for R = 1, 2, the strip for R = STRIP_MIN_RADIUS
-//     .. STRIP_MAX_RADIUS; kernel 2 for R = 1 .. TILED_MAX_RADIUS, its
-//     lanes holding the owned columns and a halo of max(3, R) columns each
-//     side (energy_tile_cols(R): 26 owned columns up to R = 3, 20 at R =
-//     6), so R <= 3 keep their tile, lanes and order of every sum; each
+//     .. STRIP_MAX_RADIUS; kernel 2: the tile for R = 1 .. 3, the strip for
+//     R = ENERGY_STRIP_MIN_RADIUS .. ENERGY_STRIP_MAX_RADIUS; each
 //     instantiated per R.
-//   - any other R (R = 0, and past those; at R = 8 the strip's rings
+//   - any other R (R = 0, and past R = 7; at R = 8 kernel 1's strip rings
 //     would need 122 KB, one block an SM): the wide
 //     path, a chain of per-pixel kernels that read the radius at run time
 //     and keep their intermediates (a0 and a1, the vertical window sums,
@@ -168,8 +182,8 @@
 // commit and wait points, so their loads stay in flight while the window
 // sums run. cp.async copies 4, 8 or 16 aligned bytes, so a slot receives
 // the aligned 4-byte word that holds its element (bf16_word; the energy
-// warp masks the element's index instead, for its registers): element idx
-// of the stack, counted from its base, lies in the word of elements
+// tile's warp masks the element's index instead, for its registers):
+// element idx of the stack, counted from its base, lies in the word of elements
 // idx & ~1 and idx | 1, in its high half where idx is odd. The reader of a
 // slot takes that half and widens it (slot_value; a bf16 is the high half
 // of a float32, so the widening is exact); the parity comes from the flat
@@ -222,16 +236,24 @@ namespace {
 // vm_sweep_n_partials gives the same count here.
 constexpr int TILE_ROWS = 16;
 constexpr int TILE_COLS = 32;
-// The energy kernel's output tile (sweep_energy_kernel): ENERGY_TILE_ROWS
-// rows split among its warps, ENERGY_TILE_COLS owned columns of each warp's
-// 32 lanes up to R = 3; the lanes left over hold the window's halo columns,
-// so a wider window owns fewer (energy_tile_cols(R)).
+// The energy kernel's output tile (sweep_energy_kernel, R = 1 .. 3):
+// ENERGY_TILE_ROWS rows split among its warps, ENERGY_TILE_COLS owned
+// columns of each warp's 32 lanes; the lanes left over hold the window's
+// halo columns.
 constexpr int ENERGY_TILE_ROWS = 32;
 constexpr int ENERGY_TILE_COLS = 26;
 constexpr int EDEPTH = 4;  // rows of the planes in flight per warp, the current one included
-// The largest radius of the tiled kernels; the wide path takes the others,
-// with one partials set per WIDE_TILE_ROWS x WIDE_TILE_COLS owned pixels.
-constexpr int TILED_MAX_RADIUS = 6;
+// The energy kernel's strip from ENERGY_STRIP_MIN_RADIUS to
+// ENERGY_STRIP_MAX_RADIUS (sweep_energy_strip_kernel): ENERGY_STRIP_WARPS
+// warps side by side, each owning 32 - 2R columns (its lanes less the
+// window's halo R each side) of the block's ENERGY_STRIP_ROWS rows, which it
+// walks down once per channel.
+constexpr int ENERGY_STRIP_ROWS = 16;
+constexpr int ENERGY_STRIP_WARPS = 4;
+constexpr int ENERGY_STRIP_MIN_RADIUS = 4;
+constexpr int ENERGY_STRIP_MAX_RADIUS = 7;
+// The wide path takes the radii past the instantiated kernels, with one
+// partials set per WIDE_TILE_ROWS x WIDE_TILE_COLS owned pixels.
 constexpr int WIDE_TILE_ROWS = 8;
 constexpr int WIDE_TILE_COLS = 32;
 // The gradient kernel from STRIP_MIN_RADIUS to STRIP_MAX_RADIUS
@@ -256,26 +278,45 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 constexpr int ENT = 256;                               // threads per energy block
 constexpr int EWARPS = ENT / 32;
 constexpr int ESEG = ENERGY_TILE_ROWS / EWARPS;        // owned rows per warp
-// lanes left (and right) of a warp's owned columns: the window's halo R,
-// and at least the 3 of ENERGY_TILE_COLS
-__host__ __device__ constexpr int energy_halo(int R) { return cmax((32 - ENERGY_TILE_COLS) / 2, R); }
-__host__ __device__ constexpr int energy_tile_cols(int R) { return 32 - 2 * energy_halo(R); }
 static_assert(ESEG * EWARPS == ENERGY_TILE_ROWS, "the warps split the tile's rows evenly");
-static_assert(energy_tile_cols(1) == ENERGY_TILE_COLS && energy_tile_cols(3) == ENERGY_TILE_COLS &&
-                  energy_tile_cols(TILED_MAX_RADIUS) > 0,
-              "a warp's lanes hold the owned columns and the window's halo");
+static_assert(ENERGY_STRIP_MIN_RADIUS == 4 && (32 - ENERGY_TILE_COLS) / 2 == ENERGY_STRIP_MIN_RADIUS - 1,
+              "a tile warp's halo lanes hold the window's halo up to R = 3; the strip takes the rest");
 
 // The energy kernel's shared memory (floats) per warp: dv (2 NU rows), 1/n
 // (ESEG rows) and the planes' ring (EDEPTH rows of 6 planes), 32 lanes each.
 template <int R>
 struct EGeo {
-  static constexpr int EH = energy_halo(R);        // lanes left of the owned columns
-  static constexpr int COLS = energy_tile_cols(R);  // owned columns of a warp
+  static_assert(R >= 1 && R < ENERGY_STRIP_MIN_RADIUS, "the tile's radii");
+  static constexpr int EH = (32 - ENERGY_TILE_COLS) / 2;  // lanes left of the owned columns
+  static constexpr int COLS = ENERGY_TILE_COLS;           // owned columns of a warp
   static constexpr int NU = ESEG + 2 * R;  // rows a warp walks per channel
   static_assert(NU <= 32 && EDEPTH >= 2 && EDEPTH - 1 <= NU && (EDEPTH & (EDEPTH - 1)) == 0,
                 "walk rows and a power-of-two ring depth");
   static constexpr int WARP_FLOATS = 32 * (2 * NU + ESEG + 6 * EDEPTH);
   static constexpr size_t BYTES = sizeof(float) * EWARPS * WARP_FLOATS;
+};
+
+// The energy strip's geometry and shared memory (floats) per block: the
+// warps' rings of EDEPTH rows of 6 planes (32 lanes each), then dv (y, x) at
+// the NU rows every warp walks and the TW columns of the block with their
+// halo, then the tap sums of the ENERGY_STRIP_ROWS owned rows. A lane holds
+// column x0 - R + l of its warp's strip, x0 = the warp's first owned column.
+template <int R>
+struct ESGeo {
+  static_assert(R >= ENERGY_STRIP_MIN_RADIUS && R <= ENERGY_STRIP_MAX_RADIUS, "the strip's radii");
+  static constexpr int K = 2 * R + 1;
+  static constexpr int S = ENERGY_STRIP_ROWS;   // owned rows
+  static constexpr int NU = S + 2 * R;           // rows a warp walks per channel
+  static constexpr int COLS = 32 - 2 * R;        // owned columns of a warp: lanes R .. 31 - R
+  static constexpr int THREADS = 32 * ENERGY_STRIP_WARPS;
+  static constexpr int TW = ENERGY_STRIP_WARPS * COLS + 2 * R;  // dv columns of the block
+  static constexpr int RING_FLOATS = ENERGY_STRIP_WARPS * EDEPTH * 6 * 32;
+  static constexpr int DV_FLOATS = 2 * NU * TW;
+  static constexpr int FLOATS = RING_FLOATS + DV_FLOATS + S;
+  static constexpr size_t BYTES = sizeof(float) * FLOATS;
+  static_assert(NU <= 32, "walk rows fit a 32-bit mask");
+  // six blocks (24 warps) an SM: 228 KB less 1 KB reserved per block
+  static_assert(6 * (BYTES + 1024) <= 228 * 1024, "six strip blocks share an SM");
 };
 
 // Rows per item of a vertical window pass over rows x cols outputs: each
@@ -1486,15 +1527,15 @@ sweep_grad_strip_kernel(const PT* __restrict__ planes, const float* __restrict__
   if (tid < 4) partials[4 * (blockIdx.y * gridDim.x + blockIdx.x) + tid] = sred[tid * NT];
 }
 
-// Kernel 2: the energy partials of one tile of ENERGY_TILE_ROWS x
-// energy_tile_cols(R) owned pixels, without the gradient. Each warp walks a
+// Kernel 2 at R = 1 .. 3: the energy partials of one tile of
+// ENERGY_TILE_ROWS x ENERGY_TILE_COLS owned pixels, without the gradient. Each warp walks a
 // column strip of ESEG owned rows: lane l holds column x0 - EH + l and
 // the K rows of its linearized warps in registers; the horizontal window
 // comes from the neighbouring lanes by shuffles. Each lane reads back only
 // the shared memory it wrote, so the kernel's one barrier is the block's
 // reduction.
 template <int R, class PT>
-__global__ void __launch_bounds__(ENT, R <= 3 ? 4 : 2)
+__global__ void __launch_bounds__(ENT, 4)
 sweep_energy_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin,
                     const float* __restrict__ v, const PT* __restrict__ ui_w,
                     const PT* __restrict__ ui_v, const PT* __restrict__ tc_w,
@@ -1681,6 +1722,235 @@ sweep_energy_kernel(const PT* __restrict__ planes, const float* __restrict__ v_l
   }
 }
 
+// Kernel 2 at R = ENERGY_STRIP_MIN_RADIUS .. ENERGY_STRIP_MAX_RADIUS: the
+// energy partials of one block of ENERGY_STRIP_ROWS x ENERGY_STRIP_WARPS
+// (32 - 2R) owned pixels. Each warp walks its column strip of
+// ENERGY_STRIP_ROWS owned rows plus 2R halo rows once per channel, lane l
+// holding column x0 - R + l; the arithmetic of every pixel is
+// sweep_energy_kernel's, in the same order.
+template <int R, class PT>
+__global__ void __launch_bounds__(ESGeo<R>::THREADS, R <= 5 ? 6 : 4)
+sweep_energy_strip_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin,
+                          const float* __restrict__ v, const PT* __restrict__ ui_w,
+                          const PT* __restrict__ ui_v, const PT* __restrict__ tc_w,
+                          const PT* __restrict__ tc_v, float* __restrict__ partials,
+                          VmSweepScalars s) {
+  using G = ESGeo<R>;
+  constexpr int K = G::K, S = G::S, NU = G::NU, TW = G::TW;
+  constexpr unsigned FULL = 0xffffffffu;
+  const int w = s.w, C = s.C;
+  const int hw = s.h * w;  // the launcher checks that 6 C hw offsets fit an int
+  const int own_end = s.own0 + s.nown;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int xb = blockIdx.x * (ENERGY_STRIP_WARPS * G::COLS) - R;  // the block's first dv column
+  const int col = wid * G::COLS + lane;                            // this lane's dv column
+  const int x = xb + col;                                          // this lane's column
+  const int yw = s.own0 + blockIdx.y * S;                          // the block's first owned row
+  const bool col_in = x >= 0 && x < w;
+  const bool owner = lane >= R && lane < R + G::COLS && x < w;
+
+  // the taps are symmetric (the wrapper checks taps[t] == taps[K - 1 - t]),
+  // so R + 1 registers hold all K of them
+  float half[R + 1];
+#pragma unroll
+  for (int t = 0; t <= R; ++t) half[t] = s.taps[t];
+  auto tap = [&](int t) { return half[t <= R ? t : K - 1 - t]; };
+
+  extern __shared__ float4 essmem4[];
+  float* const s_ring = reinterpret_cast<float*>(essmem4) + wid * (EDEPTH * 6 * 32);  // [EDEPTH][6][32]
+  float* const s_dv = reinterpret_cast<float*>(essmem4) + G::RING_FLOATS;            // [2][NU][TW]
+  float* const s_ny = s_dv + G::DV_FLOATS;                                           // [S]
+
+  // bit u of `in` marks walk row u (arrays' row yw - R + u) of this column in the image
+  unsigned in = 0;
+#pragma unroll
+  for (int u = 0; u < NU; ++u)
+    if (col_in && row_in(s, yw - R + u)) in |= 1u << u;
+
+  // the planes of walk step c NU + u arrive by 4-byte cp.async (zero-filled
+  // outside the image) into ring slot (c NU + u) % EDEPTH, EDEPTH - 1 steps
+  // ahead, across the channel boundary too (the bf16 form copies the word
+  // that holds each element)
+  auto issue = [&](int c, int u, int slot) {
+    const bool ok = (in >> u) & 1u;
+    const int p = ok ? (yw - R + u) * w + x : 0;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      // w0, w1, dw0 y, dw0 x, dw1 y, dw1 x of channel c
+      const int plane = k < 2 ? k * C + c : (k < 4 ? 2 * C : 4 * C) + 2 * c + (k & 1);
+      if constexpr (std::is_same_v<PT, float>) cp_async4(s_ring + (slot * 6 + k) * 32 + lane, planes + (plane * hw + p), ok);
+      else cp_async4(s_ring + (slot * 6 + k) * 32 + lane, bf16_word(planes + (plane * hw + p)), ok);
+    }
+  };
+  constexpr int AHEAD = EDEPTH - 1;
+#pragma unroll
+  for (int u = 0; u < AHEAD; ++u) {
+    issue(0, u, u);
+    cp_async_commit();
+  }
+
+  // 0. once per block, while those copies fly: dv = v - v_lin at the walk's
+  // rows and the block's columns (zero outside the image; unrolled, so a
+  // thread's loads are in flight together), and the tap sums of the owned
+  // rows' windows in the frame
+#pragma unroll
+  for (int it = 0; it < cdiv(NU * TW, G::THREADS); ++it) {
+    const int e = threadIdx.x + it * G::THREADS;
+    if (e >= NU * TW) break;
+    const int u = e / TW, j = e - u * TW;
+    const int y = yw - R + u, xx = xb + j;
+    float dvy = 0.0f, dvx = 0.0f;
+    if (xx >= 0 && xx < w && row_in(s, y)) {
+      const int p = y * w + xx;
+      dvy = v[2 * p] - v_lin[2 * p];
+      dvx = v[2 * p + 1] - v_lin[2 * p + 1];
+    }
+    s_dv[u * TW + j] = dvy;
+    s_dv[(NU + u) * TW + j] = dvx;
+  }
+  if (threadIdx.x < S) s_ny[threadIdx.x] = tap_sum_range(s.taps, R, yw + threadIdx.x + s.row0, s.gh);
+  __syncthreads();
+  const float nx = col_in ? tap_sum_range(s.taps, R, x, w) : 0.0f;
+
+  // 1. per channel: a0 = w0 - dw0.dv, a1 = w1 + dw1.dv row by row into a
+  // register ring of K rows; from the ring the vertical window sums of the
+  // output row 2R up, then the horizontal ones by shuffles and the SSIM of
+  // the owned lanes
+  // bf16: the parity of this lane's element in walk row u's planes is that
+  // of its pixel, (yw - R + u) w + x (row 0's, flipped on odd rows of an odd
+  // width), flipped on an odd plane of an odd hw (dw x; w0's, w1's by c)
+  const unsigned hb = (unsigned)hw & 1u, wb = (unsigned)w & 1u;
+  const unsigned par0 = (unsigned)((yw - R) * w + x) & 1u;
+  float e_sim = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    const int slot0 = c * NU;  // the ring step of the channel's first row
+    float ra[K], rb[K];        // rows u - 2R .. u of a0 and a1, row u at u % K
+    const unsigned f0 = (unsigned)c & hb, f1 = (unsigned)(C + c) & hb;  // bf16: w0's and w1's flips
+    // walk row u: issue the copies AHEAD steps on, wait for this row's planes, form a0 and a1
+    auto walk = [&](int u, float& a, float& b) {
+      if (u + AHEAD < NU) issue(c, u + AHEAD, (slot0 + u + AHEAD) & (EDEPTH - 1));
+      else if (c + 1 < C) issue(c + 1, u + AHEAD - NU, (slot0 + u + AHEAD) & (EDEPTH - 1));
+      cp_async_commit();
+      cp_async_wait<AHEAD>();  // step u's planes are in
+      const float* const cur = s_ring + ((slot0 + u) & (EDEPTH - 1)) * 6 * 32 + lane;
+      const float dvy = s_dv[u * TW + col], dvx = s_dv[(NU + u) * TW + col];
+      const unsigned py = par0 ^ ((u & 1) ? wb : 0u);  // bf16: the row's parity
+      const unsigned sy = half_sel(py), sx = half_sel(py ^ hb);
+      a = slot_value<PT>(cur[0], half_sel(py ^ f0)) -
+          (slot_value<PT>(cur[2 * 32], sy) * dvy + slot_value<PT>(cur[3 * 32], sx) * dvx);
+      b = slot_value<PT>(cur[32], half_sel(py ^ f1)) +
+          (slot_value<PT>(cur[4 * 32], sy) * dvy + slot_value<PT>(cur[5 * 32], sx) * dvx);
+    };
+#pragma unroll
+    for (int u = 0; u < 2 * R; ++u) walk(u, ra[u], rb[u]);
+    // output row j takes walk rows j .. j + 2R; with j0 a multiple of K, row
+    // j + 2R lies in slot (i + 2R) % K and row j + t in slot (i + t) % K
+    for (int j0 = 0; j0 < S; j0 += K) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int j = j0 + i;
+        if (j >= S) break;
+        walk(j + 2 * R, ra[(i + 2 * R) % K], rb[(i + 2 * R) % K]);
+        float st[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          const float at = ra[(i + t) % K], bt = rb[(i + t) % K];
+          const float aa = at * at, bb = bt * bt, ab = at * bt;
+          st[0] += tap(t) * at;
+          st[1] += tap(t) * bt;
+          st[2] += tap(t) * aa;
+          st[3] += tap(t) * bb;
+          st[4] += tap(t) * ab;
+        }
+        float hs[5];
+#pragma unroll
+        for (int q = 0; q < 5; ++q) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int t = 0; t < K; ++t) acc += tap(t) * (t == R ? st[q] : __shfl_sync(FULL, st[q], lane - R + t));
+          hs[q] = acc;
+        }
+        const int yo = yw + j;
+        if (owner && yo < own_end)
+          e_sim += 1.0f - ssim_pixel(hs, pack_round<PT>(1.0f / (s_ny[j] * nx)), s).ssim;
+      }
+    }
+  }
+
+  // 2. TPS, UI and TC at the owned pixels: v on the strip and a ring of 1,
+  // rows in a register ring of 3, the neighbouring columns by shuffles
+  // (zero outside the arrays, as the gradient kernels' v tiles). Each turn
+  // of the ring loads its rows' v and the UI/TC maps of the owned rows it
+  // finishes before it uses any of them, so one load latency is exposed a
+  // turn, not two a row
+  constexpr int EG = 3;  // rows of a turn
+  static_assert((S + 2) % EG == 0, "whole turns cover the rows");
+  float e_tps = 0.0f, e_ui = 0.0f, e_tc = 0.0f;
+  float rv[3][3][2];  // row u % 3; columns x - 1, x, x + 1; components
+  for (int u0 = 0; u0 < S + 2; u0 += EG) {
+    float vg[EG][2], mg[EG][6];  // row u0 + i's v; ui_w, tc_w, ui_v, tc_v of owned row yw + u0 + i - 2
+#pragma unroll
+    for (int i = 0; i < EG; ++i) {
+      const int y = yw - 1 + u0 + i;
+      const bool inside = col_in && y >= 0 && y < s.h;
+      const size_t p = inside ? (size_t)y * w + x : 0;
+      vg[i][0] = inside ? v[2 * p] : 0.0f;
+      vg[i][1] = inside ? v[2 * p + 1] : 0.0f;
+      const int yo = y - 1;
+      const bool own = owner && u0 + i >= 2 && yo < own_end;
+      const size_t q = own ? (size_t)(yo - s.own0) * w + x : 0;  // in the owned-row maps
+      mg[i][0] = own ? ld(ui_w + q) : 0.0f;
+      mg[i][1] = own ? ld(tc_w + q) : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        mg[i][2 + k] = own ? ld(ui_v + 2 * q + k) : 0.0f;
+        mg[i][4 + k] = own ? ld(tc_v + 2 * q + k) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < EG; ++i) {
+      const int u = u0 + i;  // row u at slot i
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        rv[i][1][k] = vg[i][k];
+        rv[i][0][k] = __shfl_up_sync(FULL, vg[i][k], 1);
+        rv[i][2][k] = __shfl_down_sync(FULL, vg[i][k], 1);
+      }
+      if (u < 2) continue;
+      const int yo = yw + u - 2;  // its centre row u - 1 lies in slot (i + 2) % 3
+      if (owner && yo < own_end) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float vxx, vxy, vyy;
+          tps_maps_at([&](int dy, int dx) { return rv[(i + 2 + dy) % 3][dx + 1][k]; }, yo, x, s, vxx, vxy, vyy);
+          e_tps += tps_energy(vxx, vxy, vyy);
+          quad_terms(rv[(i + 2) % 3][1][k], mg[i][2 + k], mg[i][4 + k], mg[i][0], mg[i][1], e_ui, e_tc);
+        }
+      }
+    }
+  }
+
+  // 3. fixed-order reduction: a shuffle tree per warp, then the warps in order
+  __shared__ float sred[4][ENERGY_STRIP_WARPS];
+  float e[4] = {e_sim, e_tps, e_ui, e_tc};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) e[q] += __shfl_down_sync(FULL, e[q], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sred[q][wid] = e[q];
+  }
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < ENERGY_STRIP_WARPS; ++i) acc += sred[threadIdx.x][i];
+    partials[4 * (blockIdx.y * gridDim.x + blockIdx.x) + threadIdx.x] = acc;
+  }
+}
+
 constexpr int RED = 256;
 
 // Sums the per-block partials in a fixed order and combines them into the
@@ -1720,8 +1990,8 @@ sweep_reduce_kernel(const float* __restrict__ partials, int n_blocks, float* __r
 }
 
 // ---------------------------------------------------------------------------
-// The wide path: the radii without a tiled instantiation (R = 0 and
-// R > TILED_MAX_RADIUS), the radius read at run time. Each kernel gives one
+// The wide path: the radii without an instantiated kernel (R = 0 and
+// R > 7), the radius read at run time. Each kernel gives one
 // thread one pixel of a band of rows, 32 columns x 8 rows a block; the
 // bands, in rows of the arrays:
 //   A band, rows [own0 - 2R, own0 + nown + 2R): a0 and a1 of one channel;
@@ -1990,25 +2260,35 @@ wide_final_kernel(const float* __restrict__ v, const PT* __restrict__ ui_w,
 }
 
 // Whether radius R has an instantiated kernel (the gradient's tile or
-// strip, the energy kernel) rather than the wide path.
-bool tiled(bool with_grad, int R) { return R >= 1 && R <= (with_grad ? STRIP_MAX_RADIUS : TILED_MAX_RADIUS); }
+// strip, the energy kernel's tile or strip) rather than the wide path.
+bool tiled(bool with_grad, int R) {
+  return R >= 1 && R <= (with_grad ? STRIP_MAX_RADIUS : ENERGY_STRIP_MAX_RADIUS);
+}
 
 dim3 tile_grid(bool with_grad, int w, int nown, int R) {
   if (!tiled(with_grad, R)) return dim3(cdiv(w, WIDE_TILE_COLS), cdiv(nown, WIDE_TILE_ROWS));
   if (with_grad && R >= STRIP_MIN_RADIUS) return dim3(cdiv(w, STRIP_COLS), cdiv(nown, STRIP_ROWS));
   if (with_grad) return dim3(cdiv(w, TX), cdiv(nown, TY));
-  return dim3(cdiv(w, energy_tile_cols(R)), cdiv(nown, ENERGY_TILE_ROWS));
+  if (R >= ENERGY_STRIP_MIN_RADIUS)
+    return dim3(cdiv(w, ENERGY_STRIP_WARPS * (32 - 2 * R)), cdiv(nown, ENERGY_STRIP_ROWS));
+  return dim3(cdiv(w, ENERGY_TILE_COLS), cdiv(nown, ENERGY_TILE_ROWS));
 }
 
 // The instantiation for R: the gradient's tile (R < STRIP_MIN_RADIUS) or
-// strip, or the energy kernel; its threads and dynamic shared memory.
+// strip, or the energy kernel's tile (R < ENERGY_STRIP_MIN_RADIUS) or
+// strip; its threads and dynamic shared memory.
 template <int R, bool WITH_GRAD, class PT>
 struct Instance {
-  static constexpr bool STRIP = WITH_GRAD && R >= STRIP_MIN_RADIUS;
-  static constexpr int THREADS = WITH_GRAD ? NT : ENT;
-  static constexpr size_t BYTES = !WITH_GRAD ? EGeo<R>::BYTES : (STRIP ? SGeo<R>::BYTES : Geo<R>::BYTES);
+  static constexpr bool STRIP = R >= (WITH_GRAD ? STRIP_MIN_RADIUS : ENERGY_STRIP_MIN_RADIUS);
+  static constexpr int THREADS = WITH_GRAD ? NT : (STRIP ? 32 * ENERGY_STRIP_WARPS : ENT);
+  static size_t bytes() {
+    if constexpr (WITH_GRAD) return STRIP ? SGeo<R>::BYTES : Geo<R>::BYTES;
+    else if constexpr (STRIP) return ESGeo<R>::BYTES;
+    else return EGeo<R>::BYTES;
+  }
   static const void* fn() {
-    if constexpr (!WITH_GRAD) return (const void*)sweep_energy_kernel<R, PT>;
+    if constexpr (!WITH_GRAD && STRIP) return (const void*)sweep_energy_strip_kernel<R, PT>;
+    else if constexpr (!WITH_GRAD) return (const void*)sweep_energy_kernel<R, PT>;
     else if constexpr (STRIP) return (const void*)sweep_grad_strip_kernel<R, PT>;
     else return (const void*)sweep_grad_kernel<R, PT>;
   }
@@ -2024,7 +2304,7 @@ cudaError_t allow_smem() {
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
   using I = Instance<R, WITH_GRAD, PT>;
-  err = cudaFuncSetAttribute(I::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)I::BYTES);
+  err = cudaFuncSetAttribute(I::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)I::bytes());
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return err;
 }
@@ -2057,12 +2337,16 @@ int launch(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
   cudaError_t err = allow_smem<R, WITH_GRAD, PT>();
   if (err != cudaSuccess) return (int)err;
   const Typed<PT> t(a);
-  if constexpr (Instance<R, WITH_GRAD, PT>::STRIP)
+  constexpr bool STRIP = Instance<R, WITH_GRAD, PT>::STRIP;
+  if constexpr (WITH_GRAD && STRIP)
     sweep_grad_strip_kernel<R, PT><<<grid, NT, SGeo<R>::BYTES, stream>>>(
         t.planes, a.v_lin, a.v, t.ui_w, t.ui_v, t.tc_w, t.tc_v, a.grad, a.precond, a.partials, s);
   else if constexpr (WITH_GRAD)
     sweep_grad_kernel<R, PT><<<grid, NT, Geo<R>::BYTES, stream>>>(
         t.planes, a.v_lin, a.v, t.ui_w, t.ui_v, t.tc_w, t.tc_v, a.grad, a.precond, a.partials, s);
+  else if constexpr (STRIP)
+    sweep_energy_strip_kernel<R, PT><<<grid, ESGeo<R>::THREADS, ESGeo<R>::BYTES, stream>>>(
+        t.planes, a.v_lin, a.v, t.ui_w, t.ui_v, t.tc_w, t.tc_v, a.partials, s);
   else
     sweep_energy_kernel<R, PT><<<grid, ENT, EGeo<R>::BYTES, stream>>>(
         t.planes, a.v_lin, a.v, t.ui_w, t.ui_v, t.tc_w, t.tc_v, a.partials, s);
@@ -2123,13 +2407,12 @@ int at_radius(int R, const F& f, const W& wide) {
     case 4: return f.template operator()<4>();
     case 5: return f.template operator()<5>();
     case 6: return f.template operator()<6>();
-    case 7:
-      if constexpr (WITH_GRAD) return f.template operator()<7>();
+    case 7: return f.template operator()<7>();
   }
   return (int)cudaErrorInvalidValue;  // not reached
 }
-static_assert(TILED_MAX_RADIUS == 6 && STRIP_MAX_RADIUS == 7,
-              "at_radius() instantiates R = 1 .. 6 of the energy kernel and 1 .. 7 of the gradient's");
+static_assert(STRIP_MAX_RADIUS == 7 && ENERGY_STRIP_MAX_RADIUS == 7,
+              "at_radius() instantiates R = 1 .. 7 of both kernels");
 
 template <bool WITH_GRAD, class PT>
 struct LaunchAt {
@@ -2170,7 +2453,8 @@ template <int R, bool WITH_GRAD, class PT>
 int kernel_info(int* info) {
   using I = Instance<R, WITH_GRAD, PT>;
   cudaError_t err = allow_smem<R, WITH_GRAD, PT>();
-  if (err == cudaSuccess) err = func_info(I::fn(), I::THREADS, I::BYTES, info);
+  if (err == cudaSuccess) err = func_info(I::fn(), I::THREADS, I::bytes(), info);
+  info[5] = I::THREADS;
   return (int)err;
 }
 
@@ -2203,6 +2487,7 @@ int wide_kernel_info(bool with_grad, int* info) {
       info[4] = info[4] < one[4] ? info[4] : one[4];
     }
   }
+  info[5] = WT;
   return 0;
 }
 
@@ -2231,11 +2516,11 @@ int kernel_info_of(int radius, int with_grad, int* info) {
 }
 }  // namespace
 
-// info[0..4]: registers per thread, static shared memory, dynamic shared
-// memory (bytes), local memory (bytes) and resident blocks per SM of the
-// gradient (with_grad) or energy kernel at a window radius (for the wide
-// path, the extremes over its kernels), in its float (bf16 = 0) or bf16
-// instantiation; returns the CUDA error.
+// info[0..5]: registers per thread, static shared memory, dynamic shared
+// memory (bytes), local memory (bytes), resident blocks per SM and threads
+// per block of the gradient (with_grad) or energy kernel at a window radius
+// (for the wide path, the extremes over its kernels), in its float (bf16 =
+// 0) or bf16 instantiation; returns the CUDA error.
 extern "C" int vm_sweep_kernel_info(int radius, int with_grad, int bf16, int* info) {
   if (radius < 0) return (int)cudaErrorInvalidValue;
   return bf16 ? kernel_info_of<__nv_bfloat16>(radius, with_grad, info)

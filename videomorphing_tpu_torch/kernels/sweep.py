@@ -2,18 +2,21 @@
 
 Source: ``csrc/sweep.cu`` (``vm_sweep_grad`` launches
 ``sweep_grad_kernel<R>`` or ``sweep_grad_strip_kernel<R>``,
-``vm_sweep_energy`` ``sweep_energy_kernel<R>``; they share their
-per-pixel arithmetic as ``__device__`` functions).
+``vm_sweep_energy`` ``sweep_energy_kernel<R>`` or
+``sweep_energy_strip_kernel<R>``; they share their per-pixel arithmetic as
+``__device__`` functions).
 
 Every odd ``ssim_window`` = 2R + 1 runs on the card, chosen by R in
 ``csrc/sweep.cu``'s ``dispatch`` (:func:`kernel_name`): the gradient
 kernel's tile for R = 1, 2 (windows 3, 5), its strip for R =
-``STRIP_MIN_RADIUS`` .. ``STRIP_MAX_RADIUS`` (3 .. 7, windows 7-15), the
-energy kernel for R = 1 .. ``TILED_MAX_RADIUS`` (6, window 13); any other R
-(window 1, and past those) takes the wide path, per-pixel kernels that
-read R at run time and keep their intermediates in a scratch buffer this
-wrapper allocates. The taps
-sit in a small device buffer per window (:func:`window_taps`). An even
+``STRIP_MIN_RADIUS`` .. ``STRIP_MAX_RADIUS`` (3 .. 7, windows 7-15); the
+energy kernel's tile for R = 1 .. 3 (windows 3-7), its strip for R =
+``ENERGY_STRIP_MIN_RADIUS`` .. ``ENERGY_STRIP_MAX_RADIUS`` (4 .. 7,
+windows 9-15); any other R (window 1, and past 15) takes the wide path,
+per-pixel kernels that read R at run time and keep their intermediates in
+a scratch buffer this wrapper allocates. The taps sit in a small device
+buffer per window (:func:`window_taps`), symmetric as the energy strip
+requires. An even
 window's taps are not centred on the pixel, so no kernel computes it: on
 the card it raises ``ValueError`` (the reference and the plain version
 fail on it too).
@@ -40,8 +43,9 @@ column strip a few rows a step, with the linearized warps and the SSIM
 coefficient maps in rings of rows, so the vertical halo is staged once
 per strip and channel. The energy kernel needs no gradient halo: each warp
 walks a column strip with the window's rows in registers and the
-neighbouring columns from its lanes. The inputs are the warp kernel's
-plane stack as it comes, with no pack.
+neighbouring columns from its lanes, 4 owned rows at windows 3-7 and 16
+from window 9, where the halo rows' copies would otherwise dominate. The
+inputs are the warp kernel's plane stack as it comes, with no pack.
 
 Two forms, chosen by the tensors (``MorphParams.pack_dtype``): float32,
 and bfloat16, where the plane stack and the four UI/TC maps are bfloat16
@@ -87,9 +91,9 @@ from videomorphing_tpu_torch.kernels import build
 from videomorphing_tpu_torch.kernels.warp import PLANE_DTYPES, check_cuda_input, count_launch, on_cuda, stream_of
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, separable_filter
 
-_GEOMETRY = ("TILE_ROWS", "TILE_COLS", "ENERGY_TILE_ROWS", "ENERGY_TILE_COLS", "TILED_MAX_RADIUS",
-             "WIDE_TILE_ROWS", "WIDE_TILE_COLS", "STRIP_ROWS", "STRIP_COLS", "STRIP_MIN_RADIUS",
-             "STRIP_MAX_RADIUS")
+_GEOMETRY = ("TILE_ROWS", "TILE_COLS", "ENERGY_TILE_ROWS", "ENERGY_TILE_COLS", "ENERGY_STRIP_ROWS",
+             "ENERGY_STRIP_WARPS", "ENERGY_STRIP_MIN_RADIUS", "ENERGY_STRIP_MAX_RADIUS", "WIDE_TILE_ROWS",
+             "WIDE_TILE_COLS", "STRIP_ROWS", "STRIP_COLS", "STRIP_MIN_RADIUS", "STRIP_MAX_RADIUS")
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,22 +112,22 @@ def tiled(with_grad: bool, radius: int) -> bool:
     """Whether window radius R runs a kernel instantiated for it rather
     than the wide path: the gradient kernel (``with_grad``) for R = 1 ..
     ``STRIP_MAX_RADIUS``, the energy kernel for R = 1 ..
-    ``TILED_MAX_RADIUS``."""
+    ``ENERGY_STRIP_MAX_RADIUS``."""
     g = _geometry()
-    return 1 <= radius <= g["STRIP_MAX_RADIUS" if with_grad else "TILED_MAX_RADIUS"]
+    return 1 <= radius <= g["STRIP_MAX_RADIUS" if with_grad else "ENERGY_STRIP_MAX_RADIUS"]
 
 
 def kernel_name(with_grad: bool, radius: int) -> str:
     """The kernel of ``csrc/sweep.cu`` that runs at window radius
     ``radius``: ``sweep_grad_kernel<R>`` (the gradient's tile),
     ``sweep_grad_strip_kernel<R>`` (its strip), ``sweep_energy_kernel<R>``
-    or the wide path."""
+    (the energy kernel's tile), ``sweep_energy_strip_kernel<R>`` (its
+    strip) or the wide path."""
     if not tiled(with_grad, radius):
         return f"wide path ({'gradient' if with_grad else 'energy'})"
-    if not with_grad:
-        return f"sweep_energy_kernel<{radius}>"
-    strip = radius >= _geometry()["STRIP_MIN_RADIUS"]
-    return f"sweep_grad{'_strip' if strip else ''}_kernel<{radius}>"
+    kind = "grad" if with_grad else "energy"
+    strip = radius >= _geometry()["STRIP_MIN_RADIUS" if with_grad else "ENERGY_STRIP_MIN_RADIUS"]
+    return f"sweep_{kind}{'_strip' if strip else ''}_kernel<{radius}>"
 
 
 def sweep_tile(with_grad: bool, radius: int = 1) -> tuple[int, int]:
@@ -131,10 +135,12 @@ def sweep_tile(with_grad: bool, radius: int = 1) -> tuple[int, int]:
     at window radius ``radius``: the gradient kernel's ``TILE_ROWS`` x
     ``TILE_COLS`` below ``STRIP_MIN_RADIUS`` and its strip of
     ``STRIP_ROWS`` x ``STRIP_COLS`` from there (``with_grad``); the energy
-    kernel's ``ENERGY_TILE_ROWS`` x ``ENERGY_TILE_COLS`` up to R = 3, whose
-    lanes give a wider window's halo max(3, R) columns each side of 32
-    (``energy_tile_cols``); the wide path's ``WIDE_TILE_ROWS`` x
-    ``WIDE_TILE_COLS`` for both."""
+    kernel's ``ENERGY_TILE_ROWS`` x ``ENERGY_TILE_COLS`` below
+    ``ENERGY_STRIP_MIN_RADIUS`` and from there its strip of
+    ``ENERGY_STRIP_ROWS`` rows and ``ENERGY_STRIP_WARPS`` warps side by
+    side, each owning 32 - 2R columns (its lanes less the window's halo R
+    each side); the wide path's ``WIDE_TILE_ROWS`` x ``WIDE_TILE_COLS`` for
+    both."""
     g = _geometry()
     if not tiled(with_grad, radius):
         return g["WIDE_TILE_ROWS"], g["WIDE_TILE_COLS"]
@@ -142,8 +148,9 @@ def sweep_tile(with_grad: bool, radius: int = 1) -> tuple[int, int]:
         return g["STRIP_ROWS"], g["STRIP_COLS"]
     if with_grad:
         return g["TILE_ROWS"], g["TILE_COLS"]
-    halo = max((32 - g["ENERGY_TILE_COLS"]) // 2, radius)
-    return g["ENERGY_TILE_ROWS"], 32 - 2 * halo
+    if radius >= g["ENERGY_STRIP_MIN_RADIUS"]:
+        return g["ENERGY_STRIP_ROWS"], g["ENERGY_STRIP_WARPS"] * (32 - 2 * radius)
+    return g["ENERGY_TILE_ROWS"], g["ENERGY_TILE_COLS"]
 
 
 def n_partials(w: int, nown: int, with_grad: bool, radius: int = 1) -> int:
@@ -206,12 +213,17 @@ def window_taps(p: MorphParams, device) -> torch.Tensor:
     """The window's 2R + 1 Gaussian taps (float32) on ``device``: the
     buffer ``VmSweepScalars.taps`` points at, made once per window, sigma
     and device and kept (on a card, its copy is synchronized before use,
-    so no stream reads it early)."""
+    so no stream reads it early). Raises ``ValueError`` unless the taps are
+    symmetric, ``taps[t] == taps[2R - t]`` exactly: the energy strip holds
+    R + 1 of them."""
     dev = torch.device(device)
     key = (int(p.ssim_window), float(p.ssim_sigma), dev)
     taps = _TAPS.get(key)
     if taps is None:
-        taps = torch.tensor(gaussian_taps(key[0], key[1]), dtype=torch.float32).to(dev)
+        values = gaussian_taps(key[0], key[1])
+        if values != values[::-1]:
+            raise ValueError(f"the taps of window {key[0]}, sigma {key[1]} are not symmetric: {values}")
+        taps = torch.tensor(values, dtype=torch.float32).to(dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         _TAPS[key] = taps
