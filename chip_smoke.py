@@ -10,16 +10,18 @@ Phases:
      print ptxas's registers and spills per kernel (``-Xptxas -v``, from
      ``build.log``) and each sweep kernel's registers, shared memory and
      resident blocks per SM (``vm_sweep_kernel_info``: every instantiated
-     radius, the gradient kernel's tile at 1-2 and strip at 3-7, the energy
-     kernel's tile at 1-3 and strip at 4-7, and the wide path, each in its
-     float32 and bf16 instantiation), and check the partials counts the wrapper sizes
+     radius, the gradient kernel's tile at 0-2 and strip at 3-7, the energy
+     kernel's tile at 0-3 and strip at 4-7, the wide strip at 8, 16 and
+     its reach, and the per-pixel chain past it, each in its float32 and
+     bf16 instantiation), and check the partials counts the wrapper sizes
      against ``vm_sweep_n_partials`` at every radius;
   2. each kernel against its plain PyTorch version on the card, at the
      slices' shapes (1024 x 1024, 1080 x 1920 and a ragged 135 x 241,
      C = 3; kernels 1-2 also at every ``ssim_window`` of ``WINDOW_SIGMA``,
-     1-17, on the ragged shape (every instantiated radius and the wide
-     path) and at ``WIDE_WINDOWS`` (7-15) at 1024^2, timed in both forms,
-     each rerun bitwise;
+     1-17, 33, 49 and 51, on the ragged shape (every instantiated radius,
+     the wide strip at R = 8, 16 and its reach 24, the per-pixel chain
+     past it) and at ``WIDE_WINDOWS`` (1, 7-17) at 1024^2, timed in both
+     forms, each rerun bitwise;
      the sampler, bitwise, also at C = 4 on
      the stacked [disp, v] planes, on a grey 540 x 960 image, at 4 points,
      and batched: 29 and 58 grey 540 x 960 images as the flow warps take
@@ -40,7 +42,8 @@ Phases:
      C = 3 level and on 2 (phase 16's blocks) against the whole-frame
      kernels' rows, and against their plain versions there and on a
      ragged 132 x 241 split 4 ways (at every window); the 4-block split
-     also at ``WIDE_WINDOWS``, timed; and the bf16 forms of kernels 1-3
+     also at ``WIDE_WINDOWS``, timed (in bf16 at
+     ``WIDE_BF16_SHARD_WINDOWS``); and the bf16 forms of kernels 1-3
      (``pack_dtype="bfloat16"``: bf16 planes and maps, v_lin rounded to
      bf16) against their plain bf16 versions at the same shapes and
      windows (the 4K splits at the default window), and at windows 3, 5
@@ -113,10 +116,11 @@ Phases:
      render of each pair;
  17. the examples: both port demos' compute functions at their default
      shapes on the card, their own checks and their ``.y4m`` files;
- 18. the wide windows: ``api.morph_pair`` on phase 3's inputs and
-     ``run_golden`` at ``ssim_window`` 11, and phase 10's 4K pair through
-     ``optimize_pair_spatial`` on 4 row blocks at window 9, its field
-     bitwise equal to the single-device ``api.solve_pair``;
+ 18. the wide windows: ``api.morph_pair`` on phase 3's inputs at
+     ``ssim_window`` 11, 1 and 17 (17 also in bf16: the wide strip) and
+     ``run_golden`` at 11, and phase 10's 4K pair through
+     ``optimize_pair_spatial`` on 4 row blocks at windows 9 and 17, its
+     field bitwise equal to the single-device ``api.solve_pair``;
  19. the bf16 pack (``pack_dtype="bfloat16"``, ``backend="auto"``):
      ``api.morph_pair`` on phase 3's inputs (endpoints, a bitwise rerun,
      the field against phase 3's), ``api.morph_clips`` on phase 5's clip
@@ -128,8 +132,9 @@ Phases:
 A repeated-device mesh runs its blocks one after another on the card: a
 correctness path, not a speed-up. Any failure raises and exits non-zero.
 The card's name and power limit, then one JSON object with a record per
-kernel, the bf16 forms as records of their own (launches summed over the
-paths of phases 3-5, 7, 8 and 10-19;
+kernel, the bf16 forms and the wide strip's launches of kernels 1, 2, 1s
+and 2s (``<name>_wide``, timed at window 17) as records of their own
+(launches summed over the paths of phases 3-5, 7, 8 and 10-19;
 ``ms`` and ``library_ms`` device times, ``plain_ms`` a call time), are the
 lines before the last; the last line is ``{"ok": true, "device":
 {...}}``. With no CUDA device it exits 1 and prints no result.
@@ -151,6 +156,14 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
+
+def wide_name(name: str) -> str:
+    """The record of the wide strip's launches of kernel record ``name``:
+    ``sweep_grad_bf16`` -> ``sweep_grad_wide_bf16``."""
+    base = name.removesuffix("_bf16")
+    return base + "_wide" + name[len(base):]
+
+
 # the kernel numbering of PERF.md and ROADMAP.md: 1 sweep_grad (shard form
 # sweep_grad_shard), 2 sweep_energy (sweep_energy_shard), 3 halfway_warp (its
 # row-offset form halfway_warp_rows), 4 bilinear_sample (and its batched form);
@@ -169,6 +182,14 @@ KERNELS = {
 BF16_FORMS = ("halfway_warp", "halfway_warp_rows", "sweep_grad", "sweep_energy", "sweep_grad_shard",
               "sweep_energy_shard")
 KERNELS.update({f"{name}_bf16": KERNELS[name] for name in BF16_FORMS})
+# the wide strip (sweep_wide_kernel, SSIM windows 17 up): a launch of kernel
+# 1 or 2 that runs it counts under its wrapper's launches (or launches_bf16)
+# and also under launches_wide (launches_wide_bf16), its record <name>_wide
+# (<name>_wide_bf16); timed at WIDE_RECORD_WINDOW
+WIDE_FORMS = ("sweep_grad", "sweep_energy", "sweep_grad_bf16", "sweep_energy_bf16", "sweep_grad_shard",
+              "sweep_energy_shard")
+KERNELS.update({wide_name(name): KERNELS[name] for name in WIDE_FORMS})
+WIDE_RECORD_WINDOW = 17
 # the shapes of the phases that this slice adds (phase 2's shard forms,
 # phases 10 and 11); module constants so a rehearsal can shrink them
 SHARD_SHAPES = ((2160, 3840), (132, 241))
@@ -187,15 +208,21 @@ EDIT_N = 1024
 PAIRS_ROWS_HW = (2160, 3840)
 PAIRS_ROWS_BLOCKS = 2
 # the SSIM windows (ssim_window: ssim_sigma) that phase 2 holds the sweeps
-# at on its ragged shapes: every instantiated radius (1-7), the wide path's
-# R = 0 and R = 8 (window 17), the first radius past both kernels'
-# instantiations; WIDE_WINDOWS are also held and timed at 1024^2 and on 4
-# row blocks of the 4K level; phase 18 runs the pair and the golden cases
-# at WIDE_PAIR_WINDOW and the 4K spatial solve at WIDE_SPATIAL_WINDOW
-WINDOW_SIGMA = {1: 1.0, 3: 1.0, 5: 1.0, 7: 1.5, 9: 1.5, 11: 1.5, 13: 2.0, 15: 2.5, 17: 3.0}
-WIDE_WINDOWS = (7, 9, 11, 13, 15)
+# at on its ragged shapes: every instantiated radius (0-7), the wide strip's
+# first radius (8, window 17), one between (16, window 33) and its reach
+# (24, window 49), and the per-pixel chain's first (25, window 51);
+# WIDE_WINDOWS are also held and timed at 1024^2 and on 4 row blocks of
+# the 4K level (WIDE_BF16_SHARD_WINDOWS there in bf16 too); phase 18 runs
+# the pair and the golden cases at WIDE_PAIR_WINDOW, the pair also at
+# WIDE_PAIR_WINDOWS (the last in bf16 too), and the 4K spatial solve at
+# WIDE_SPATIAL_WINDOWS
+WINDOW_SIGMA = {1: 1.0, 3: 1.0, 5: 1.0, 7: 1.5, 9: 1.5, 11: 1.5, 13: 2.0, 15: 2.5, 17: 3.0, 33: 5.0, 49: 8.0,
+                51: 8.0}
+WIDE_WINDOWS = (1, 7, 9, 11, 13, 15, 17)
+WIDE_BF16_SHARD_WINDOWS = (1, 9, 11, 17)
 WIDE_PAIR_WINDOW = 11
-WIDE_SPATIAL_WINDOW = 9
+WIDE_PAIR_WINDOWS = (1, 17)
+WIDE_SPATIAL_WINDOWS = (9, 17)
 WIDE_PAIR_N = 1024
 # phase 19's clip pair (phase 5's), a module constant so a rehearsal can shrink it
 BF16_VIDEO_THW = (30, 1080, 1920)
@@ -392,7 +419,8 @@ def check_kernels(dev) -> dict:
         log(f"  {name} {shape}: max_abs_err={err:.3e} rel={rel:.3e} (limit {limit:.3e})")
         require(torch.isfinite(got).all(), f"{name}: non-finite output")
         require(err <= limit, f"{name} {shape}: max abs err {err} > {limit}")
-        r = rec[name]
+        # a form without a record of its own (the wide strip's bf16 shard forms) keeps its errors apart
+        r = rec.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["max_rel_err"] = max(r["max_rel_err"], rel)
 
@@ -402,15 +430,16 @@ def check_kernels(dev) -> dict:
         other summation orders and contracted multiply-adds); the bf16 form
         (bf16 planes and maps) against its plain bf16 version alike."""
         sfx = "_bf16" if planes.dtype == BF16 else ""
+        grad_name, energy_name = (sweep_record(n, pw) + sfx for n in ("sweep_grad", "sweep_energy"))
         e_k, g_k, p_k = ks.sweep_grad(planes, v_lin, v, data, pw)
         e_p, g_p, p_p = ks.sweep_grad_plain(planes, v_lin, v, data, pw)
-        compare("sweep_grad" + sfx, e_p.reshape(1), e_k.reshape(1), shape + " energy", 1e-5, True)
-        compare("sweep_grad" + sfx, g_p, g_k, shape + " grad", 1e-5, True)
-        compare("sweep_grad" + sfx, p_p, p_k, shape + " precond", 1e-5, True)
+        compare(grad_name, e_p.reshape(1), e_k.reshape(1), shape + " energy", 1e-5, True)
+        compare(grad_name, g_p, g_k, shape + " grad", 1e-5, True)
+        compare(grad_name, p_p, p_k, shape + " precond", 1e-5, True)
         del e_p, g_p, p_p
         e2_k = ks.sweep_energy(planes, v_lin, v, data, pw)
         e2_p = ks.sweep_energy_plain(planes, v_lin, v, data, pw)
-        compare("sweep_energy" + sfx, e2_p.reshape(1), e2_k.reshape(1), shape, 1e-5, True)
+        compare(energy_name, e2_p.reshape(1), e2_k.reshape(1), shape, 1e-5, True)
         # the energy kernel and the gradient pass share the per-pixel arithmetic
         require(abs(float(e2_k) - float(e_k)) <= 1e-6 * abs(float(e_k)),
                 f"{shape}: sweep_energy and sweep_grad disagree on the energy")
@@ -421,7 +450,7 @@ def check_kernels(dev) -> dict:
         require(float(ks.sweep_energy(planes, v_lin, v, data, pw)) == float(e2_k),
                 f"{shape}: sweep_energy rerun is not bitwise identical")
 
-    # every tiled radius and the wide path on the ragged shape; the wide windows also at 1024^2
+    # every window of WINDOW_SIGMA on the ragged shape; the wide windows also at 1024^2
     windows = {k: p if k == p.ssim_window else MorphParams(ssim_window=k, ssim_sigma=sg)
                for k, sg in WINDOW_SIGMA.items()}
     for h, w in ((1024, 1024), (1080, 1920), (135, 241)):
@@ -464,11 +493,12 @@ def check_kernels(dev) -> dict:
         for win, pw in held.items():
             check_sweeps(planes, v_lin, v, data, pw, f"{shape} window {win}")
             if full and win in WIDE_WINDOWS:
-                time_wide_window(h, w, pw,
-                                 lambda: ks.sweep_grad(planes, v_lin, v, data, pw),
-                                 lambda: ks.sweep_grad_plain(planes, v_lin, v, data, pw),
-                                 lambda: ks.sweep_energy(planes, v_lin, v, data, pw),
-                                 lambda: ks.sweep_energy_plain(planes, v_lin, v, data, pw))
+                record_wide(rec, win, time_wide_window(
+                    h, w, pw,
+                    lambda: ks.sweep_grad(planes, v_lin, v, data, pw),
+                    lambda: ks.sweep_grad_plain(planes, v_lin, v, data, pw),
+                    lambda: ks.sweep_energy(planes, v_lin, v, data, pw),
+                    lambda: ks.sweep_energy_plain(planes, v_lin, v, data, pw)))
 
         # the bf16 form (pack_dtype="bfloat16") at the same windows: kernel 3's
         # bf16 output bitwise its float32 output cast, and within one bf16 step
@@ -486,11 +516,12 @@ def check_kernels(dev) -> dict:
         for win, pw in held.items():
             check_sweeps(planes16, vq, v, data16, pw, f"{shape} window {win} bf16")
             if full and win in WIDE_WINDOWS:
-                time_wide_window(h, w, pw,
-                                 lambda: ks.sweep_grad(planes16, vq, v, data16, pw),
-                                 lambda: ks.sweep_grad_plain(planes16, vq, v, data16, pw),
-                                 lambda: ks.sweep_energy(planes16, vq, v, data16, pw),
-                                 lambda: ks.sweep_energy_plain(planes16, vq, v, data16, pw), plane_bytes=2)
+                record_wide(rec, win, time_wide_window(
+                    h, w, pw,
+                    lambda: ks.sweep_grad(planes16, vq, v, data16, pw),
+                    lambda: ks.sweep_grad_plain(planes16, vq, v, data16, pw),
+                    lambda: ks.sweep_energy(planes16, vq, v, data16, pw),
+                    lambda: ks.sweep_energy_plain(planes16, vq, v, data16, pw), plane_bytes=2))
 
         if (h, w) == (1080, 1920):
             # the warm loop's level: kernels 1-2 timed beside the 1024^2 shape,
@@ -581,15 +612,37 @@ def check_kernels(dev) -> dict:
     return rec
 
 
+def sweep_record(name: str, p) -> str:
+    """The record of a launch of sweep wrapper ``name`` (float32 form) at
+    ``p``'s window: ``<name>_wide`` where the window runs the wide strip."""
+    from videomorphing_tpu_torch.kernels import sweep as ks
+
+    wide = ks.wide_strip(name.startswith("sweep_grad"), ks.kernel_radius(p))
+    return wide_name(name) if wide else name
+
+
+def record_wide(rec: dict, window: int, timed: dict) -> None:
+    """At ``WIDE_RECORD_WINDOW`` the wide strip's records take the times
+    and bound that ``time_wide_window`` measured (``timed``, by form)."""
+    if window != WIDE_RECORD_WINDOW:
+        return
+    for name, (ms, plain_ms, bnd) in timed.items():
+        r = rec.setdefault(wide_name(name), {"max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None})
+        r["ms"], r["plain_ms"], r["bound"] = ms, plain_ms, bnd
+
+
 def time_wide_window(h: int, w: int, pw, grad, grad_plain, energy, energy_plain, rows: int = 0,
-                     shard: bool = False, plane_bytes: int = 4) -> None:
+                     shard: bool = False, plane_bytes: int = 4) -> dict:
     """Kernels 1 and 2 (or their shard forms, ``shard``) at one of
     ``WIDE_WINDOWS`` on an h x w whole frame or on a row block of ``rows`` owned
     rows, in float32 or (``plane_bytes`` 2) the bf16 form: device time
     (``graph_ms``, twice), call time, the plain version's call time and the
-    bound, logged (the kernels' result line stays at the default window)."""
+    bound, logged (the kernels' result line keeps the default window's, the
+    wide strip's records ``WIDE_RECORD_WINDOW``'s: ``record_wide``).
+    Returns {form: (device ms, plain ms, bound)}."""
     c, k, pb = 3, int(pw.ssim_window), plane_bytes
     own = rows or h
+    timed = {}
     for name, kern, plain, with_grad in (("sweep_grad", grad, grad_plain, True),
                                          ("sweep_energy", energy, energy_plain, False)):
         name = name + ("_shard" if shard else "") + ("_bf16" if pb == 2 else "")
@@ -598,10 +651,12 @@ def time_wide_window(h: int, w: int, pw, grad, grad_plain, energy, energy_plain,
         else:
             nbytes = h * w * sweep_bytes(c, with_grad, pb)
         b_ms, b_by = bound(nbytes, own * w * sweep_ops_per_pixel(c, k, with_grad))
-        ms, _, (k1, k2, pl1, pl2), call = timed_pair(kern, plain, 10)
+        ms, plain_ms, (k1, k2, pl1, pl2), call = timed_pair(kern, plain, 10)
         shape = f"{h}x{w}" + (" block" if shard else "")
         log(f"  {name} {shape} window {k} time: kernel {k1:.4f}/{k2:.4f} ms (device), {call:.4f} ms (call), "
             f"plain {pl1:.4f}/{pl2:.4f} ms; bound {b_ms:.4f} ms ({b_by}), share {b_ms / ms:.0%}")
+        timed[name] = (ms, plain_ms, (b_ms, b_by))
+    return timed
 
 
 def timed_pair(kern, plain, reps: int = 20):
@@ -776,6 +831,7 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
     level (phase 16's block shape); and 4 blocks of a ragged 132 x 241 one
     at every window of ``WINDOW_SIGMA``; the bf16 form (planes and maps in
     bf16, v_lin rounded to bf16) on the two 4K splits at the default window,
+    on the 4-block 4K split at ``WIDE_BF16_SHARD_WINDOWS``,
     on the ragged split at every window and on ``BF16_PARITY_SHARD_HW``'s
     splits at ``BF16_PARITY_WINDOWS`` (with the whole-frame checks), and
     those splits in both forms at ``ENERGY_STRIP_SHARD_WINDOWS``. Each
@@ -816,6 +872,7 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
              + [(SHARD_SHAPES[1], at(k), 4, False, False, F32) for k in WINDOW_SIGMA]
              + [(SHARD_SHAPES[0], p_default, 4, True, True, BF16),
                 (PAIRS_ROWS_HW, p_default, PAIRS_ROWS_BLOCKS, True, False, BF16)]
+             + [(SHARD_SHAPES[0], at(k), 4, True, True, BF16) for k in WIDE_BF16_SHARD_WINDOWS]
              + [(SHARD_SHAPES[1], at(k), 4, False, False, BF16) for k in WINDOW_SIGMA]
              + [(hw, at(k), 4, True, False, BF16) for hw in BF16_PARITY_SHARD_HW for k in BF16_PARITY_WINDOWS]
              + [(hw, at(k), 4, True, False, dt) for dt in (F32, BF16) for hw in BF16_PARITY_SHARD_HW
@@ -835,6 +892,7 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
         )
         bf16 = dt == BF16
         sfx = "_bf16" if bf16 else ""
+        grad_name, energy_name = (sweep_record(n, p) + sfx for n in ("sweep_grad_shard", "sweep_energy_shard"))
         if bf16:
             v_lin = v_lin.to(BF16).float()
             data = ks.pack_maps(data, BF16)
@@ -855,11 +913,10 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
             compare("halfway_warp_rows" + sfx, kw.halfway_warp_rows_plain(i0, i1, vl_e, row0, dt).float(),
                     pl_k.float(), blk, 2.0 ** -8 if bf16 else 1e-6, bf16)
             rp, rg, rpc = ks.sweep_grad_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo)
-            compare_parts("sweep_grad_shard" + sfx, rp, pk, blk)
-            compare("sweep_grad_shard" + sfx, rg, gk, blk + " grad", 1e-5, True)
-            compare("sweep_grad_shard" + sfx, rpc, pck, blk + " precond", 1e-5, True)
-            compare_parts("sweep_energy_shard" + sfx,
-                          ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo), pe, blk)
+            compare_parts(grad_name, rp, pk, blk)
+            compare(grad_name, rg, gk, blk + " grad", 1e-5, True)
+            compare(grad_name, rpc, pck, blk + " precond", 1e-5, True)
+            compare_parts(energy_name, ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo), pe, blk)
             require(torch.equal(ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo), pe),
                     f"{blk}: sweep_energy_shard rerun is not bitwise identical")
             del rp, rg, rpc
@@ -874,8 +931,7 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
                 outside[lo - row0:hi - row0] = False
                 require(int(torch.count_nonzero(pl_k[:, outside])) == 0,
                         f"halfway_warp_rows block {k}: non-zero planes outside the frame")
-                for name, ref, got in (("sweep_grad_shard" + sfx, g_whole[rows], gk),
-                                       ("sweep_grad_shard" + sfx, p_whole[rows], pck)):
+                for name, ref, got in ((grad_name, g_whole[rows], gk), (grad_name, p_whole[rows], pck)):
                     if not torch.equal(ref, got):
                         bitwise = False
                         compare(name, ref, got, f"{blk} vs whole frame", 1e-6, True)
@@ -911,12 +967,13 @@ def check_shard_forms(dev, compare, rec, t, p_default) -> None:
         data_k = LevelData(i0, i1, *(m[rows].contiguous() for m in (data.ui_w, data.ui_v, data.tc_w, data.tc_v)))
         pl_k = kw.halfway_warp_rows(i0, i1, vl_e, row0, dt)
         if p is not p_default:
-            time_wide_window(he, w, p,
-                             lambda: ks.sweep_grad_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
-                             lambda: ks.sweep_grad_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
-                             lambda: ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
-                             lambda: ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
-                             rows=bh, shard=True)
+            record_wide(rec, p.ssim_window, time_wide_window(
+                he, w, p,
+                lambda: ks.sweep_grad_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                lambda: ks.sweep_grad_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                lambda: ks.sweep_energy_shard(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                lambda: ks.sweep_energy_shard_plain(pl_k, vl_e, v_e, data_k, p, row0, h, halo),
+                rows=bh, shard=True, plane_bytes=2 if bf16 else 4))
             del pl_k, data, data_k, i0, i1
             torch.cuda.empty_cache()
             continue
@@ -1134,15 +1191,18 @@ def blob_discs(t_len: int, h: int, w: int, x0: float, dev):
 
 def kernel_counters():
     """Every kernel's launch counter as (name, wrapper, attribute), in
-    ``KERNELS`` order: a bf16 form's is ``launches_bf16`` of its wrapper."""
+    ``KERNELS`` order: a bf16 form's is ``launches_bf16`` of its wrapper,
+    the wide strip's ``launches_wide`` (``launches_wide_bf16``)."""
     from videomorphing_tpu_torch.kernels import sweep as ks
     from videomorphing_tpu_torch.kernels import warp as kw
 
     out = []
     for name in KERNELS:
         base = name.removesuffix("_bf16")
+        wide = base.endswith("_wide")
+        base = base.removesuffix("_wide")
         fn = getattr(ks, base, None) or getattr(kw, base)
-        out.append((name, fn, "launches" if base == name else "launches_bf16"))
+        out.append((name, fn, "launches" + ("_wide" if wide else "") + ("_bf16" if name.endswith("_bf16") else "")))
     return tuple(out)
 
 
@@ -1993,18 +2053,52 @@ def examples_path(dev, card: str) -> dict:
     return launches
 
 
-def wide_windows(dev, card: str) -> dict:
-    """Phase 18: SSIM windows past radius 3 through the entry points.
-    ``api.morph_pair`` on the pair_1k inputs (4 points, 16 frames) at
-    ``ssim_window`` ``WIDE_PAIR_WINDOW`` (sigma 1.5, the tiled kernels at
-    R = 5): endpoints within 0.02, a monotone centroid, a bitwise rerun,
-    every base kernel launched; ``utils.golden.run_golden`` at that window
-    (midpoint SSIM >= 0.99 each); frame 0 of the bench's 2160 x 3840 pair
-    through ``optimize_pair_spatial`` on 4 row blocks of the card at
-    ``WIDE_SPATIAL_WINDOW`` (reach 2R = 8 rows, exchange halo 10), its field
-    bitwise equal to the single-device ``api.solve_pair`` at that window.
-    Returns the launches of the three runs (the rerun and the single-device
-    solve left out), summed."""
+def wide_pair(dev, card: str, mp) -> dict:
+    """``api.morph_pair`` on the pair_1k inputs (4 points, 16 frames) at
+    ``mp``: endpoints within 0.02, a monotone centroid, a bitwise rerun,
+    every base kernel launched, and the wide strip's forms where its window
+    runs them (none elsewhere). Returns the first run's launches."""
+    import torch
+
+    from videomorphing_tpu_torch import api
+    from videomorphing_tpu_torch.kernels import sweep as ks
+
+    n, n_frames, win = WIDE_PAIR_N, 16, mp.ssim_window
+    what = f"window-{win}" + (" bf16" if mp.pack_dtype == "bfloat16" else "")
+    i0, i1, pts = make_pair(n)
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    frames = api.morph_pair(i0, i1, pts, n_frames=n_frames, mp=mp, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    log(f"  launches in the {what} pair path: {launches}")
+    check_frames(frames, (n_frames, n, n, 3))
+    for name in BASE:
+        require(launches[name] > 0, f"kernel {name} was not launched on the {what} pair path")
+    wide = ks.wide_strip(True, ks.kernel_radius(mp))
+    sfx = "_bf16" if mp.pack_dtype == "bfloat16" else ""
+    for name in ("sweep_grad_wide" + sfx, "sweep_energy_wide" + sfx):
+        require((launches[name] > 0) == wide, f"{name}: {launches[name]} launches on the {what} pair path")
+    check_endpoints(frames.cpu().numpy(), i0, i1, f"{what} pair")
+    cx = centroids_x(frames)
+    ca, cb = centroids_x(torch.from_numpy(np.stack([i0, i1])).to(dev))
+    log(f"  centroid x per frame: {np.round(cx, 2).tolist()} (A {ca:.2f}, B {cb:.2f})")
+    require(np.all(np.diff(cx) >= 0.0), f"{what}: centroid does not move monotonically")
+    require(abs(cx[0] - ca) < 0.01 * n and abs(cx[-1] - cb) < 0.01 * n, f"{what}: centroid misses A or B")
+    again = api.morph_pair(i0, i1, pts, n_frames=n_frames, mp=mp, device=dev)
+    require(torch.equal(frames, again), f"{what}: the pair morph's rerun is not bitwise identical")
+    log(f"  pair_1k at {what}: wall {wall:.3f} s for solve + {n_frames} frames (first call), "
+        f"rerun bitwise equal, on {card}")
+    return launches
+
+
+def wide_spatial(dev, card: str, win: int) -> dict:
+    """Frame 0 of the bench's 2160 x 3840 pair through
+    ``optimize_pair_spatial`` on 4 row blocks of the card at ``ssim_window``
+    ``win`` (reach 2R rows, exchange halo 2R + 2), its field bitwise equal to
+    the single-device ``api.solve_pair``; at a window of the wide strip its
+    shard forms launched. Returns the sharded solve's launches."""
     import torch
 
     from videomorphing_tpu_torch import api
@@ -2013,58 +2107,10 @@ def wide_windows(dev, card: str) -> dict:
     from videomorphing_tpu_torch.ops.pyramid import pyramid_shapes
     from videomorphing_tpu_torch.parallel.mesh import make_mesh
     from videomorphing_tpu_torch.parallel.spatial import exchange_halo, level_is_sharded, optimize_pair_spatial
-    from videomorphing_tpu_torch.utils.golden import run_golden
     from videomorphing_tpu_torch.utils.synthetic import make_clips
 
-    total: dict = {}
-
-    def add(launches):
-        for name, n in launches.items():
-            total[name] = total.get(name, 0) + n
-
-    # the pair at window 11
-    n, n_frames, win = WIDE_PAIR_N, 16, WIDE_PAIR_WINDOW
-    mp = MorphParams(ssim_window=win, ssim_sigma=1.5)
-    i0, i1, pts = make_pair(n)
-    counters = reset_counters()
-    t0 = time.perf_counter()
-    frames = api.morph_pair(i0, i1, pts, n_frames=n_frames, mp=mp, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counters(counters)
-    log(f"  launches in the window-{win} pair path: {launches}")
-    check_frames(frames, (n_frames, n, n, 3))
-    for name in BASE:
-        require(launches[name] > 0, f"kernel {name} was not launched on the window-{win} pair path")
-    check_endpoints(frames.cpu().numpy(), i0, i1, f"window-{win} pair")
-    cx = centroids_x(frames)
-    ca, cb = centroids_x(torch.from_numpy(np.stack([i0, i1])).to(dev))
-    log(f"  centroid x per frame: {np.round(cx, 2).tolist()} (A {ca:.2f}, B {cb:.2f})")
-    require(np.all(np.diff(cx) >= 0.0), f"window {win}: centroid does not move monotonically")
-    require(abs(cx[0] - ca) < 0.01 * n and abs(cx[-1] - cb) < 0.01 * n, f"window {win}: centroid misses A or B")
-    again = api.morph_pair(i0, i1, pts, n_frames=n_frames, mp=mp, device=dev)
-    require(torch.equal(frames, again), f"window {win}: the pair morph's rerun is not bitwise identical")
-    log(f"  pair_1k at window {win}: wall {wall:.3f} s for solve + {n_frames} frames (first call), "
-        f"rerun bitwise equal, on {card}")
-    add(launches)
-    del frames, again
-
-    # the golden cases at window 11
-    counters = reset_counters()
-    t0 = time.perf_counter()
-    for case in ("translation", "rotation", "scale"):
-        r = run_golden(case, hw=GOLDEN_HW, mp=mp, device=dev)
-        log(f"  golden {case} {GOLDEN_HW[0]}x{GOLDEN_HW[1]} window {win}: ssim_mid {r['ssim_mid']}, "
-            f"v_err_mean {r['v_err_mean']} px, v_err_p99 {r['v_err_p99']} px")
-        require(r["ssim_mid"] >= 0.99, f"golden {case} at window {win}: midpoint SSIM {r['ssim_mid']} < 0.99")
-    torch.cuda.synchronize()
-    launches = read_counters(counters)
-    log(f"  golden at window {win}: wall {time.perf_counter() - t0:.3f} s for 3 cases; launches {launches}")
-    add(launches)
-
-    # the 4K spatial solve at window 9 against the single-device solve
-    (h, w), n_blocks, win = SPATIAL_HW, 4, WIDE_SPATIAL_WINDOW
-    mp = MorphParams(ssim_window=win, ssim_sigma=1.5)
+    (h, w), n_blocks = SPATIAL_HW, 4
+    mp = MorphParams(ssim_window=win, ssim_sigma=WINDOW_SIGMA[win])
     clip_a, clip_b = make_clips(1, h, w, seed=0)
     i0 = torch.from_numpy(clip_a[0]).to(dev)
     i1 = torch.from_numpy(clip_b[0]).to(dev)
@@ -2082,7 +2128,10 @@ def wide_windows(dev, card: str) -> dict:
     t_solve = time.perf_counter() - t0
     launches = read_counters(counters)
     log(f"  launches in the window-{win} spatial path: {launches}")
-    for name in ("sweep_grad_shard", "sweep_energy_shard", "halfway_warp_rows"):
+    names = ["sweep_grad_shard", "sweep_energy_shard", "halfway_warp_rows"]
+    if ks.wide_strip(True, ks.kernel_radius(mp)):
+        names += ["sweep_grad_shard_wide", "sweep_energy_shard_wide"]
+    for name in names:
         require(launches[name] > 0, f"kernel {name} was not launched on the window-{win} spatial path")
     require(ks.shard_reach(mp) == 2 * (win // 2) and exchange_halo(mp) == 2 * (win // 2) + 2,
             f"window {win}: reach {ks.shard_reach(mp)}, exchange halo {exchange_halo(mp)}")
@@ -2097,9 +2146,53 @@ def wide_windows(dev, card: str) -> dict:
         f"{t_single:.3f} s; reach {ks.shard_reach(mp)} rows, exchange halo {exchange_halo(mp)}; "
         f"max |dv| against the single-device field {dv:.3e} px; peak {peak_gib(dev)}")
     require(torch.equal(single.v, res.v), f"window {win}: the sharded 4K field differs from the single-device one")
-    add(launches)
     del single, res, i0, i1
     torch.cuda.empty_cache()
+    return launches
+
+
+def wide_windows(dev, card: str) -> dict:
+    """Phase 18: SSIM windows other than the default through the entry
+    points. ``wide_pair`` at ``WIDE_PAIR_WINDOW`` (sigma 1.5, the tiled
+    kernels at R = 5) and at ``WIDE_PAIR_WINDOWS`` (the tiles at R = 0; the
+    wide strip at R = 8, float32 and bf16); ``utils.golden.run_golden`` at
+    ``WIDE_PAIR_WINDOW`` (midpoint SSIM >= 0.99 each); ``wide_spatial`` at
+    ``WIDE_SPATIAL_WINDOWS`` (9: the strips at R = 4; 17: the wide strip's
+    shard forms at full width). Returns the launches of the runs (the
+    reruns and the single-device solves left out), summed."""
+    from videomorphing_tpu_torch.config import MorphParams
+    from videomorphing_tpu_torch.utils.golden import run_golden
+
+    total: dict = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    win = WIDE_PAIR_WINDOW
+    mp = MorphParams(ssim_window=win, ssim_sigma=1.5)
+    pairs = [mp] + [MorphParams(ssim_window=k, ssim_sigma=WINDOW_SIGMA[k]) for k in WIDE_PAIR_WINDOWS]
+    pairs.append(MorphParams(ssim_window=WIDE_PAIR_WINDOWS[-1], ssim_sigma=WINDOW_SIGMA[WIDE_PAIR_WINDOWS[-1]],
+                             pack_dtype="bfloat16"))
+    for mpk in pairs:
+        add(wide_pair(dev, card, mpk))
+
+    # the golden cases at window 11
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    for case in ("translation", "rotation", "scale"):
+        r = run_golden(case, hw=GOLDEN_HW, mp=mp, device=dev)
+        log(f"  golden {case} {GOLDEN_HW[0]}x{GOLDEN_HW[1]} window {win}: ssim_mid {r['ssim_mid']}, "
+            f"v_err_mean {r['v_err_mean']} px, v_err_p99 {r['v_err_p99']} px")
+        require(r["ssim_mid"] >= 0.99, f"golden {case} at window {win}: midpoint SSIM {r['ssim_mid']} < 0.99")
+    sync(dev)
+    launches = read_counters(counters)
+    log(f"  golden at window {win}: wall {time.perf_counter() - t0:.3f} s for 3 cases; launches {launches}")
+    add(launches)
+
+    # the 4K spatial solves against the single-device solves
+    for win in WIDE_SPATIAL_WINDOWS:
+        add(wide_spatial(dev, card, win))
     return total
 
 
@@ -2315,9 +2408,11 @@ def main(argv) -> int:
     info = (ctypes.c_int * 6)()
     for bf16 in (0, 1):
         for with_grad in (1, 0):
-            # every instantiation, then the wide path (its kernels' extremes; R = 0 and past the instantiated R)
-            radii = [r for r in range(1, 16) if ks.tiled(with_grad, r)]
-            for r in radii + [radii[-1] + 1]:
+            # every instantiation (R = 0 too), the wide strip at its first radius, R = 16 and its reach,
+            # then the per-pixel chain (its kernels' extremes) past the reach
+            radii = [r for r in range(0, 16) if ks.tiled(with_grad, r)]
+            reach = max(r for r in range(64) if ks.wide_strip(with_grad, r))
+            for r in radii + [radii[-1] + 1, 16, reach, reach + 1]:
                 build.check(lib.vm_sweep_kernel_info(r, with_grad, bf16, info), "vm_sweep_kernel_info")
                 what = ks.kernel_name(with_grad, r) + (" (bf16)" if bf16 else "")
                 log(f"  {what}: {info[0]} registers, {info[1]} B static + {info[2]} B dynamic shared memory, "
@@ -2326,13 +2421,14 @@ def main(argv) -> int:
                 require(info[4] >= 1, f"{what} cannot be resident on an SM")
     for with_grad in (True, False):
         radii = [r for r in range(0, 11) if ks.tiled(with_grad, r)]
-        for r in [0] + radii + [radii[-1] + 1, 10]:
+        reach = max(r for r in range(64) if ks.wide_strip(with_grad, r))
+        for r in radii + [radii[-1] + 1, 10, 16, reach, reach + 1]:
             for w, nown in ((1024, 1024), (1920, 1080), (241, 135), (3840, 540), (30, 17), (1, 1)):
                 got, sized = lib.vm_sweep_n_partials(w, nown, int(with_grad), r), ks.n_partials(w, nown, with_grad, r)
                 require(got == sized,
                         f"partials of {nown}x{w} (with_grad={with_grad}, R = {r}): {got} on the card, {sized} sized")
         log(f"  {'gradient' if with_grad else 'energy'} tiles (rows, columns) by radius: "
-            + ", ".join(f"R = {r}: {ks.sweep_tile(with_grad, r)}" for r in [0] + radii + [radii[-1] + 1])
+            + ", ".join(f"R = {r}: {ks.sweep_tile(with_grad, r)}" for r in radii + [radii[-1] + 1, reach + 1])
             + "; partials counts agree with vm_sweep_n_partials")
 
     log("phase 2: kernels against their plain versions")
@@ -2377,8 +2473,9 @@ def main(argv) -> int:
     rows_launches = pairs_by_rows(dev, card)
     log("phase 17: examples (demo_pair_torch, demo_video_torch compute functions)")
     examples_launches = examples_path(dev, card)
-    log(f"phase 18: wide windows (api.morph_pair and run_golden at ssim_window {WIDE_PAIR_WINDOW}, "
-        f"optimize_pair_spatial at {SPATIAL_HW[0]}x{SPATIAL_HW[1]} on 4 row blocks at ssim_window {WIDE_SPATIAL_WINDOW})")
+    log(f"phase 18: wide windows (api.morph_pair at ssim_window {WIDE_PAIR_WINDOW} and {WIDE_PAIR_WINDOWS}, "
+        f"run_golden at {WIDE_PAIR_WINDOW}, optimize_pair_spatial at {SPATIAL_HW[0]}x{SPATIAL_HW[1]} on 4 row blocks "
+        f"at ssim_window {WIDE_SPATIAL_WINDOWS})")
     wide_launches = wide_windows(dev, card)
     log("phase 19: bf16 pack (pack_dtype='bfloat16': api.morph_pair 1024x1024, api.morph_clips {}x{}x{}, "
         "optimize_pair_spatial {}x{} on 4 row blocks, run_golden)".format(*BF16_VIDEO_THW, *SPATIAL_HW))

@@ -9,8 +9,8 @@ Compiles ``videomorphing_tpu_torch/csrc/sweep.cu`` of this checkout and of
 ``DIR`` to ``sm_90a`` cubins with the port's nvcc flags (both at once, into
 ``build/sweep_sass/``), disassembles them with ``cuobjdump -sass`` and
 compares, function by function, every instantiation of kernels 1-2 that
-both compile, float32 and bf16 (the tiles, the strips, the wide path's
-kernels and the reduction), after removing the per-file name of the
+both compile, float32 and bf16 (the tiles, the strips, the wide strip,
+the per-pixel chain's kernels and the reduction), after removing the per-file name of the
 anonymous namespace. Prints one JSON line per function (``equal``, the
 instruction counts of both), then a summary line that also names the
 functions only one of them compiles; exits 1 if any common function

@@ -17,8 +17,8 @@ window. A knocked-out variant computes wrong values; only its device time
 (``chip_smoke.graph_ms``, two readings) is printed, one JSON line per
 window, form and variant, with the kernel's registers, local memory and
 resident blocks per SM (``vm_sweep_kernel_info``), then the card's name
-and power limit. A window whose energy runs the wide path is timed as it
-is (variant 0 only). The time a stage costs is the baseline's less the
+and power limit. A window whose energy runs another kernel (the wide
+strip or the per-pixel chain) is timed as it is (variant 0 only). The time a stage costs is the baseline's less the
 variant's; the stages overlap, so the differences do not add up.
 
 Variants: 0 baseline; 1 no plane copies (no ``cp.async`` of the six
@@ -188,7 +188,7 @@ def main() -> int:
         parts = torch.empty((n, 4), device=dev)
         n_scratch = libs[0].vm_sweep_scratch_floats(w, h, 0, r)
         scratch = torch.empty(max(n_scratch, 1), device=dev)
-        variants = [0] if kernel.startswith("wide") else list(VARIANTS)
+        variants = list(VARIANTS) if kernel.startswith(tuple(EDITS)) else [0]
         for form, (planes, vl, dt, sfx) in forms.items():
             build.check(libs[0].vm_sweep_kernel_info(r, 0, int(bool(sfx)), info), "vm_sweep_kernel_info")
             maps = (dt.ui_w.data_ptr(), dt.ui_v.data_ptr(), dt.tc_w.data_ptr(), dt.tc_v.data_ptr())

@@ -5,8 +5,9 @@ behind ``kernels.sweep.sweep_grad``) and kernel 2's (``total_energy_planes``
 behind ``sweep_energy``) against the JAX reference's oracles, on warps
 linearized around ``v_lin != v`` with non-zero UI and TC maps.
 Tolerances: energy relative error <= 1e-5; grad and precond max abs
-<= 1e-5 * max|ref|. The windows run from 3 to 15 (the kernels'
-instantiated radii, 1-7); the row-shard forms sum to the
+<= 1e-5 * max|ref|. The windows run from 1 to 17 (the kernels'
+instantiated radii, 0-7, and the wide strip's first, 8); the row-shard
+forms sum to the
 reference's whole-frame energy and, on their owned rows, give its
 gradient. The CUDA kernels themselves are held to these plain versions on
 the card by ``chip_smoke.py``; here also the tiles that size their
@@ -85,6 +86,8 @@ PARAMS = [
     JaxMorphParams(ssim_window=9, ssim_sigma=1.5),
     JaxMorphParams(ssim_window=11, ssim_sigma=1.5),
     JaxMorphParams(ssim_window=15, ssim_sigma=2.5),
+    JaxMorphParams(ssim_window=1, ssim_sigma=1.0),
+    JaxMorphParams(ssim_window=17, ssim_sigma=3.0),
 ]
 
 
@@ -261,27 +264,45 @@ def _source_constant(name):
     return int(m.group(1))
 
 
-@pytest.mark.parametrize("radius", range(0, 10))
+def _by_radius(radius, lo, hi, tile, strip, with_grad):
+    """The blocks and the kernel's kind at ``radius`` for a kernel whose
+    tile takes R = 0 .. lo - 1 and its strip lo .. hi: past hi the wide
+    strip up to ``WIDE_MAX_RADIUS``, then the per-pixel chain."""
+    reach = _source_constant("WIDE_MAX_RADIUS")
+    rows = _source_constant("WIDE_STRIP_ROWS" if with_grad else "WIDE_ENERGY_STRIP_ROWS")
+    wide = (rows, _source_constant("WIDE_STRIP_COLS"))
+    chain = (_source_constant("CHAIN_TILE_ROWS"), _source_constant("CHAIN_TILE_COLS"))
+    if radius < lo:
+        return tile, "tile"
+    if radius <= hi:
+        return strip, "strip"
+    return (wide, "wide") if radius <= reach else (chain, "chain")
+
+
+@pytest.mark.parametrize("radius", list(range(0, 10)) + [24, 25])
 def test_gradient_kernel_by_radius_comes_from_the_source(radius):
     """The gradient kernel's blocks at each radius, from the constants of
-    ``csrc/sweep.cu``: R = 1, 2 keep the tile of ``TILE_ROWS`` x
+    ``csrc/sweep.cu``: R = 0, 1, 2 keep the tile of ``TILE_ROWS`` x
     ``TILE_COLS`` (16 x 32); ``STRIP_MIN_RADIUS`` .. ``STRIP_MAX_RADIUS``
-    (3 .. 7) run the strip kernel on ``STRIP_ROWS`` x ``STRIP_COLS``; R = 0
-    and the radii past the strip run the wide path. The energy kernel keeps
-    its own radii (1 .. ``ENERGY_STRIP_MAX_RADIUS``)."""
+    (3 .. 7) run the strip kernel on ``STRIP_ROWS`` x ``STRIP_COLS``; R = 8
+    .. ``WIDE_MAX_RADIUS`` (24) the wide strip on ``WIDE_STRIP_ROWS`` x
+    ``WIDE_STRIP_COLS`` (128 x 32); the radii past it the per-pixel chain. The energy
+    kernel keeps its own radii (0 .. ``ENERGY_STRIP_MAX_RADIUS``)."""
     lo, hi = _source_constant("STRIP_MIN_RADIUS"), _source_constant("STRIP_MAX_RADIUS")
     assert (lo, hi) == (3, 7) and _source_constant("ENERGY_STRIP_MAX_RADIUS") == 7
+    assert _source_constant("WIDE_MAX_RADIUS") == 24
     tile = (_source_constant("TILE_ROWS"), _source_constant("TILE_COLS"))
     strip = (_source_constant("STRIP_ROWS"), _source_constant("STRIP_COLS"))
-    wide = (_source_constant("WIDE_TILE_ROWS"), _source_constant("WIDE_TILE_COLS"))
     assert tile == (16, 32)
-    expect = tile if 1 <= radius < lo else strip if lo <= radius <= hi else wide
+    expect, kind = _by_radius(radius, lo, hi, tile, strip, True)
+    assert kind != "wide" or expect == (128, 32)
     assert ks.sweep_tile(True, radius) == expect
-    assert ks.tiled(True, radius) == (1 <= radius <= hi)
-    assert ks.tiled(False, radius) == (1 <= radius <= 7)
+    assert ks.tiled(True, radius) == (0 <= radius <= hi)
+    assert ks.tiled(False, radius) == (0 <= radius <= 7)
+    assert ks.wide_strip(True, radius) == (kind == "wide")
     name = ks.kernel_name(True, radius)
-    assert name == ("wide path (gradient)" if expect == wide else
-                    f"sweep_grad{'_strip' if expect == strip else ''}_kernel<{radius}>")
+    assert name == {"tile": f"sweep_grad_kernel<{radius}>", "strip": f"sweep_grad_strip_kernel<{radius}>",
+                    "wide": "sweep_wide_kernel (gradient)", "chain": "per-pixel chain (gradient)"}[kind]
 
 
 STRIP_SHAPES = pytest.mark.parametrize(
@@ -312,25 +333,48 @@ def test_n_partials_covers_every_energy_strip(w, nown, radius):
     assert ks.n_partials(w, nown, False, radius) == _blocks_by_origin(w, nown, False, radius)
 
 
-@pytest.mark.parametrize("radius", range(0, 10))
+@pytest.mark.parametrize("radius", list(range(0, 10)) + [24, 25])
 def test_energy_kernel_by_radius_comes_from_the_source(radius):
     """The energy kernel's blocks at each radius, from the constants of
-    ``csrc/sweep.cu``: R = 1 .. 3 keep the tile of ``ENERGY_TILE_ROWS`` x
+    ``csrc/sweep.cu``: R = 0 .. 3 keep the tile of ``ENERGY_TILE_ROWS`` x
     ``ENERGY_TILE_COLS`` (32 x 26); ``ENERGY_STRIP_MIN_RADIUS`` ..
     ``ENERGY_STRIP_MAX_RADIUS`` (4 .. 7) run the strip on blocks of
     ``ENERGY_STRIP_ROWS`` rows and ``ENERGY_STRIP_WARPS`` warps of 32 - 2R
-    owned columns; R = 0 and the radii past the strip run the wide path."""
+    owned columns; R = 8 .. ``WIDE_MAX_RADIUS`` the wide strip on
+    ``WIDE_ENERGY_STRIP_ROWS`` x ``WIDE_STRIP_COLS`` (64 x 32) and the
+    radii past it the per-pixel chain."""
     lo, hi = _source_constant("ENERGY_STRIP_MIN_RADIUS"), _source_constant("ENERGY_STRIP_MAX_RADIUS")
     assert (lo, hi) == (4, 7)
     tile = (_source_constant("ENERGY_TILE_ROWS"), _source_constant("ENERGY_TILE_COLS"))
     strip = (_source_constant("ENERGY_STRIP_ROWS"), _source_constant("ENERGY_STRIP_WARPS") * (32 - 2 * radius))
-    wide = (_source_constant("WIDE_TILE_ROWS"), _source_constant("WIDE_TILE_COLS"))
     assert tile == (32, 26) and strip[0] == 16
-    expect = tile if 1 <= radius < lo else strip if lo <= radius <= hi else wide
+    expect, kind = _by_radius(radius, lo, hi, tile, strip, False)
+    assert kind != "wide" or expect == (64, 32)
     assert ks.sweep_tile(False, radius) == expect
-    assert ks.tiled(False, radius) == (1 <= radius <= hi)
-    assert ks.kernel_name(False, radius) == ("wide path (energy)" if expect == wide else
-                                             f"sweep_energy{'_strip' if expect == strip else ''}_kernel<{radius}>")
+    assert ks.tiled(False, radius) == (0 <= radius <= hi)
+    assert ks.wide_strip(False, radius) == (kind == "wide")
+    assert ks.kernel_name(False, radius) == {
+        "tile": f"sweep_energy_kernel<{radius}>", "strip": f"sweep_energy_strip_kernel<{radius}>",
+        "wide": "sweep_wide_kernel (energy)", "chain": "per-pixel chain (energy)"}[kind]
+
+
+@pytest.mark.parametrize("with_grad", [True, False], ids=["grad", "energy"])
+@pytest.mark.parametrize("radius", [0, 8, 16, 24, 25])
+@STRIP_SHAPES
+def test_n_partials_covers_the_wide_windows(w, nown, radius, with_grad):
+    """The partials of the wide windows' kernels: the tiles at R = 0
+    (window 1), the wide strip's blocks of 128 x 32 owned pixels (the
+    energy form's 64 x 32) at R = 8, 16 and 24 (windows 17, 33 and 49, its
+    reach), the per-pixel chain's 8 x 32 at R = 25; one set per block,
+    counted from the blocks' origins on each axis, for whole frames and a
+    row shard's owned rows."""
+    rows, cols = ks.sweep_tile(with_grad, radius)
+    strip = (128, 32) if with_grad else (64, 32)
+    expect = {0: (16, 32) if with_grad else (32, 26), 8: strip, 16: strip, 24: strip, 25: (8, 32)}
+    assert (rows, cols) == expect[radius]
+    n_rows = len({y // rows for y in range(nown)})
+    n_cols = len({x // cols for x in range(w)})
+    assert ks.n_partials(w, nown, with_grad, radius) == n_rows * n_cols
 
 
 @pytest.mark.parametrize("window", [3, 5, 9, 11, 15, 17, 31])

@@ -2,9 +2,10 @@
 // preconditioner of the halfway-domain energy on linearized warps.
 //
 // Replaces the Pallas builders videomorphing_tpu/pallas/sweep.py:293
-// (_build_grad_call, kernel 1: sweep_grad_kernel<R> and
-// sweep_grad_strip_kernel<R>) and :502 (_build_energy_call, kernel 2:
-// sweep_energy_kernel<R> and sweep_energy_strip_kernel<R>). The kernels
+// (_build_grad_call, kernel 1: sweep_grad_kernel<R>,
+// sweep_grad_strip_kernel<R> and sweep_wide_kernel<true>) and :502
+// (_build_energy_call, kernel 2: sweep_energy_kernel<R>,
+// sweep_energy_strip_kernel<R> and sweep_wide_kernel<false>). The kernels
 // have their own designs but share
 // the per-pixel arithmetic of the energy (ssim_pixel, ssim_coeffs,
 // tps_maps_at, tps_energy, quad_terms) and the order of every
@@ -141,14 +142,32 @@
 // Window radius. The window has 2R + 1 taps (ssim_window = 2R + 1, any
 // odd size, as the reference takes it); the taps sit in a small device
 // buffer that VmSweepScalars points at. dispatch() chooses by R
-// (tiled()):
-//   - kernel 1: the tile for R = 1, 2, the strip for R = STRIP_MIN_RADIUS
-//     .. STRIP_MAX_RADIUS; kernel 2: the tile for R = 1 .. 3, the strip for
-//     R = ENERGY_STRIP_MIN_RADIUS .. ENERGY_STRIP_MAX_RADIUS; each
-//     instantiated per R.
-//   - any other R (R = 0, and past R = 7; at R = 8 kernel 1's strip rings
-//     would need 122 KB, one block an SM): the wide
-//     path, a chain of per-pixel kernels that read the radius at run time
+// (tiled(), wide_strip()):
+//   - kernel 1: the tile for R = 0, 1, 2, the strip for R =
+//     STRIP_MIN_RADIUS .. STRIP_MAX_RADIUS; kernel 2: the tile for R = 0
+//     .. 3, the strip for R = ENERGY_STRIP_MIN_RADIUS ..
+//     ENERGY_STRIP_MAX_RADIUS; each instantiated per R. At R = 0 (window
+//     1) the window is the pixel itself, and the tiles take it as they
+//     take R = 1, 2.
+//   - R = 8 .. WIDE_MAX_RADIUS (windows 17-49), both kernels: the wide
+//     strip, sweep_wide_kernel, one compiled kernel per form and plane
+//     type that reads R at run time. At R = 8 kernel 1's instantiated
+//     strip would need 122 KB, one block an SM; the wide strip's columns
+//     are narrower (WIDE_STRIP_COLS = 32) and its geometry (wide_geo) is
+//     computed from R on the host and in the block: 71 KB for kernel 1 at
+//     R = 8, two blocks an SM at its 128 registers (three by shared
+//     memory), two up to R = 12, one from R = 14 to its reach at R = 24
+//     (222 KB); kernel 2's form 32-73 KB, four blocks an SM at R = 8-16
+//     and three past.
+//     It walks a column strip as sweep_grad_strip_kernel does (cp.async
+//     of a step's planes one step ahead, a0/a1 and coefficient-map rings),
+//     with the taps between zeros in shared memory so that a window pass
+//     needs no test on the tap index. One launch and the reduce; no
+//     scratch buffer. Replacing the per-pixel chain took kernel 1 from
+//     0.64 to 0.46 ms and kernel 2 from 0.32 to 0.16 ms at window 17,
+//     1024^2 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+//   - past WIDE_MAX_RADIUS: the per-pixel chain, kernels that read the
+//     radius at run time
 //     and keep their intermediates (a0 and a1, the vertical window sums,
 //     the SSIM coefficient maps, the curvature, the per-pixel SSIM energy
 //     and gradient) in a scratch buffer in device memory that the wrapper
@@ -156,14 +175,14 @@
 //     warps on the rows within 2R of the owned ones, the vertical window
 //     sums of the five statistics within R, the horizontal sums with the
 //     SSIM map and its coefficient maps, the transposed sums and the chain
-//     through dw; then one kernel per tile of WIDE_TILE_ROWS x
-//     WIDE_TILE_COLS owned pixels for the TPS, UI and TC terms, the
+//     through dw; then one kernel per tile of CHAIN_TILE_ROWS x
+//     CHAIN_TILE_COLS owned pixels for the TPS, UI and TC terms, the
 //     preconditioner and the tile's energy partials. Every sum keeps the
 //     order of the instantiated kernels per pixel (taps t = 0..K-1,
 //     vertical before horizontal), and no value depends on where a block
 //     starts, so its row shards equal the whole frame's rows bit for bit
 //     too. Each tap of each window sum is a load through the caches rather
-//     than from shared memory: a simple path for rare windows.
+//     than from shared memory: a simple path for windows past 49.
 //
 // The bf16 form (MorphParams.pack_dtype = "bfloat16"; the reference's bf16
 // pack, pallas/sweep.py:86-107, whose kernels upcast every read of the
@@ -252,10 +271,20 @@ constexpr int ENERGY_STRIP_ROWS = 16;
 constexpr int ENERGY_STRIP_WARPS = 4;
 constexpr int ENERGY_STRIP_MIN_RADIUS = 4;
 constexpr int ENERGY_STRIP_MAX_RADIUS = 7;
-// The wide path takes the radii past the instantiated kernels, with one
-// partials set per WIDE_TILE_ROWS x WIDE_TILE_COLS owned pixels.
-constexpr int WIDE_TILE_ROWS = 8;
-constexpr int WIDE_TILE_COLS = 32;
+// The wide strip (sweep_wide_kernel) takes R = 8 .. WIDE_MAX_RADIUS, the
+// radius read at run time: a block owns WIDE_STRIP_ROWS (the energy form
+// WIDE_ENERGY_STRIP_ROWS) x WIDE_STRIP_COLS pixels and walks down them
+// WIDE_STEP_ROWS rows a step. WIDE_MAX_RADIUS is the largest R whose
+// block fits an SM (wide_fits).
+constexpr int WIDE_STRIP_ROWS = 128;
+constexpr int WIDE_ENERGY_STRIP_ROWS = 64;
+constexpr int WIDE_STRIP_COLS = 32;
+constexpr int WIDE_STEP_ROWS = 8;
+constexpr int WIDE_MAX_RADIUS = 24;
+// The per-pixel chain takes the radii past WIDE_MAX_RADIUS, with one
+// partials set per CHAIN_TILE_ROWS x CHAIN_TILE_COLS owned pixels.
+constexpr int CHAIN_TILE_ROWS = 8;
+constexpr int CHAIN_TILE_COLS = 32;
 // The gradient kernel from STRIP_MIN_RADIUS to STRIP_MAX_RADIUS
 // (sweep_grad_strip_kernel): a block owns STRIP_ROWS x STRIP_COLS pixels
 // and walks down them STEP_ROWS rows at a time; R = 1, 2 keep the tile of
@@ -286,7 +315,7 @@ static_assert(ENERGY_STRIP_MIN_RADIUS == 4 && (32 - ENERGY_TILE_COLS) / 2 == ENE
 // (ESEG rows) and the planes' ring (EDEPTH rows of 6 planes), 32 lanes each.
 template <int R>
 struct EGeo {
-  static_assert(R >= 1 && R < ENERGY_STRIP_MIN_RADIUS, "the tile's radii");
+  static_assert(R >= 0 && R < ENERGY_STRIP_MIN_RADIUS, "the tile's radii");
   static constexpr int EH = (32 - ENERGY_TILE_COLS) / 2;  // lanes left of the owned columns
   static constexpr int COLS = ENERGY_TILE_COLS;           // owned columns of a warp
   static constexpr int NU = ESEG + 2 * R;  // rows a warp walks per channel
@@ -410,6 +439,63 @@ struct SGeo {
   // two blocks an SM: 228 KB less 1 KB reserved per block
   static_assert(2 * (BYTES + 1024) <= 228 * 1024, "two strip blocks share an SM");
 };
+
+// Geometry and shared-memory layout (in floats) of the wide strip at radius
+// R, for the gradient or the energy. The gradient needs the statistics at
+// a halo HS = R around the owned pixels and so the linearized warps at HA
+// = 2R; the energy needs the statistics at the owned pixels only (HS = 0,
+// HA = R). Columns: the warps' ring starts at x0 - HA (AWP columns), the
+// statistics' and coefficient maps' at x0 - HS (SWP columns); rows: walk
+// row u is the arrays' row y0 - HA + u, a step stages WIDE_STEP_ROWS of
+// them (the six planes, v and v_lin, from column x0 - AO, a multiple of 4)
+// and their a0, a1 go into a ring of DR rows, the coefficient maps of the
+// rows R above into a second ring of DR rows (gradient only).
+constexpr int WIDE_TPAD = 4;  // zero taps each side of the window's K in shared memory
+struct WGeo {
+  int K, HS, HA, SW, SWP, AWP, AO, SAW, NST, NCH, DR, NQ;
+  int tz, ny, nx, stage, a, q, x, floats;  // offsets of the regions, and the total
+};
+__host__ __device__ constexpr WGeo wide_geo(int R, bool with_grad) {
+  constexpr int SC = WIDE_STRIP_COLS, RB = WIDE_STEP_ROWS;
+  constexpr int NV = (RB + 4) * (SC + 4), NM = (RB + 2) * (SC + 2);  // the last stage's v tile and TPS maps
+  WGeo g{};
+  g.K = 2 * R + 1;
+  g.HS = with_grad ? R : 0;
+  g.HA = g.HS + R;
+  g.SW = SC + 2 * g.HS;
+  g.SWP = round4(g.SW);
+  g.AWP = round4(g.SWP + 2 * R);  // a horizontal window of the last statistics column stays in the row
+  g.AO = round4(g.HA);
+  g.SAW = round4(g.AWP + g.AO - g.HA);
+  g.NST = RB * g.SAW;
+  g.NCH = g.NST / 4;
+  g.DR = RB + 2 * R;
+  g.NQ = with_grad ? 6 : 0;  // q0, q1, qv, qc and the curvature's cy, cx
+  g.tz = 0;
+  g.ny = g.tz + round4(g.K + 2 * WIDE_TPAD);
+  g.nx = g.ny + round4((with_grad ? WIDE_STRIP_ROWS : WIDE_ENERGY_STRIP_ROWS) + 2 * g.HS);
+  g.stage = g.nx + g.SWP;
+  g.a = g.stage + 10 * g.NST;  // w0, w1, dw0 y, x, dw1 y, x; v and v_lin, (y, x) pairs
+  g.q = g.a + 2 * g.DR * g.AWP;
+  g.x = g.q + g.NQ * g.DR * g.SWP;
+  // a step's vertical sums (5 statistics, or NQ transposed), the last
+  // stage's v tile (and TPS maps), the block reduction
+  const int xs = cmax(cmax(5 * RB * g.AWP, g.NQ * RB * g.SWP), cmax(2 * NV + (with_grad ? 6 * NM : 0), 4 * NT));
+  g.floats = g.x + round4(xs);
+  return g;
+}
+// whether the wide strip's block at radius R fits an SM (227 KB of shared
+// memory a block)
+__host__ __device__ constexpr bool wide_fits(int R, bool with_grad) {
+  return sizeof(float) * (size_t)wide_geo(R, with_grad).floats <= 232448;
+}
+static_assert(wide_fits(WIDE_MAX_RADIUS, true) && !wide_fits(WIDE_MAX_RADIUS + 1, true) &&
+                  wide_fits(WIDE_MAX_RADIUS, false),
+              "WIDE_MAX_RADIUS is the largest radius whose gradient block fits");
+static_assert(WIDE_STRIP_COLS * WIDE_STEP_ROWS == NT && WIDE_STEP_ROWS % 2 == 0 && WIDE_STRIP_COLS % 4 == 0,
+              "a thread owns one pixel of a step; a step moves an even count of rows");
+// two gradient blocks an SM at R = 8: 228 KB less 1 KB reserved per block
+static_assert(2 * (sizeof(float) * wide_geo(8, true).floats + 1024) <= 228 * 1024, "two wide blocks share an SM");
 
 __device__ __forceinline__ float tap_sum_range(const float* taps, int radius, int center, int n) {
   // sum of the window taps that land inside [0, n) around `center`
@@ -1990,8 +2076,8 @@ sweep_reduce_kernel(const float* __restrict__ partials, int n_blocks, float* __r
 }
 
 // ---------------------------------------------------------------------------
-// The wide path: the radii without an instantiated kernel (R = 0 and
-// R > 7), the radius read at run time. Each kernel gives one
+// The per-pixel chain: the radii past the wide strip's reach (R >
+// WIDE_MAX_RADIUS), the radius read at run time. Each kernel gives one
 // thread one pixel of a band of rows, 32 columns x 8 rows a block; the
 // bands, in rows of the arrays:
 //   A band, rows [own0 - 2R, own0 + nown + 2R): a0 and a1 of one channel;
@@ -2003,10 +2089,10 @@ sweep_reduce_kernel(const float* __restrict__ partials, int n_blocks, float* __r
 // kernels' zero-filled tiles do.
 // ---------------------------------------------------------------------------
 
-constexpr int WT = WIDE_TILE_ROWS * WIDE_TILE_COLS;  // threads per wide block
-static_assert(WIDE_TILE_COLS == 32 && WT == 256, "a wide block is 8 warps, one row of 32 columns each");
+constexpr int WT = CHAIN_TILE_ROWS * CHAIN_TILE_COLS;  // threads per chain block
+static_assert(CHAIN_TILE_COLS == 32 && WT == 256, "a chain block is 8 warps, one row of 32 columns each");
 
-// Offsets (floats) of the wide path's intermediates in its scratch buffer.
+// Offsets (floats) of the chain's intermediates in its scratch buffer.
 struct WideLayout {
   long long na, ns;                      // rows of the A and S bands
   long long a, v, es, q, curv, gs, total;  // a0 a1 (2 na), V (5 ns; later 4 or 2 owned-row planes),
@@ -2046,8 +2132,8 @@ wide_warps_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin
                   const float* __restrict__ v, float* __restrict__ A, int c, VmSweepScalars s) {
   const int R = s.radius, w = s.w, C = s.C;
   const long long na = s.nown + 4LL * R;
-  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
-  const int i = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  const int x = blockIdx.x * CHAIN_TILE_COLS + threadIdx.x;
+  const int i = blockIdx.y * CHAIN_TILE_ROWS + threadIdx.y;
   if (x >= w || i >= na) return;
   const int y = s.own0 - 2 * R + i;
   float a = 0.0f, b = 0.0f;
@@ -2068,8 +2154,8 @@ __global__ void __launch_bounds__(WT)
 wide_stats_vertical_kernel(const float* __restrict__ A, float* __restrict__ V, VmSweepScalars s) {
   const int R = s.radius, w = s.w;
   const long long na = s.nown + 4LL * R, ns = s.nown + 2LL * R;
-  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
-  const int i = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  const int x = blockIdx.x * CHAIN_TILE_COLS + threadIdx.x;
+  const int i = blockIdx.y * CHAIN_TILE_ROWS + threadIdx.y;
   if (x >= w || i >= ns) return;
   const float* a0 = A + x;
   const float* a1 = A + (size_t)na * w + x;
@@ -2097,8 +2183,8 @@ wide_ssim_kernel(const PT* __restrict__ planes, const float* __restrict__ V, flo
                  float* __restrict__ curv, float* __restrict__ es, int c, VmSweepScalars s) {
   const int R = s.radius, w = s.w, C = s.C;
   const long long ns = s.nown + 2LL * R;
-  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
-  const int i = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  const int x = blockIdx.x * CHAIN_TILE_COLS + threadIdx.x;
+  const int i = blockIdx.y * CHAIN_TILE_ROWS + threadIdx.y;
   if (x >= w || i >= ns) return;
   const int y = s.own0 - R + i;
   float st[5];
@@ -2144,8 +2230,8 @@ __global__ void __launch_bounds__(WT)
 wide_vertical_kernel(const float* __restrict__ in, float* __restrict__ out, int nq, VmSweepScalars s) {
   const int R = s.radius, w = s.w, nown = s.nown;
   const long long ns = s.nown + 2LL * R;
-  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
-  const int j = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  const int x = blockIdx.x * CHAIN_TILE_COLS + threadIdx.x;
+  const int j = blockIdx.y * CHAIN_TILE_ROWS + threadIdx.y;
   if (x >= w || j >= nown) return;
   for (int q = 0; q < nq; ++q) {
     const float* col = in + (size_t)q * ns * w + x;
@@ -2163,8 +2249,8 @@ wide_chain_kernel(const PT* __restrict__ planes, const float* __restrict__ A,
                   const float* __restrict__ VQ, float* __restrict__ gs, int c, VmSweepScalars s) {
   const int R = s.radius, w = s.w, C = s.C, nown = s.nown;
   const long long na = s.nown + 4LL * R;
-  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
-  const int j = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  const int x = blockIdx.x * CHAIN_TILE_COLS + threadIdx.x;
+  const int j = blockIdx.y * CHAIN_TILE_ROWS + threadIdx.y;
   if (x >= w || j >= nown) return;
   float tq[4];
 #pragma unroll
@@ -2180,7 +2266,7 @@ wide_chain_kernel(const PT* __restrict__ planes, const float* __restrict__ A,
   gs[plane + o] = (c == 0 ? 0.0f : gs[plane + o]) + (-g0 * d0x + g1 * d1x);
 }
 
-// one tile of WIDE_TILE_ROWS x WIDE_TILE_COLS owned pixels: the TPS, UI and
+// one tile of CHAIN_TILE_ROWS x CHAIN_TILE_COLS owned pixels: the TPS, UI and
 // TC terms; with the gradient also the TPS adjoint, the outputs and the
 // preconditioner (the curvature's horizontal sums from vc); the tile's
 // energy partials by a fixed-order tree
@@ -2193,9 +2279,9 @@ wide_final_kernel(const float* __restrict__ v, const PT* __restrict__ ui_w,
                   float* __restrict__ grad, float* __restrict__ precond,
                   float* __restrict__ partials, VmSweepScalars s) {
   const int R = s.radius, w = s.w, h = s.h, nown = s.nown;
-  const int tid = threadIdx.y * WIDE_TILE_COLS + threadIdx.x;
-  const int x = blockIdx.x * WIDE_TILE_COLS + threadIdx.x;
-  const int j = blockIdx.y * WIDE_TILE_ROWS + threadIdx.y;
+  const int tid = threadIdx.y * CHAIN_TILE_COLS + threadIdx.x;
+  const int x = blockIdx.x * CHAIN_TILE_COLS + threadIdx.x;
+  const int j = blockIdx.y * CHAIN_TILE_ROWS + threadIdx.y;
   float e_sim = 0.f, e_tps = 0.f, e_ui = 0.f, e_tc = 0.f;
   if (x < w && j < nown) {
     const int y = s.own0 + j;
@@ -2259,14 +2345,470 @@ wide_final_kernel(const float* __restrict__ v, const PT* __restrict__ ui_w,
   if (tid < 4) partials[4 * (blockIdx.y * gridDim.x + blockIdx.x) + tid] = sred[tid][0];
 }
 
-// Whether radius R has an instantiated kernel (the gradient's tile or
-// strip, the energy kernel's tile or strip) rather than the wide path.
-bool tiled(bool with_grad, int R) {
-  return R >= 1 && R <= (with_grad ? STRIP_MAX_RADIUS : ENERGY_STRIP_MAX_RADIUS);
+// Kernels 1 (WITH_GRAD) and 2 from R = 8 to WIDE_MAX_RADIUS, the radius
+// read at run time: one strip of WIDE_STRIP_ROWS (WIDE_ENERGY_STRIP_ROWS)
+// x WIDE_STRIP_COLS owned pixels, walked WIDE_STEP_ROWS rows a step per
+// channel as
+// sweep_grad_strip_kernel walks its strip (the geometry is wide_geo's). The
+// taps sit in shared memory between WIDE_TPAD zeros each side, so a window
+// pass that gives P neighbouring outputs from the P + 2R inputs they share
+// reads tap u - j for input u and output j without a test: the zero taps
+// add exact zeros (every ring and map slot holds a finite value, zeroed
+// before the walk), and each output keeps its sum over t = 0..K-1 in
+// order. A thread owns one pixel of a step. The energy form (WITH_GRAD
+// false) stops after the SSIM: no coefficient maps, transposed sums, chain
+// or curvature, so its statistics need no halo.
+template <bool WITH_GRAD, class PT>
+__global__ void __launch_bounds__(NT, WITH_GRAD ? 2 : 4)
+sweep_wide_kernel(const PT* __restrict__ planes, const float* __restrict__ v_lin,
+                  const float* __restrict__ v, const PT* __restrict__ ui_w,
+                  const PT* __restrict__ ui_v, const PT* __restrict__ tc_w,
+                  const PT* __restrict__ tc_v, float* __restrict__ grad,
+                  float* __restrict__ precond, float* __restrict__ partials, VmSweepScalars s) {
+  constexpr int SC = WIDE_STRIP_COLS, RB = WIDE_STEP_ROWS, P = 2;  // P: outputs of a window pass's item
+  constexpr int ROWS = WITH_GRAD ? WIDE_STRIP_ROWS : WIDE_ENERGY_STRIP_ROWS;
+  constexpr int VX = SC + 4, NV = (RB + 4) * VX, MX = SC + 2, NM = (RB + 2) * MX;
+  const int R = s.radius;
+  const WGeo G = wide_geo(R, WITH_GRAD);
+  const int K = G.K, HS = G.HS, HA = G.HA, SW = G.SW, SWP = G.SWP, AWP = G.AWP, DR = G.DR, NST = G.NST,
+            SAW = G.SAW;
+
+  extern __shared__ float4 wsmem4[];
+  float* const sm = reinterpret_cast<float*>(wsmem4);
+  float* const sTap = sm + G.tz + WIDE_TPAD;  // sTap[t] = taps[t], zero for t in [-WIDE_TPAD, 0) and past K
+  float* const sNy = sm + G.ny;               // row tap sums from row y0 - HS
+  float* const sNx = sm + G.nx;               // column tap sums from column x0 - HS
+  float* const sStage = sm + G.stage;         // 10 planes of NST: the step's inputs
+  float* const sA = sm + G.a;                 // a0, a1 ring (DR rows of AWP each)
+  float* const sQ = sm + G.q;                 // coefficient ring (6 x DR rows of SWP)
+  float* const sX = sm + G.x;                 // a step's vertical sums; v tile and maps; the reduction
+
+  const int h = s.h, w = s.w, C = s.C;
+  const size_t hw = (size_t)h * w;
+  const int tid = threadIdx.x;
+  const int y0 = s.own0 + blockIdx.y * ROWS, x0 = blockIdx.x * SC;
+  const int nrow = min(ROWS, s.own0 + s.nown - y0);  // owned rows of this strip
+  const int ya = y0 - HA;                                        // the arrays' row of walk row 0
+  const int nstep = cdiv(nrow + 2 * HA, RB);
+  const int ro = tid / SC, jo = tid % SC;  // this thread's owned pixel of a step: row ro, column jo
+  const unsigned hb = (unsigned)hw & 1u;   // bf16: an odd plane flips its elements' parity
+
+  // every slot zero (rings and maps read before a step writes them feed
+  // only zero taps), then the taps and the tap-sum tables of the in-image
+  // window: 1/n of a statistics pixel is 1 / (sNy[row] sNx[column])
+  for (int i = tid; i < G.floats / 4; i += NT) wsmem4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  for (int i = tid; i < K; i += NT) sTap[i] = s.taps[i];
+  for (int i = tid; i < ROWS + 2 * HS + SW; i += NT) {
+    if (i < ROWS + 2 * HS) {
+      const int y = y0 - HS + i;
+      if (i < nrow + 2 * HS && row_in(s, y)) sNy[i] = tap_sum_range(s.taps, R, y + s.row0, s.gh);
+    } else {
+      const int j = i - (ROWS + 2 * HS), x = x0 - HS + j;
+      if (x >= 0 && x < w) sNx[j] = tap_sum_range(s.taps, R, x, w);
+    }
+  }
+
+  // a step's staging: chunks of 4 neighbouring staged columns of one row,
+  // the first at column x0 - AO + 4 (ch % (SAW / 4)), thread tid holding
+  // chunks tid, tid + NT, ... (sweep_grad_strip_kernel's copies: 16-byte,
+  // or 8-byte in the bf16 form, where the width and the pointers allow)
+  const bool vec = (w & 3) == 0 &&
+                   (std::is_same_v<PT, float> ? (((size_t)planes | (size_t)v | (size_t)v_lin) & 15) == 0
+                                              : (((size_t)planes & 7) | (((size_t)v | (size_t)v_lin) & 15)) == 0);
+  auto issue = [&](int c, int i) {
+    const PT* const src[6] = {planes + (size_t)c * hw, planes + (size_t)(C + c) * hw,
+                              planes + (size_t)(2 * C + 2 * c) * hw, planes + (size_t)(2 * C + 2 * c + 1) * hw,
+                              planes + (size_t)(4 * C + 2 * c) * hw, planes + (size_t)(4 * C + 2 * c + 1) * hw};
+    for (int ch = tid; ch < G.NCH; ch += NT) {
+      const int ch_row = ch / (SAW / 4), ch_col = 4 * (ch % (SAW / 4));
+      const int y = ya + i * RB + ch_row, x = x0 - G.AO + ch_col;
+      const bool row_ok = row_in(s, y);
+      const int e = ch_row * SAW + ch_col;  // the chunk's first staged pixel
+      float* const pv = sStage + 6 * NST + 2 * e;
+      float* const pl = sStage + 8 * NST + 2 * e;
+      if (vec) {
+        const bool in = row_ok && x >= 0 && x < w;
+        const size_t p = in ? (size_t)y * w + x : 0;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          if constexpr (std::is_same_v<PT, float>) cp_async16(sStage + k * NST + e, src[k] + p, in);
+          else cp_async8(sStage + k * NST + e, src[k] + p, in);
+        }
+        cp_async16(pv, v + 2 * p, in);
+        cp_async16(pv + 4, v + 2 * p + 4, in);
+        cp_async16(pl, v_lin + 2 * p, in);
+        cp_async16(pl + 4, v_lin + 2 * p + 4, in);
+      } else {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const bool in = row_ok && x + m >= 0 && x + m < w;
+          const size_t p = in ? (size_t)y * w + x + m : 0;
+#pragma unroll
+          for (int k = 0; k < 6; ++k) {
+            if constexpr (std::is_same_v<PT, float>) cp_async4(sStage + k * NST + e + m, src[k] + p, in);
+            else cp_async4(sStage + k * NST + e + m, bf16_word(src[k] + p), in);
+          }
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            cp_async4(pv + 2 * m + k, v + 2 * p + k, in);
+            cp_async4(pl + 2 * m + k, v_lin + 2 * p + k, in);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  __syncthreads();  // the zeros are in before any copy lands
+  issue(0, 0);
+  // dw0 y, dw0 x, dw1 y, dw1 x (k = 0..3) of channel c at pixel p
+  auto dw_at = [&](int c, int k, size_t p) {
+    return ldg(planes + (size_t)((k < 2 ? 2 : 4) * C + 2 * c + (k & 1)) * hw + p);
+  };
+
+  float e_sim = 0.0f, e_tps = 0.0f, e_ui = 0.0f, e_tc = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    for (int i = 0; i < nstep; ++i) {
+      const int u0 = i * RB;  // walk row of the step's first staged row
+      // the step's statistics rows are walk rows u0 - R + r and its output
+      // rows u0 - HA + r, r in [0, RB); the strip needs statistics rows
+      // [R, R + nrow + 2 HS) and output rows [HA, HA + nrow)
+      const int s_lo = max(0, 2 * R - u0), o_lo = max(0, 2 * HA - u0), r_hi = min(RB, nrow + 2 * HA - u0);
+      // 1. a0 = w0 - dw0.dv, a1 = w1 + dw1.dv into the ring (zero outside the
+      // image); a thread reads back only its own chunks' copies
+      cp_async_wait_all();
+      for (int ch = tid; ch < G.NCH; ch += NT) {
+        const int ch_row = ch / (SAW / 4), ch_col = 4 * (ch % (SAW / 4));
+        const int e = ch_row * SAW + ch_col, slot = ((u0 + ch_row) % DR) * AWP;
+        // bf16: the parity of the chunk's element 0 in each plane, from its
+        // row's y w (the same every step: a step moves RB rows, an even
+        // count; x is a multiple of 4) and the plane's offset
+        const unsigned pr = (unsigned)(ya + ch_row) & (unsigned)w & 1u;
+        const unsigned s0 = half_sel(pr ^ ((unsigned)c & hb)), s1 = half_sel(pr ^ ((unsigned)(C + c) & hb)),
+                       sy = half_sel(pr), sx = half_sel(pr ^ hb);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int j = ch_col + m - (G.AO - HA);  // the ring's column
+          if (j < 0 || j >= AWP) continue;
+          const float* const sv = sStage + 6 * NST + 2 * (e + m);
+          const float dvy = sv[0] - sv[2 * NST], dvx = sv[1] - sv[2 * NST + 1];
+          if constexpr (std::is_same_v<PT, float>) {
+            const float* const st = sStage + e + m;
+            sA[slot + j] = st[0] - (st[2 * NST] * dvy + st[3 * NST] * dvx);
+            sA[DR * AWP + slot + j] = st[NST] + (st[4 * NST] * dvy + st[5 * NST] * dvx);
+          } else {
+            const float* const st = sStage + e + (vec ? m >> 1 : m);
+            const unsigned o = (m & 1) ? SEL_FLIP : 0u;  // element m's parity is element 0's, flipped on odd m
+            sA[slot + j] = slot_value<PT>(st[0], s0 ^ o) -
+                           (slot_value<PT>(st[2 * NST], sy ^ o) * dvy + slot_value<PT>(st[3 * NST], sx ^ o) * dvx);
+            sA[DR * AWP + slot + j] = slot_value<PT>(st[NST], s1 ^ o) +
+                                      (slot_value<PT>(st[4 * NST], sy ^ o) * dvy + slot_value<PT>(st[5 * NST], sx ^ o) * dvx);
+          }
+        }
+      }
+      {
+        const bool next_c = i + 1 == nstep;  // the next step is the next channel's first
+        if (!next_c || c + 1 < C) issue(next_c ? c + 1 : c, next_c ? 0 : i + 1);
+      }
+      __syncthreads();
+
+      // 2a. vertical window sums of a0, a1, a0^2, a1^2, a0 a1 at the step's
+      // statistics rows (walk rows u0 - R + r read ring rows u0 - 2R + r + t)
+      if (s_lo < r_hi) {
+        for (int it = tid; it < (RB / P) * AWP; it += NT) {
+          const int r0 = (it / AWP) * P, j = it % AWP;
+          if (r0 + P <= s_lo || r0 >= r_hi) continue;
+          float acc[P][5];
+#pragma unroll
+          for (int jj = 0; jj < P; ++jj)
+#pragma unroll
+            for (int q = 0; q < 5; ++q) acc[jj][q] = 0.0f;
+          int slot = (u0 - 2 * R + r0 + 2 * DR) % DR;  // ring row of walk row u0 - 2R + r0
+          for (int uu = 0; uu < P + 2 * R; ++uu, slot = slot + 1 == DR ? 0 : slot + 1) {
+            const float a = sA[slot * AWP + j], b = sA[(DR + slot) * AWP + j];
+            const float aa = a * a, bb = b * b, ab = a * b;
+#pragma unroll
+            for (int jj = 0; jj < P; ++jj) {
+              const float tp = sTap[uu - jj];
+              acc[jj][0] += tp * a;
+              acc[jj][1] += tp * b;
+              acc[jj][2] += tp * aa;
+              acc[jj][3] += tp * bb;
+              acc[jj][4] += tp * ab;
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < P; ++jj)
+#pragma unroll
+            for (int q = 0; q < 5; ++q) sX[(q * RB + r0 + jj) * AWP + j] = acc[jj][q];
+        }
+      }
+      __syncthreads();
+
+      // 2b. horizontal sums -> statistics and SSIM of the statistics rows;
+      // with the gradient also the coefficient maps and the curvature terms
+      // into their ring; P neighbouring pixels an item
+      if (s_lo < r_hi) {
+        for (int it = tid; it < (r_hi - s_lo) * (SWP / P); it += NT) {
+          const int r = s_lo + it / (SWP / P), c0 = P * (it % (SWP / P));
+          const int q = u0 - R + r, y = ya + q;  // walk row and array row
+          const bool row_ok = row_in(s, y);
+          float dw[P][4];  // the gradient's dw of the P pixels, in flight during the window sums
+          if constexpr (WITH_GRAD) {
+#pragma unroll
+            for (int j = 0; j < P; ++j) {
+              const int x = x0 - HS + c0 + j;
+              const size_t p = row_ok && x >= 0 && x < w ? (size_t)y * w + x : 0;
+#pragma unroll
+              for (int k = 0; k < 4; ++k) dw[j][k] = dw_at(c, k, p);
+            }
+          }
+          float st[P][5];
+#pragma unroll
+          for (int j = 0; j < P; ++j)
+#pragma unroll
+            for (int qq = 0; qq < 5; ++qq) st[j][qq] = 0.0f;
+          const float* const xr = sX + r * AWP + c0;
+          for (int u = 0; u < P + 2 * R; ++u) {
+            float xv[5];
+#pragma unroll
+            for (int qq = 0; qq < 5; ++qq) xv[qq] = xr[qq * RB * AWP + u];
+#pragma unroll
+            for (int j = 0; j < P; ++j) {
+              const float tp = sTap[u - j];
+#pragma unroll
+              for (int qq = 0; qq < 5; ++qq) st[j][qq] += tp * xv[qq];
+            }
+          }
+          float out[6][P];
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            const int js = c0 + j, x = x0 - HS + js;
+#pragma unroll
+            for (int qq = 0; qq < 6; ++qq) out[qq][j] = 0.0f;
+            if (row_ok && js < SW && x >= 0 && x < w) {
+              const float inv_n = pack_round<PT>(1.0f / (sNy[q - R] * sNx[js]));
+              const SsimPixel sp = ssim_pixel(st[j], inv_n, s);
+              if (q >= HA && q < HA + nrow && js >= HS && js < HS + SC) e_sim += 1.0f - sp.ssim;
+              if constexpr (WITH_GRAD) {
+                const SsimCoeffs k = ssim_coeffs(sp, inv_n, s);
+                const float d0y = dw[j][0], d0x = dw[j][1], d1y = dw[j][2], d1x = dw[j][3];
+                out[0][j] = k.q0;
+                out[1][j] = k.q1;
+                out[2][j] = k.qv;
+                out[3][j] = k.qc;
+                out[4][j] = (d0y * d0y + d1y * d1y) * k.ib2;
+                out[5][j] = (d0x * d0x + d1x * d1x) * k.ib2;
+              }
+            }
+          }
+          if constexpr (WITH_GRAD) {
+#pragma unroll
+            for (int qq = 0; qq < 6; ++qq)
+#pragma unroll
+              for (int j = 0; j < P; ++j) sQ[(qq * DR + q % DR) * SWP + c0 + j] = out[qq][j];
+          }
+        }
+      }
+      __syncthreads();
+
+      const int o = u0 - HA + ro, y = ya + o;  // walk row and array row of this thread's pixel
+      const bool mine = o_lo <= ro && ro < r_hi;
+      const bool last = c + 1 == C && o_lo < r_hi;
+      const int x = x0 + jo;
+      const bool own = mine && x < w;
+      const size_t p = own ? (size_t)y * w + x : 0, qpix = own ? (size_t)(y - s.own0) * w + x : 0;
+      float gs[2] = {0.0f, 0.0f}, pc[2] = {0.0f, 0.0f};  // the SSIM gradient and the curvature's sums, (y, x)
+      if constexpr (WITH_GRAD) {
+        // 3a. vertical transposed window sums at the step's output rows (walk
+        // rows u0 - 2R + r read coefficient rows u0 - 3R + r + t; into sX: the
+        // statistics' sums are consumed)
+        if (o_lo < r_hi) {
+          for (int it = tid; it < (RB / P) * SWP; it += NT) {
+            const int r0 = (it / SWP) * P, j = it % SWP;
+            if (r0 + P <= o_lo || r0 >= r_hi) continue;
+            float acc[P][6];
+#pragma unroll
+            for (int jj = 0; jj < P; ++jj)
+#pragma unroll
+              for (int qq = 0; qq < 6; ++qq) acc[jj][qq] = 0.0f;
+            int slot = (u0 - 3 * R + r0 + 2 * DR) % DR;  // ring row of walk row u0 - 3R + r0
+            for (int uu = 0; uu < P + 2 * R; ++uu, slot = slot + 1 == DR ? 0 : slot + 1) {
+              float xq[6];
+#pragma unroll
+              for (int qq = 0; qq < 6; ++qq) xq[qq] = sQ[(qq * DR + slot) * SWP + j];
+#pragma unroll
+              for (int jj = 0; jj < P; ++jj) {
+                const float tp = sTap[uu - jj];
+#pragma unroll
+                for (int qq = 0; qq < 6; ++qq) acc[jj][qq] += tp * xq[qq];
+              }
+            }
+#pragma unroll
+            for (int jj = 0; jj < P; ++jj)
+#pragma unroll
+              for (int qq = 0; qq < 6; ++qq) sX[(qq * RB + r0 + jj) * SWP + j] = acc[jj][qq];
+          }
+        }
+        // this thread's pixel of 3b: its a0, a1, read before the barrier (the
+        // next step's stage 1 writes their ring row with no barrier between),
+        // and its dw, in flight across it
+        float a0c = 0.0f, a1c = 0.0f, dw[4];
+        if (mine) {
+          const int a = (o % DR) * AWP + jo + HA;
+          a0c = sA[a];
+          a1c = sA[DR * AWP + a];
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dw[k] = dw_at(c, k, p);
+        __syncthreads();
+        // 3b. horizontal sums at the owned pixel; chain through dw0 / dw1; the
+        // SSIM gradient and the curvature's sums with the earlier channels'
+        if (own) {
+          float tq[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+          const float* const xr = sX + ro * SWP + jo;
+          for (int t = 0; t < K; ++t) {
+            const float tp = sTap[t];
+#pragma unroll
+            for (int qq = 0; qq < 6; ++qq) tq[qq] += tp * xr[qq * RB * SWP + t];
+          }
+          const float g0 = tq[0] + 2.0f * a0c * tq[2] + a1c * tq[3];
+          const float g1 = tq[1] + 2.0f * a1c * tq[2] + a0c * tq[3];
+          gs[0] = -g0 * dw[0] + g1 * dw[2];
+          gs[1] = -g0 * dw[1] + g1 * dw[3];
+          pc[0] = tq[4];
+          pc[1] = tq[5];
+          if (c > 0) {
+            const float2 g = reinterpret_cast<const float2*>(grad)[qpix];
+            const float2 pp = reinterpret_cast<const float2*>(precond)[qpix];
+            gs[0] = g.x + gs[0];
+            gs[1] = g.y + gs[1];
+            pc[0] = pp.x + pc[0];
+            pc[1] = pp.y + pc[1];
+          }
+          if (c + 1 < C) {
+            reinterpret_cast<float2*>(grad)[qpix] = make_float2(gs[0], gs[1]);
+            reinterpret_cast<float2*>(precond)[qpix] = make_float2(pc[0], pc[1]);
+          }
+        }
+      }
+      if (!last) continue;
+
+      // 4. last channel: the TPS maps of the output rows (with the gradient
+      // also a ring of 1 for the adjoint) from a tile of v (zero outside the
+      // arrays) in sX, the UI and TC terms, the outputs
+      float uw = 0.0f, tw = 0.0f, uiv[2] = {0.0f, 0.0f}, tcv[2] = {0.0f, 0.0f}, vt_r[cdiv(NV, NT)][2];
+      if (own) {
+        uw = ld(ui_w + qpix);
+        tw = ld(tc_w + qpix);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          uiv[k] = ld(ui_v + 2 * qpix + k);
+          tcv[k] = ld(tc_v + 2 * qpix + k);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < cdiv(NV, NT); ++u) {
+        const int e = tid + u * NT;
+        const int yy = ya + u0 - HA - 2 + e / VX, xx = x0 - 2 + e % VX;
+        const bool in = e < NV && yy >= 0 && yy < h && xx >= 0 && xx < w;
+        const size_t pv = in ? (size_t)yy * w + xx : 0;
+        vt_r[u][0] = in ? v[2 * pv] : 0.0f;
+        vt_r[u][1] = in ? v[2 * pv + 1] : 0.0f;
+      }
+      __syncthreads();  // the window sums in sX are consumed
+      float* const sVt = sX;          // v tile: rows y - 2 .., columns x0 - 2 ..
+      float* const sM = sX + 2 * NV;  // maps: rows y - 1 .., columns x0 - 1 ..
+#pragma unroll
+      for (int u = 0; u < cdiv(NV, NT); ++u) {
+        const int e = tid + u * NT;
+        if (e < NV) {
+          sVt[e] = vt_r[u][0];
+          sVt[NV + e] = vt_r[u][1];
+        }
+      }
+      __syncthreads();
+      if constexpr (WITH_GRAD) {
+        for (int e = tid; e < NM; e += NT) {
+          const int r = e / MX, cx = e % MX;
+          const int vi = (r + 1) * VX + cx + 1;
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const float* vt = sVt + k * NV + vi;
+            tps_maps_at([vt](int dy, int dx) { return vt[dy * VX + dx]; }, ya + u0 - HA - 1 + r, x0 - 1 + cx, s,
+                        sM[(3 * k) * NM + e], sM[(3 * k + 1) * NM + e], sM[(3 * k + 2) * NM + e]);
+          }
+        }
+        __syncthreads();
+      }
+      if (!own) continue;
+      float gk[2];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const float vk = sVt[kk * NV + (ro + 2) * VX + jo + 2];
+        const QuadDiff d = quad_terms(vk, uiv[kk], tcv[kk], uw, tw, e_ui, e_tc);
+        if constexpr (WITH_GRAD) {
+          const int m = (ro + 1) * MX + jo + 1;
+          const float* Mxx = sM + (3 * kk) * NM;
+          const float* Mxy = Mxx + NM;
+          const float* Myy = Mxy + NM;
+          const float vxx = Mxx[m], vxy = Mxy[m], vyy = Myy[m];
+          e_tps += tps_energy(vxx, vxy, vyy);
+          // self-adjoint stencils of the three maps (descent.py tps_adj_*)
+          const float adj_xx = Mxx[m - 1] - 2.0f * vxx + Mxx[m + 1];
+          const float adj_yy = Myy[m - MX] - 2.0f * vyy + Myy[m + MX];
+          const float adj_xy = 0.25f * (Mxy[m - MX - 1] - Mxy[m - MX + 1] - Mxy[m + MX - 1] + Mxy[m + MX + 1]);
+          const float g_tps = 2.0f * adj_xx + 4.0f * adj_xy + 2.0f * adj_yy;
+          gk[kk] = gs[kk] + s.lam_n * g_tps + s.gui_n * uw * d.ui + s.gtc_n * tw * d.tc;
+        } else {
+          const float* vt = sVt + kk * NV + (ro + 2) * VX + jo + 2;
+          float vxx, vxy, vyy;
+          tps_maps_at([vt](int dy, int dx) { return vt[dy * VX + dx]; }, y, x, s, vxx, vxy, vyy);
+          e_tps += tps_energy(vxx, vxy, vyy);
+        }
+      }
+      if constexpr (WITH_GRAD) {
+        const float p_rest = s.ptps + s.pquad_n * (s.gamma_ui * uw + s.beta_tc * tw);
+        reinterpret_cast<float2*>(grad)[qpix] = make_float2(gk[0], gk[1]);
+        reinterpret_cast<float2*>(precond)[qpix] =
+            make_float2(s.psim_n * pc[0] + p_rest + s.eps_n, s.psim_n * pc[1] + p_rest + s.eps_n);
+      }
+    }
+  }
+
+  // fixed-order tree over the block (in sX: its last readers are done)
+  __syncthreads();
+  float* const sred = sX;
+  sred[tid] = e_sim;
+  sred[NT + tid] = e_tps;
+  sred[2 * NT + tid] = e_ui;
+  sred[3 * NT + tid] = e_tc;
+  __syncthreads();
+  for (int stride = NT / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sred[q * NT + tid] += sred[q * NT + tid + stride];
+    }
+    __syncthreads();
+  }
+  if (tid < 4) partials[4 * (blockIdx.y * gridDim.x + blockIdx.x) + tid] = sred[tid * NT];
 }
 
+// Whether radius R has an instantiated kernel (the gradient's tile or
+// strip, the energy kernel's tile or strip; R = 0 takes the tiles) rather
+// than the wide strip or the per-pixel chain.
+bool tiled(bool with_grad, int R) {
+  return R >= 0 && R <= (with_grad ? STRIP_MAX_RADIUS : ENERGY_STRIP_MAX_RADIUS);
+}
+
+// Whether radius R runs the wide strip (sweep_wide_kernel): past the
+// instantiated radii, up to its reach.
+bool wide_strip(bool with_grad, int R) { return !tiled(with_grad, R) && R >= 0 && R <= WIDE_MAX_RADIUS; }
+
 dim3 tile_grid(bool with_grad, int w, int nown, int R) {
-  if (!tiled(with_grad, R)) return dim3(cdiv(w, WIDE_TILE_COLS), cdiv(nown, WIDE_TILE_ROWS));
+  if (wide_strip(with_grad, R))
+    return dim3(cdiv(w, WIDE_STRIP_COLS), cdiv(nown, with_grad ? WIDE_STRIP_ROWS : WIDE_ENERGY_STRIP_ROWS));
+  if (!tiled(with_grad, R)) return dim3(cdiv(w, CHAIN_TILE_COLS), cdiv(nown, CHAIN_TILE_ROWS));
   if (with_grad && R >= STRIP_MIN_RADIUS) return dim3(cdiv(w, STRIP_COLS), cdiv(nown, STRIP_ROWS));
   if (with_grad) return dim3(cdiv(w, TX), cdiv(nown, TY));
   if (R >= ENERGY_STRIP_MIN_RADIUS)
@@ -2294,20 +2836,36 @@ struct Instance {
   }
 };
 
-// Opt each instantiation in to its dynamic shared memory, once per device.
-template <int R, bool WITH_GRAD, class PT>
-cudaError_t allow_smem() {
+// Opt kernel fn in to `bytes` of dynamic shared memory, once per device
+// (a flag per Key).
+template <class Key>
+cudaError_t allow_smem_once(const void* fn, size_t bytes) {
   constexpr int MAX_DEVICES = 64;
   static bool done[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  using I = Instance<R, WITH_GRAD, PT>;
-  err = cudaFuncSetAttribute(I::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)I::bytes());
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return err;
 }
+
+// Each instantiation's dynamic shared memory.
+template <int R, bool WITH_GRAD, class PT>
+cudaError_t allow_smem() {
+  using I = Instance<R, WITH_GRAD, PT>;
+  return allow_smem_once<I>(I::fn(), I::bytes());
+}
+
+// The wide strip's dynamic shared memory: that of its reach, the most any
+// radius asks for.
+template <bool WITH_GRAD, class PT>
+struct WideStrip {
+  static const void* fn() { return (const void*)sweep_wide_kernel<WITH_GRAD, PT>; }
+  static size_t bytes(int R) { return sizeof(float) * (size_t)wide_geo(R, WITH_GRAD).floats; }
+  static cudaError_t allow() { return allow_smem_once<WideStrip>(fn(), bytes(WIDE_MAX_RADIUS)); }
+};
 
 // planes and the UI/TC maps are of the instantiation's plane type PT
 struct Args {
@@ -2356,17 +2914,34 @@ int launch(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The wide path: per channel its warps, statistics and SSIM (and, with the
-// gradient, the transposed sums and the chain), then the tiles' terms and
-// partials, then the reduction; all on `stream`, in order.
+// The wide strip at the launch's radius, then the reduction.
 template <bool WITH_GRAD, class PT>
-int launch_wide(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
+int launch_wide_strip(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
+  using W = WideStrip<WITH_GRAD, PT>;
+  const dim3 grid = tile_grid(WITH_GRAD, s.w, s.nown, s.radius);
+  if ((long long)grid.x * grid.y > a.n_partials) return (int)cudaErrorInvalidValue;
+  cudaError_t err = W::allow();
+  if (err != cudaSuccess) return (int)err;
+  const Typed<PT> t(a);
+  sweep_wide_kernel<WITH_GRAD, PT><<<grid, NT, W::bytes(s.radius), stream>>>(
+      t.planes, a.v_lin, a.v, t.ui_w, t.ui_v, t.tc_w, t.tc_v, a.grad, a.precond, a.partials, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sweep_reduce_kernel<<<1, RED, 0, stream>>>(a.partials, (int)(grid.x * grid.y), a.out, s);
+  return (int)cudaGetLastError();
+}
+
+// The per-pixel chain: per channel its warps, statistics and SSIM (and,
+// with the gradient, the transposed sums and the chain), then the tiles'
+// terms and partials, then the reduction; all on `stream`, in order.
+template <bool WITH_GRAD, class PT>
+int launch_chain(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
   const int R = s.radius;
   const dim3 grid = tile_grid(WITH_GRAD, s.w, s.nown, R);
   const WideLayout L = wide_layout(s.w, s.nown, R, WITH_GRAD);
   if ((long long)grid.x * grid.y > a.n_partials || a.n_scratch < L.total) return (int)cudaErrorInvalidValue;
-  const dim3 block(WIDE_TILE_COLS, WIDE_TILE_ROWS);
-  auto band = [&](long long rows) { return dim3(cdiv(s.w, WIDE_TILE_COLS), (unsigned)cdiv((int)rows, WIDE_TILE_ROWS)); };
+  const dim3 block(CHAIN_TILE_COLS, CHAIN_TILE_ROWS);
+  auto band = [&](long long rows) { return dim3(cdiv(s.w, CHAIN_TILE_COLS), (unsigned)cdiv((int)rows, CHAIN_TILE_ROWS)); };
   float* const A = a.scratch + L.a;
   float* const V = a.scratch + L.v;  // after each channel's SSIM: the transposed sums; at last the curvature's
   float* const es = a.scratch + L.es;
@@ -2395,12 +2970,13 @@ int launch_wide(const Args& a, const VmSweepScalars& s, cudaStream_t stream) {
 }
 
 // Returns f.template operator()<R>() for the instantiated radius R of the
-// gradient (WITH_GRAD) or the energy kernel, and wide() for any other
-// radius (the wide path's).
+// gradient (WITH_GRAD) or the energy kernel, and other() for any other
+// radius.
 template <bool WITH_GRAD, class F, class W>
-int at_radius(int R, const F& f, const W& wide) {
-  if (!tiled(WITH_GRAD, R)) return wide();
+int at_radius(int R, const F& f, const W& other) {
+  if (!tiled(WITH_GRAD, R)) return other();
   switch (R) {
+    case 0: return f.template operator()<0>();
     case 1: return f.template operator()<1>();
     case 2: return f.template operator()<2>();
     case 3: return f.template operator()<3>();
@@ -2412,7 +2988,7 @@ int at_radius(int R, const F& f, const W& wide) {
   return (int)cudaErrorInvalidValue;  // not reached
 }
 static_assert(STRIP_MAX_RADIUS == 7 && ENERGY_STRIP_MAX_RADIUS == 7,
-              "at_radius() instantiates R = 1 .. 7 of both kernels");
+              "at_radius() instantiates R = 0 .. 7 of both kernels");
 
 template <bool WITH_GRAD, class PT>
 struct LaunchAt {
@@ -2424,13 +3000,15 @@ struct LaunchAt {
 };
 
 // The launch for the window radius: an instantiated kernel where tiled(),
-// the wide path for any other R >= 0; PT is the planes' and maps' type.
+// the wide strip up to its reach, the per-pixel chain past it; PT is the
+// planes' and maps' type. A failed launch returns its error.
 template <bool WITH_GRAD, class PT>
 int dispatch(const Args& a, const VmSweepScalars* s, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (s->radius < 0) return (int)cudaErrorInvalidValue;
+  if (wide_strip(WITH_GRAD, s->radius)) return launch_wide_strip<WITH_GRAD, PT>(a, *s, st);
   return at_radius<WITH_GRAD>(s->radius, LaunchAt<WITH_GRAD, PT>{a, *s, st},
-                              [&]() { return launch_wide<WITH_GRAD, PT>(a, *s, st); });
+                              [&]() { return launch_chain<WITH_GRAD, PT>(a, *s, st); });
 }
 
 // Registers, static and dynamic shared memory, local (spill) bytes and
@@ -2465,10 +3043,10 @@ struct InfoAt {
   int operator()() const { return kernel_info<R, WITH_GRAD, PT>(info); }
 };
 
-// The wide path's kernels: the most registers, shared and local memory and
-// the fewest resident blocks of any of them.
+// The per-pixel chain's kernels: the most registers, shared and local
+// memory and the fewest resident blocks of any of them.
 template <class PT>
-int wide_kernel_info(bool with_grad, int* info) {
+int chain_kernel_info(bool with_grad, int* info) {
   const void* grad_fns[] = {(const void*)wide_warps_kernel<PT>, (const void*)wide_stats_vertical_kernel,
                             (const void*)wide_ssim_kernel<true, PT>, (const void*)wide_vertical_kernel,
                             (const void*)wide_chain_kernel<PT>, (const void*)wide_final_kernel<true, PT>};
@@ -2501,26 +3079,40 @@ extern "C" int vm_sweep_n_partials(int w, int nown, int with_grad, int radius) {
   return (int)(grid.x * grid.y);
 }
 
-// Floats of scratch a launch needs (the wide path's intermediates; 0 for
-// the tiled kernels).
+// Floats of scratch a launch needs (the per-pixel chain's intermediates;
+// 0 for the instantiated kernels and the wide strip).
 extern "C" long long vm_sweep_scratch_floats(int w, int nown, int with_grad, int radius) {
-  return tiled(with_grad != 0, radius) ? 0 : wide_layout(w, nown, radius, with_grad != 0).total;
+  const bool g = with_grad != 0;
+  return tiled(g, radius) || wide_strip(g, radius) ? 0 : wide_layout(w, nown, radius, g).total;
 }
 
 namespace {
+template <bool WITH_GRAD, class PT>
+int wide_strip_info(int radius, int* info) {
+  using W = WideStrip<WITH_GRAD, PT>;
+  cudaError_t err = W::allow();
+  if (err == cudaSuccess) err = func_info(W::fn(), NT, W::bytes(radius), info);
+  info[5] = NT;
+  return (int)err;
+}
+
 template <class PT>
 int kernel_info_of(int radius, int with_grad, int* info) {
-  auto wide = [&]() { return wide_kernel_info<PT>(with_grad != 0, info); };
-  if (with_grad) return at_radius<true>(radius, InfoAt<true, PT>{info}, wide);
-  return at_radius<false>(radius, InfoAt<false, PT>{info}, wide);
+  auto chain = [&]() { return chain_kernel_info<PT>(with_grad != 0, info); };
+  if (with_grad) {
+    if (wide_strip(true, radius)) return wide_strip_info<true, PT>(radius, info);
+    return at_radius<true>(radius, InfoAt<true, PT>{info}, chain);
+  }
+  if (wide_strip(false, radius)) return wide_strip_info<false, PT>(radius, info);
+  return at_radius<false>(radius, InfoAt<false, PT>{info}, chain);
 }
 }  // namespace
 
 // info[0..5]: registers per thread, static shared memory, dynamic shared
 // memory (bytes), local memory (bytes), resident blocks per SM and threads
 // per block of the gradient (with_grad) or energy kernel at a window radius
-// (for the wide path, the extremes over its kernels), in its float (bf16 =
-// 0) or bf16 instantiation; returns the CUDA error.
+// (for the per-pixel chain, the extremes over its kernels), in its float
+// (bf16 = 0) or bf16 instantiation; returns the CUDA error.
 extern "C" int vm_sweep_kernel_info(int radius, int with_grad, int bf16, int* info) {
   if (radius < 0) return (int)cudaErrorInvalidValue;
   return bf16 ? kernel_info_of<__nv_bfloat16>(radius, with_grad, info)

@@ -1,22 +1,25 @@
 """Kernels 1 and 2: the solver's sweep gradient and sweep energy.
 
 Source: ``csrc/sweep.cu`` (``vm_sweep_grad`` launches
-``sweep_grad_kernel<R>`` or ``sweep_grad_strip_kernel<R>``,
-``vm_sweep_energy`` ``sweep_energy_kernel<R>`` or
-``sweep_energy_strip_kernel<R>``; they share their per-pixel arithmetic as
-``__device__`` functions).
+``sweep_grad_kernel<R>``, ``sweep_grad_strip_kernel<R>`` or
+``sweep_wide_kernel<true>``, ``vm_sweep_energy`` ``sweep_energy_kernel<R>``,
+``sweep_energy_strip_kernel<R>`` or ``sweep_wide_kernel<false>``, each
+then its reduce, and past the wide strip's reach the per-pixel chain;
+they share their per-pixel arithmetic as ``__device__`` functions).
 
 Every odd ``ssim_window`` = 2R + 1 runs on the card, chosen by R in
 ``csrc/sweep.cu``'s ``dispatch`` (:func:`kernel_name`): the gradient
-kernel's tile for R = 1, 2 (windows 3, 5), its strip for R =
+kernel's tile for R = 0, 1, 2 (windows 1, 3, 5), its strip for R =
 ``STRIP_MIN_RADIUS`` .. ``STRIP_MAX_RADIUS`` (3 .. 7, windows 7-15); the
-energy kernel's tile for R = 1 .. 3 (windows 3-7), its strip for R =
+energy kernel's tile for R = 0 .. 3 (windows 1-7), its strip for R =
 ``ENERGY_STRIP_MIN_RADIUS`` .. ``ENERGY_STRIP_MAX_RADIUS`` (4 .. 7,
-windows 9-15); any other R (window 1, and past 15) takes the wide path,
-per-pixel kernels that read R at run time and keep their intermediates in
-a scratch buffer this wrapper allocates. The taps sit in a small device
-buffer per window (:func:`window_taps`), symmetric as the energy strip
-requires. An even
+windows 9-15); R = 8 .. ``WIDE_MAX_RADIUS`` (24, windows 17-49) the wide
+strip ``sweep_wide_kernel``, both kernels, which reads R at run time and
+walks a column strip as the gradient's strip does, one launch and its
+reduce; past that the per-pixel chain, kernels that keep their
+intermediates in a scratch buffer this wrapper allocates. The taps sit in
+a small device buffer per window (:func:`window_taps`), symmetric as the
+energy strip requires. An even
 window's taps are not centred on the pixel, so no kernel computes it: on
 the card it raises ``ValueError`` (the reference and the plain version
 fail on it too).
@@ -34,7 +37,7 @@ Both evaluate the halfway-domain energy on the warps linearized around
 ``v_lin``: ``a0 = w0 - dw0.(v - v_lin)``, ``a1 = w1 + dw1.(v - v_lin)``.
 On paper they are bound by bytes on the H100; in practice by instructions
 and their latency (~29 window sums and ~60 maps per pixel and channel,
-over a halo). The gradient kernel's tile (R = 1, 2) stages a tile of
+over a halo). The gradient kernel's tile (R = 0, 1, 2) stages a tile of
 owned pixels (:func:`sweep_tile`) and its halo of twice the window radius
 in shared memory, channel by channel through ``cp.async`` with the next
 channel's planes in flight, so every window sum, the dw chain and the TPS
@@ -43,9 +46,12 @@ column strip a few rows a step, with the linearized warps and the SSIM
 coefficient maps in rings of rows, so the vertical halo is staged once
 per strip and channel. The energy kernel needs no gradient halo: each warp
 walks a column strip with the window's rows in registers and the
-neighbouring columns from its lanes, 4 owned rows at windows 3-7 and 16
+neighbouring columns from its lanes, 4 owned rows at windows 1-7 and 16
 from window 9, where the halo rows' copies would otherwise dominate. The
-inputs are the warp kernel's plane stack as it comes, with no pack.
+wide strip (windows 17-49) walks a column strip like the gradient's strip
+with R read at run time, in both kernels (the energy form without the
+gradient's stages). The inputs are the warp kernel's plane stack as it
+comes, with no pack.
 
 Two forms, chosen by the tensors (``MorphParams.pack_dtype``): float32,
 and bfloat16, where the plane stack and the four UI/TC maps are bfloat16
@@ -75,6 +81,8 @@ port of the reference's jnp shard branch, ``parallel/spatial.py:44-61,
 ``sweep_grad.launches``, ``sweep_energy.launches``,
 ``sweep_grad_shard.launches`` and ``sweep_energy_shard.launches``; the
 bfloat16 form counts under ``launches_bf16`` of the same wrapper instead.
+A launch that runs the wide strip also counts under ``launches_wide``
+(``launches_wide_bf16``).
 """
 
 from __future__ import annotations
@@ -92,8 +100,9 @@ from videomorphing_tpu_torch.kernels.warp import PLANE_DTYPES, check_cuda_input,
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, separable_filter
 
 _GEOMETRY = ("TILE_ROWS", "TILE_COLS", "ENERGY_TILE_ROWS", "ENERGY_TILE_COLS", "ENERGY_STRIP_ROWS",
-             "ENERGY_STRIP_WARPS", "ENERGY_STRIP_MIN_RADIUS", "ENERGY_STRIP_MAX_RADIUS", "WIDE_TILE_ROWS",
-             "WIDE_TILE_COLS", "STRIP_ROWS", "STRIP_COLS", "STRIP_MIN_RADIUS", "STRIP_MAX_RADIUS")
+             "ENERGY_STRIP_WARPS", "ENERGY_STRIP_MIN_RADIUS", "ENERGY_STRIP_MAX_RADIUS", "WIDE_STRIP_ROWS",
+             "WIDE_ENERGY_STRIP_ROWS", "WIDE_STRIP_COLS", "WIDE_MAX_RADIUS", "CHAIN_TILE_ROWS", "CHAIN_TILE_COLS", "STRIP_ROWS",
+             "STRIP_COLS", "STRIP_MIN_RADIUS", "STRIP_MAX_RADIUS")
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,12 +118,18 @@ def _geometry() -> dict:
 
 
 def tiled(with_grad: bool, radius: int) -> bool:
-    """Whether window radius R runs a kernel instantiated for it rather
-    than the wide path: the gradient kernel (``with_grad``) for R = 1 ..
-    ``STRIP_MAX_RADIUS``, the energy kernel for R = 1 ..
-    ``ENERGY_STRIP_MAX_RADIUS``."""
+    """Whether window radius R runs a kernel instantiated for it: the
+    gradient kernel (``with_grad``) for R = 0 .. ``STRIP_MAX_RADIUS``, the
+    energy kernel for R = 0 .. ``ENERGY_STRIP_MAX_RADIUS``."""
     g = _geometry()
-    return 1 <= radius <= g["STRIP_MAX_RADIUS" if with_grad else "ENERGY_STRIP_MAX_RADIUS"]
+    return 0 <= radius <= g["STRIP_MAX_RADIUS" if with_grad else "ENERGY_STRIP_MAX_RADIUS"]
+
+
+def wide_strip(with_grad: bool, radius: int) -> bool:
+    """Whether window radius R runs the wide strip (``sweep_wide_kernel``,
+    R at run time): past the instantiated radii up to ``WIDE_MAX_RADIUS``.
+    Past that the per-pixel chain runs."""
+    return not tiled(with_grad, radius) and 0 <= radius <= _geometry()["WIDE_MAX_RADIUS"]
 
 
 def kernel_name(with_grad: bool, radius: int) -> str:
@@ -122,9 +137,12 @@ def kernel_name(with_grad: bool, radius: int) -> str:
     ``radius``: ``sweep_grad_kernel<R>`` (the gradient's tile),
     ``sweep_grad_strip_kernel<R>`` (its strip), ``sweep_energy_kernel<R>``
     (the energy kernel's tile), ``sweep_energy_strip_kernel<R>`` (its
-    strip) or the wide path."""
+    strip), the wide strip or the per-pixel chain."""
+    what = "gradient" if with_grad else "energy"
+    if wide_strip(with_grad, radius):
+        return f"sweep_wide_kernel ({what})"
     if not tiled(with_grad, radius):
-        return f"wide path ({'gradient' if with_grad else 'energy'})"
+        return f"per-pixel chain ({what})"
     kind = "grad" if with_grad else "energy"
     strip = radius >= _geometry()["STRIP_MIN_RADIUS" if with_grad else "ENERGY_STRIP_MIN_RADIUS"]
     return f"sweep_{kind}{'_strip' if strip else ''}_kernel<{radius}>"
@@ -139,11 +157,14 @@ def sweep_tile(with_grad: bool, radius: int = 1) -> tuple[int, int]:
     ``ENERGY_STRIP_MIN_RADIUS`` and from there its strip of
     ``ENERGY_STRIP_ROWS`` rows and ``ENERGY_STRIP_WARPS`` warps side by
     side, each owning 32 - 2R columns (its lanes less the window's halo R
-    each side); the wide path's ``WIDE_TILE_ROWS`` x ``WIDE_TILE_COLS`` for
-    both."""
+    each side); the wide strip's ``WIDE_STRIP_ROWS`` (the energy form's
+    ``WIDE_ENERGY_STRIP_ROWS``) x ``WIDE_STRIP_COLS``; the per-pixel
+    chain's ``CHAIN_TILE_ROWS`` x ``CHAIN_TILE_COLS`` for both."""
     g = _geometry()
+    if wide_strip(with_grad, radius):
+        return g["WIDE_STRIP_ROWS" if with_grad else "WIDE_ENERGY_STRIP_ROWS"], g["WIDE_STRIP_COLS"]
     if not tiled(with_grad, radius):
-        return g["WIDE_TILE_ROWS"], g["WIDE_TILE_COLS"]
+        return g["CHAIN_TILE_ROWS"], g["CHAIN_TILE_COLS"]
     if with_grad and radius >= g["STRIP_MIN_RADIUS"]:
         return g["STRIP_ROWS"], g["STRIP_COLS"]
     if with_grad:
@@ -384,8 +405,9 @@ def _launch(with_grad: bool, planes, v_lin, v, data, p: MorphParams, row0: int =
     partials = torch.empty((n_parts, 4), dtype=torch.float32, device=dev)
     out = torch.empty((5,), dtype=torch.float32, device=dev)
     lib = build.load()
-    # the wide path's intermediates (none for the tiled kernels)
-    n_scratch = 0 if tiled(with_grad, r) else lib.vm_sweep_scratch_floats(w, bh, int(with_grad), r)
+    # the per-pixel chain's intermediates (none for the other kernels)
+    chain = not (tiled(with_grad, r) or wide_strip(with_grad, r))
+    n_scratch = lib.vm_sweep_scratch_floats(w, bh, int(with_grad), r) if chain else 0
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None
     scratch_ptr = scratch.data_ptr() if scratch is not None else None
     grad = precond = None
@@ -419,12 +441,14 @@ def sweep_grad(planes, v_lin, v, data, p: MorphParams):
     if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
         return sweep_grad_plain(planes, v_lin, v, data, p)
     out, grad, precond = _launch(True, planes, v_lin, v, data, p)
-    count_launch(sweep_grad, planes.dtype)
+    count_launch(sweep_grad, planes.dtype, wide_strip(True, kernel_radius(p)))
     return out[4], grad, precond
 
 
 sweep_grad.launches = 0
 sweep_grad.launches_bf16 = 0
+sweep_grad.launches_wide = 0
+sweep_grad.launches_wide_bf16 = 0
 
 
 def sweep_energy(planes, v_lin, v, data, p: MorphParams):
@@ -432,12 +456,14 @@ def sweep_energy(planes, v_lin, v, data, p: MorphParams):
     if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
         return sweep_energy_plain(planes, v_lin, v, data, p)
     out, _, _ = _launch(False, planes, v_lin, v, data, p)
-    count_launch(sweep_energy, planes.dtype)
+    count_launch(sweep_energy, planes.dtype, wide_strip(False, kernel_radius(p)))
     return out[4]
 
 
 sweep_energy.launches = 0
 sweep_energy.launches_bf16 = 0
+sweep_energy.launches_wide = 0
+sweep_energy.launches_wide_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -569,12 +595,14 @@ def sweep_grad_shard(planes, v_lin, v, data, p: MorphParams, row0: int, gh: int,
     if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
         return sweep_grad_shard_plain(planes, v_lin, v, data, p, row0, gh, halo)
     out, grad, precond = _launch(True, planes, v_lin, v, data, p, row0, gh, halo)
-    count_launch(sweep_grad_shard, planes.dtype)
+    count_launch(sweep_grad_shard, planes.dtype, wide_strip(True, kernel_radius(p)))
     return out[:4], grad, precond
 
 
 sweep_grad_shard.launches = 0
 sweep_grad_shard.launches_bf16 = 0
+sweep_grad_shard.launches_wide = 0
+sweep_grad_shard.launches_wide_bf16 = 0
 
 
 def sweep_energy_shard(planes, v_lin, v, data, p: MorphParams, row0: int, gh: int, halo: int):
@@ -583,9 +611,11 @@ def sweep_energy_shard(planes, v_lin, v, data, p: MorphParams, row0: int, gh: in
     if not on_cuda(planes, v_lin, v, data.ui_w, data.ui_v, data.tc_w, data.tc_v):
         return sweep_energy_shard_plain(planes, v_lin, v, data, p, row0, gh, halo)
     out, _, _ = _launch(False, planes, v_lin, v, data, p, row0, gh, halo)
-    count_launch(sweep_energy_shard, planes.dtype)
+    count_launch(sweep_energy_shard, planes.dtype, wide_strip(False, kernel_radius(p)))
     return out[:4]
 
 
 sweep_energy_shard.launches = 0
 sweep_energy_shard.launches_bf16 = 0
+sweep_energy_shard.launches_wide = 0
+sweep_energy_shard.launches_wide_bf16 = 0

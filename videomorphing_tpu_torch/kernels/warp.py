@@ -132,13 +132,15 @@ def _launch_warp(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor, row0: int,
     return out
 
 
-def count_launch(wrapper, dtype) -> None:
+def count_launch(wrapper, dtype, wide: bool = False) -> None:
     """One launch of ``wrapper``'s kernel in the form of ``dtype``: under
-    ``launches_bf16`` for bfloat16, else under ``launches``."""
-    if dtype == torch.bfloat16:
-        wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
+    ``launches_bf16`` for bfloat16, else under ``launches``; a launch of
+    the sweeps' wide strip (``wide``) also under ``launches_wide_bf16`` or
+    ``launches_wide``."""
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    setattr(wrapper, "launches" + sfx, getattr(wrapper, "launches" + sfx) + 1)
+    if wide:
+        setattr(wrapper, "launches_wide" + sfx, getattr(wrapper, "launches_wide" + sfx) + 1)
 
 
 def halfway_warp(i0: torch.Tensor, i1: torch.Tensor, v: torch.Tensor,
