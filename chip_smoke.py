@@ -127,14 +127,24 @@ Phases:
      pair, phase 10's 4K pair through ``optimize_pair_spatial`` on 4 row
      blocks and ``run_golden``, each with its wall, launches and the form
      of every level: float32 under ``pallas_min_pixels`` (16384) pixels,
-     bf16 from there (``record_forms``).
+     bf16 from there (``record_forms``);
+ 20. the bench (``videomorphing_tpu_torch.bench``): ``python -m
+     videomorphing_tpu_torch.cli bench`` in a child process (the twin of
+     ``vmorph bench``: video_1080p, 30 frames of 1080 x 1920, 3 repeats,
+     with the kernel and golden checks), then ``bench.main([config])`` in
+     this process for ``BENCH_PATH_CONFIGS`` and last for ``kernels``; each
+     line has its config's keys (``bench.LINE_KEYS``) and a positive
+     value, the kernels are compiled and within ``bench.KERNEL_TOLERANCE``
+     (phase 2's tolerances) of their plain versions, the golden SSIM is
+     0.99 or more, and the four kernels' counters rise, on the path and in
+     the ``kernels`` check (counted apart: comparisons).
 
 A repeated-device mesh runs its blocks one after another on the card: a
 correctness path, not a speed-up. Any failure raises and exits non-zero.
 The card's name and power limit, then one JSON object with a record per
 kernel, the bf16 forms and the wide strip's launches of kernels 1, 2, 1s
 and 2s (``<name>_wide``, timed at window 17) as records of their own
-(launches summed over the paths of phases 3-5, 7, 8 and 10-19;
+(launches summed over the paths of phases 3-5, 7, 8 and 10-20;
 ``ms`` and ``library_ms`` device times, ``plain_ms`` a call time), are the
 lines before the last; the last line is ``{"ok": true, "device":
 {...}}``. With no CUDA device it exits 1 and prints no result.
@@ -224,6 +234,11 @@ WIDE_PAIR_WINDOW = 11
 WIDE_PAIR_WINDOWS = (1, 17)
 WIDE_SPATIAL_WINDOWS = (9, 17)
 WIDE_PAIR_N = 1024
+# phase 20's configs of the port's bench run in this process (the headline,
+# video_1080p, runs in a child process; kernels runs apart, its launches
+# being comparisons), and the kernels whose counters the kernels check raises
+BENCH_PATH_CONFIGS = ("pair_256", "pair_1k", "video_480p", "golden", "batch_4k", "batch_4k_stream")
+BENCH_CHECKED = ("sweep_grad", "sweep_energy", "halfway_warp", "bilinear_sample_batched")
 # phase 19's clip pair (phase 5's), a module constant so a rehearsal can shrink it
 BF16_VIDEO_THW = (30, 1080, 1920)
 # phase 2's shapes for the bf16 forms' word staging (an element's half of
@@ -2380,6 +2395,118 @@ def bf16_pack(dev, card: str) -> dict:
     return total
 
 
+def check_bench_line(config: str, line: dict) -> None:
+    """A line of the port's bench: its config's keys, a positive value (the
+    kernels line's, an error, may be 0); the headline's and the kernels
+    line's kernels compiled and within ``KERNEL_TOLERANCE``, the golden
+    SSIM 0.99 or more."""
+    from videomorphing_tpu_torch import bench as tbench
+
+    keys = set(tbench.LINE_KEYS[config])
+    require(set(line) == keys, f"bench {config}: keys {sorted(line)}, expected {sorted(keys)}")
+    value = line["value"]
+    require(isinstance(value, (int, float)) and (value >= 0 if config == "kernels" else value > 0),
+            f"bench {config}: value {value}")
+    if keys == set(tbench.HEADLINE_KEYS):
+        err, ssim = line["kernel_max_rel_err"], line["golden_midpoint_ssim"]
+        require(line["vs_baseline"] is None and line["kernel_compiled"] is True,
+                f"bench {config}: vs_baseline {line['vs_baseline']}, kernel_compiled {line['kernel_compiled']}")
+        require(isinstance(err, float) and err <= max(tbench.KERNEL_TOLERANCE.values()),
+                f"bench {config}: kernel_max_rel_err {err}")
+        require(isinstance(ssim, float) and ssim >= tbench.GOLDEN_MIN_SSIM,
+                f"bench {config}: golden_midpoint_ssim {ssim}")
+    elif config == "kernels":
+        require(line["compiled"] is True and tbench.kernels_ok(line), f"bench kernels: {line}")
+    elif config == "golden":
+        require(line["value"] >= tbench.GOLDEN_MIN_SSIM, f"bench golden: {line['value']} < 0.99")
+
+
+def bench_config(config: str, card: str) -> None:
+    """``bench.main([config])`` in this process: exit 0, one line, checked."""
+    from io import StringIO
+
+    from videomorphing_tpu_torch import bench as tbench
+
+    buf = StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tbench.main([config])
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    require(rc == 0 and len(lines) == 1, f"bench {config} returned {rc}: {buf.getvalue()}")
+    check_bench_line(config, lines[0])
+    log(f"  bench {config} ({wall:.2f} s) on {card}: {json.dumps(lines[0])}")
+
+
+@contextlib.contextmanager
+def kernel_checks_uncounted():
+    """``bench.bench_kernels``, which a headline line runs, with its
+    launches taken back out of the counters: they compare the kernels
+    with their plain versions, and count apart from the path's."""
+    from videomorphing_tpu_torch import bench as tbench
+
+    checks = tbench.bench_kernels
+
+    def uncounted(*args, **kwargs):
+        counters = kernel_counters()
+        before = read_counters(counters)
+        try:
+            return checks(*args, **kwargs)
+        finally:
+            for name, fn, attr in counters:
+                setattr(fn, attr, before[name])
+
+    tbench.bench_kernels = uncounted
+    try:
+        yield
+    finally:
+        tbench.bench_kernels = checks
+
+
+def bench_path(dev, card: str) -> dict:
+    """Phase 20: the port's bench. ``python -m videomorphing_tpu_torch.cli
+    bench`` in a child process (no ``BENCH_*`` variables: video_1080p, 3
+    repeats), then ``BENCH_PATH_CONFIGS`` in this process, then
+    ``kernels``; every line checked by ``check_bench_line``. Returns the
+    in-process configs' launches, without those of the kernel checks
+    (comparisons: the ``kernels`` config's are read apart, video_480p's
+    left out by ``kernel_checks_uncounted``)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    for name in [k for k in os.environ if k.startswith("BENCH_")]:
+        del os.environ[name]
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "videomorphing_tpu_torch.cli", "bench"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    require(out.returncode == 0, f"cli bench exited {out.returncode}:\n{out.stdout}\n{out.stderr[-4000:]}")
+    lines = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
+    require(len(lines) == 1, f"cli bench printed {len(lines)} lines:\n{out.stdout}")
+    check_bench_line("video_1080p", lines[0])
+    summary = [x for x in out.stderr.splitlines() if x.startswith("# ")]
+    log(f"  cli bench ({wall:.2f} s with process start) on {card}: {json.dumps(lines[0])}")
+    log(f"  cli bench: {summary[-1] if summary else 'no summary line'}")
+
+    counters = reset_counters()
+    with kernel_checks_uncounted():
+        for config in BENCH_PATH_CONFIGS:
+            bench_config(config, card)
+    sync(dev)
+    launches = read_counters(counters)
+    log("  launches of the in-process configs: " + json.dumps({n: launches[n] for n in BASE}))
+    require(all(launches[n] > 0 for n in BASE), f"phase 20 left a kernel unlaunched: {launches}")
+
+    counters = reset_counters()
+    bench_config("kernels", card)
+    compared = read_counters(counters)
+    log("  launches of the kernels check: " + json.dumps({n: compared[n] for n in BENCH_CHECKED}))
+    require(all(compared[n] > 0 for n in BENCH_CHECKED), f"the kernels check left a counter at 0: {compared}")
+    log(f"  phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -2480,10 +2607,13 @@ def main(argv) -> int:
     log("phase 19: bf16 pack (pack_dtype='bfloat16': api.morph_pair 1024x1024, api.morph_clips {}x{}x{}, "
         "optimize_pair_spatial {}x{} on 4 row blocks, run_golden)".format(*BF16_VIDEO_THW, *SPATIAL_HW))
     bf16_launches = bf16_pack(dev, card)
+    log("phase 20: bench (cli bench: video_1080p, 3 repeats, in a child process; bench.main for {}, "
+        "then kernels)".format(", ".join(BENCH_PATH_CONFIGS)))
+    bench_launches = bench_path(dev, card)
 
     paths = (launches, golden_launches, video_launches, layered_launches, layered_video_launches, spatial_launches,
              mesh_launches, manifest_launches, stream_launches, stressor_launches, edit_launches, rows_launches,
-             examples_launches, wide_launches, bf16_launches)
+             examples_launches, wide_launches, bf16_launches, bench_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]

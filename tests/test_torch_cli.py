@@ -1,4 +1,5 @@
-"""The port's command line: ``pair``, ``video``, ``project``, ``batch`` and ``import``.
+"""The port's command line: ``pair``, ``video``, ``project``, ``batch`` and ``import``
+(``bench``: ``tests/test_torch_bench.py``).
 
 - the same argv gives the same ``MorphParams``/``SynthParams``/
   ``VideoParams`` values through both packages' ``_params_from_args``, and
@@ -311,11 +312,11 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path, sub):
 
 @pytest.mark.parametrize("sub", ["edit", "bench"])
 def test_unported_subcommands_are_not_registered(sub, capsys):
-    """``bench`` is still unported (ROADMAP queue 1 item 2); ``edit`` is
-    ported now and registered, on the card by default."""
+    """The two subcommands once unported, ``edit`` and ``bench``, are
+    registered now, each on the card by default."""
     if sub == "edit":
         args = cli.build_parser().parse_args(["edit", "a.png", "b.png"])
         assert args.fn is cli.cmd_edit and args.device == "cuda" and args.out == "points.json"
         return
-    with pytest.raises(SystemExit):
-        cli.build_parser().parse_args([sub])
+    args = cli.build_parser().parse_args([sub])
+    assert args.fn is cli.cmd_bench and args.device == "cuda"

@@ -89,8 +89,6 @@ SIGNATURE_EXCEPTIONS = {
     "videomorphing_tpu.parallel.halo.halo_exchange_rows":
         "x and axis_name are a shard_map collective's arguments; the port exchanges the rows of a "
         "list of per-device blocks (blocks, halo)",
-    "videomorphing_tpu.cli bench":
-        "the benchmark subcommand is not ported yet (ROADMAP queue 1): it comes with the port's BENCHMARK.json",
     "videomorphing_tpu.cli --platform":
         "JAX's platform choice; the port's subcommands take --device (cuda by default, or cpu)",
 }

@@ -2,11 +2,11 @@
 
 - importing the port's modules (the API, the layered morphs, the command
   line, io, metrics, the field store, the batch tier, the native reader,
-  the golden cases and the stressor, the point editor and the viewer, and
-  every subpackage among them) and loading the two port demos
-  (``examples/*_torch.py``) load neither ``jax`` nor the JAX package
-  (checked in a fresh interpreter), and ``chip_smoke.py`` imports neither,
-  nor ``bench``;
+  the golden cases and the stressor, the point editor and the viewer, the
+  bench, and every subpackage among them) and loading the two port demos
+  (``examples/*_torch.py``) load neither ``jax``, nor the JAX package, nor
+  the repo-root ``bench`` (checked in a fresh interpreter), no port source
+  imports any of the three, and ``chip_smoke.py`` imports none of them;
 - the configuration mirrors the reference's dataclasses field for field;
 - on CPU tensors the kernel wrappers (the sampler's batched form too) run
   their plain versions and leave their launch counters at 0;
@@ -59,9 +59,10 @@ def test_import_loads_no_jax():
         "import videomorphing_tpu_torch.utils.native, videomorphing_tpu_torch.utils.golden\n"
         "import videomorphing_tpu_torch.utils.stressor, videomorphing_tpu_torch.config\n"
         "import videomorphing_tpu_torch.edit, videomorphing_tpu_torch.viewer, runpy\n"
+        "import videomorphing_tpu_torch.bench\n"
         "for demo in ('demo_pair_torch', 'demo_video_torch'):\n"
         "    runpy.run_path(f'examples/{demo}.py', run_name='demo')\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'bench') or m.startswith('jax.')\n"
         "             or m == 'videomorphing_tpu' or m.startswith('videomorphing_tpu.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -78,7 +79,7 @@ def test_sources_never_import_jax():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1]
-                assert mod.split(".")[0] not in ("jax", "videomorphing_tpu"), f"{path}: {s}"
+                assert mod.split(".")[0] not in ("jax", "videomorphing_tpu", "bench"), f"{path}: {s}"
 
 
 def test_chip_smoke_imports_no_bench_and_no_jax():

@@ -1,4 +1,4 @@
-"""Command-line interface of the port: ``vmorph-torch pair | video | project | batch | edit | import``.
+"""Command-line interface of the port: ``vmorph-torch pair | video | project | batch | edit | import | bench``.
 
 Port of ``videomorphing_tpu/cli.py``. Every run emits the metrics
 (frames/s, optimizer iterations/s/Mpixel, endpoint and halfway-agreement
@@ -14,6 +14,7 @@ the CUDA device raises, it does not fall back to the CPU.
     python -m videomorphing_tpu_torch.cli batch --manifest jobs.json
     python -m videomorphing_tpu_torch.cli batch --clip-a a.vmc --clip-b b.vmc --out out.vmc
     python -m videomorphing_tpu_torch.cli edit a.png b.png --points p.json --out p.json
+    BENCH_CONFIG=pair_1k python -m videomorphing_tpu_torch.cli bench
 
 ``pair --spatial-shards N`` solves one large frame with its rows split
 over ``min(N, devices)`` devices (``parallel.spatial``; the devices are the
@@ -21,8 +22,9 @@ cards for ``--device cuda``, one for the CPU), ``video`` splits the clip
 over every card when there is more than one, and ``batch`` spreads its
 pairs over the same devices (``parallel.batch``). ``edit`` is the terminal
 point editor (``edit.PointEditor``: edit, warm re-solve, ANSI preview; a
-``--script`` file in place of stdin). ``bench`` is not ported yet (ROADMAP
-queue 1 item 2).
+``--script`` file in place of stdin). ``bench`` runs the port's benchmark
+(``videomorphing_tpu_torch.bench``, the config of ``BENCH_CONFIG``, else
+``video_1080p``) and prints its one JSON line.
 """
 
 from __future__ import annotations
@@ -203,6 +205,12 @@ def cmd_edit(args) -> int:
     from videomorphing_tpu_torch.edit import run_editor_cli
 
     return run_editor_cli(args)
+
+
+def cmd_bench(args) -> int:
+    from videomorphing_tpu_torch import bench
+
+    return bench.main([], device=args.device)
 
 
 def cmd_pair(args) -> int:
@@ -615,6 +623,10 @@ def build_parser() -> argparse.ArgumentParser:
     p_imp.add_argument("--out", default=None, help="output .json (default: same name)")
     _add_runtime_flags(p_imp)
     p_imp.set_defaults(fn=cmd_import)
+
+    p_bench = sub.add_parser("bench", help="run the benchmark (BENCH_CONFIG, default video_1080p)")
+    _add_runtime_flags(p_bench)
+    p_bench.set_defaults(fn=cmd_bench)
     return ap
 
 
