@@ -18,6 +18,7 @@ from videomorphing_tpu_torch.device import pick_device
 from videomorphing_tpu_torch.solver.ctf import OptimizeResult, optimize_pair
 from videomorphing_tpu_torch.synth.paths import bulge_field
 from videomorphing_tpu_torch.synth.render import render_clip, render_frame
+from videomorphing_tpu_torch.utils import profiling
 
 
 class MorphArtifacts(NamedTuple):
@@ -47,15 +48,18 @@ class ImageMorpher:
     def solve(self, i0, i1, points=None, v0=None) -> MorphArtifacts:
         """Optimize the halfway field and the quadratic-path bulge;
         ``v0``: an optional full-resolution warm start (the solve then
-        begins at the middle pyramid level)."""
-        i0, i1, points, v0 = self._put(i0, i1, points, v0)
-        res = optimize_pair(i0, i1, points=points, params=self.mp, v0=v0)
-        b = bulge_field(res.v, self.sp) if self.sp.quadratic_paths else None
-        return MorphArtifacts(v=res.v, b=b, result=res)
+        begins at the middle pyramid level). Traced: a ``morph.solve`` span."""
+        with profiling.span("morph.solve"):
+            i0, i1, points, v0 = self._put(i0, i1, points, v0)
+            res = optimize_pair(i0, i1, points=points, params=self.mp, v0=v0)
+            b = bulge_field(res.v, self.sp) if self.sp.quadratic_paths else None
+            return MorphArtifacts(v=res.v, b=b, result=res)
 
     def render(self, i0, i1, art: MorphArtifacts, ts) -> torch.Tensor:
-        i0, i1, v, b = self._put(i0, i1, art.v, art.b)
-        return render_clip(i0, i1, v, b, ts, self.sp)
+        """The frames at the times ``ts``. Traced: a ``morph.render`` span."""
+        with profiling.span("morph.render"):
+            i0, i1, v, b = self._put(i0, i1, art.v, art.b)
+            return render_clip(i0, i1, v, b, ts, self.sp)
 
     def render_one(self, i0, i1, art: MorphArtifacts, t) -> torch.Tensor:
         i0, i1, v, b = self._put(i0, i1, art.v, art.b)

@@ -39,6 +39,7 @@ from videomorphing_tpu_torch.kernels.warp import bundle_from_planes, halfway_war
 from videomorphing_tpu_torch.ops.ssim import dssim_grad_bundle, dssim_map
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, median3x3, separable_filter
 from videomorphing_tpu_torch.solver.energy import LevelData, quadratic_energies, tps_maps
+from videomorphing_tpu_torch.utils import profiling
 
 f32 = np.float32
 
@@ -248,6 +249,14 @@ def pack_dtype_for(p: MorphParams, h: int, w: int, device) -> torch.dtype:
     return pack_dtype(p)
 
 
+def _read(t: torch.Tensor):
+    """``t``'s values on the host: a device-to-host read, counted as
+    ``reads`` of the open level span and timed as a ``host.read`` span."""
+    profiling.count("reads")
+    with profiling.span("host.read"):
+        return t.item() if t.numel() == 1 else t.tolist()
+
+
 def make_level_solver(p: MorphParams, n_iters: int):
     """The per-level solve ``(v, data) -> (v', LevelStats)``.
 
@@ -258,11 +267,22 @@ def make_level_solver(p: MorphParams, n_iters: int):
     Per iteration: energy, gradient and preconditioner (kernel 1); a masked,
     foldover-clamped preconditioned step; Armijo backtracking on the
     linearized energy (kernel 2 per trial).
+
+    Traced, each call is a ``solve.level`` span (attributes ``h``, ``w``,
+    ``n_iters``, on exit ``iters``) that counts its ``armijo_trials``
+    (kernel 2 calls of the line search) and ``reads`` (device-to-host
+    reads, each a ``host.read`` span).
     """
     armijo_c, shrink, grow = f32(p.armijo_c), f32(p.step_shrink), f32(p.step_grow)
     min_step, tol = f32(p.min_step), f32(p.tol)
 
     def solve(v: torch.Tensor, data: LevelData):
+        with profiling.span("solve.level", h=v.shape[0], w=v.shape[1], n_iters=n_iters) as s:
+            v, stats = run(v, data)
+            s.set(iters=stats.iters)
+        return v, stats
+
+    def run(v: torch.Tensor, data: LevelData):
         h, w = v.shape[0], v.shape[1]
         v = v.contiguous()
         bmask = boundary_mask(h, w, v.dtype, v.device)
@@ -276,7 +296,7 @@ def make_level_solver(p: MorphParams, n_iters: int):
             return halfway_warp(data.i0, data.i1, v_q, dt), v_q
 
         if n_iters <= 0:
-            e0 = f32(sweep_energy(*linearize(v), v, data_k, p).item())
+            e0 = f32(_read(sweep_energy(*linearize(v), v, data_k, p)))
             return v, LevelStats(e0=float(e0), e_final=float(e0), iters=0,
                                  step=float(f32(p.init_step)), energy_history=hist)
 
@@ -297,13 +317,14 @@ def make_level_solver(p: MorphParams, n_iters: int):
                 cmask = color_mask(h, w, it % p.n_colors, p.n_colors, v.dtype, v.device)
                 d = (-grad / precond) * cmask * bmask
                 d = foldover_scale(v, d, p.fold_margin)
-                e_cur, gd = (f32(x) for x in torch.stack([e_cur_t, torch.sum(grad * d)]).tolist())
+                e_cur, gd = (f32(x) for x in _read(torch.stack([e_cur_t, torch.sum(grad * d)])))
                 if it == 0:
                     e0 = e_cur
 
                 def trial(alpha):
                     v_try = v + float(alpha) * d
-                    return v_try, f32(sweep_energy(planes, v_lin, v_try, data_k, p).item())
+                    profiling.count("armijo_trials")
+                    return v_try, f32(_read(sweep_energy(planes, v_lin, v_try, data_k, p)))
 
                 alpha = step
                 v_try, e_try = trial(alpha)

@@ -25,6 +25,7 @@ from videomorphing_tpu_torch.kernels.warp import bilinear_sample, bilinear_sampl
 from videomorphing_tpu_torch.ops.pyramid import downsample_2x, resize_bilinear
 from videomorphing_tpu_torch.ops.resample import bicubic_sample, grid_coords, inside_mask
 from videomorphing_tpu_torch.synth.blend import blend_extended
+from videomorphing_tpu_torch.utils import profiling
 
 f32 = np.float32
 
@@ -191,9 +192,14 @@ def render_clip(
     ts: Sequence[float],
     sp: SynthParams = SynthParams(),
 ) -> torch.Tensor:
-    """One frame per time in ``ts`` (K,) -> (K, H, W, C)."""
+    """One frame per time in ``ts`` (K,) -> (K, H, W, C); traced, each
+    frame is a ``render.frame`` span."""
     ts = np.asarray(ts.detach().cpu() if isinstance(ts, torch.Tensor) else ts, np.float32)
-    return torch.stack([render_frame(i0, i1, v, b, t, sp) for t in ts.reshape(-1)])
+    frames = []
+    for t in ts.reshape(-1):
+        with profiling.span("render.frame"):
+            frames.append(render_frame(i0, i1, v, b, t, sp))
+    return torch.stack(frames)
 
 
 @functools.lru_cache(maxsize=None)

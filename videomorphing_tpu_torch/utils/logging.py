@@ -9,6 +9,7 @@ fidelity measures run on the device of the tensors they are given.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import sys
@@ -21,6 +22,7 @@ import torch
 from videomorphing_tpu_torch.kernels.warp import bilinear_sample_batched
 from videomorphing_tpu_torch.ops.resample import grid_coords
 from videomorphing_tpu_torch.ops.ssim import dssim_map
+from videomorphing_tpu_torch.utils import profiling
 
 logger = logging.getLogger("videomorphing_tpu_torch")
 
@@ -38,7 +40,9 @@ def level_record(level: int, shape, stats) -> Dict[str, Any]:
 
 
 class MetricsLogger:
-    """JSON-lines metrics sink with wall-clock phase timing.
+    """JSON-lines metrics sink with wall-clock phase timing. A phase is
+    also a ``utils.profiling`` span, so a traced run has it on the trace's
+    clock.
 
     >>> m = MetricsLogger(verbose=True)
     >>> with m.phase("optimize"):
@@ -58,22 +62,14 @@ class MetricsLogger:
             print(line, file=self.stream, flush=True)
         logger.info(line)
 
+    @contextlib.contextmanager
     def phase(self, name: str):
-        return _Phase(self, name)
-
-
-class _Phase:
-    def __init__(self, m: MetricsLogger, name: str):
-        self.m = m
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.m.emit("phase", name=self.name, seconds=round(time.perf_counter() - self.t0, 4))
-        return False
+        t0 = time.perf_counter()
+        try:
+            with profiling.span(name):
+                yield
+        finally:
+            self.emit("phase", name=name, seconds=round(time.perf_counter() - t0, 4))
 
 
 def _to_jsonable(x):

@@ -11,7 +11,8 @@ preallocated output, so peak memory holds one frame's intermediates.
 
 Stages, each a ``utils.profiling.phase_scope``: ``flows``, ``tracking``,
 ``cold_solve``, ``warm_loop`` (the loop's per-frame iteration counts are
-noted as ``warm_iters``), ``bulges``, ``confidences`` and ``render``.
+noted as ``warm_iters``), ``bulges``, ``confidences`` and ``render``. Each
+frame of the render is a ``render.frame`` span.
 
 With a 1-D ``mesh`` (``parallel.mesh.Mesh``) of more than one device the
 flows split their frame pairs over it (``flow.clip_flows_sharded``), the
@@ -37,7 +38,7 @@ from videomorphing_tpu_torch.solver.descent import make_level_solver
 from videomorphing_tpu_torch.solver.energy import make_level_data
 from videomorphing_tpu_torch.synth.paths import bulge_field
 from videomorphing_tpu_torch.synth.render import render_frame
-from videomorphing_tpu_torch.utils.profiling import note, phase_scope
+from videomorphing_tpu_torch.utils.profiling import note, phase_scope, span
 from videomorphing_tpu_torch.video.flow import clip_flows, clip_flows_sharded
 from videomorphing_tpu_torch.video.occlusion import occlusion_confidence
 from videomorphing_tpu_torch.video.temporal import advect_halfway_field, track_keyframe_points
@@ -358,9 +359,10 @@ def synthesize_frames(
         bl = bulges if bulges is not None else torch.zeros_like(v)
         frames = torch.empty_like(a)
         for t in range(e - s):
-            frames[t] = render_frame(
-                a[t], b[t], v[t], bl[t], times[s + t], sp, conf0=conf_a[t], conf1=conf_b[t],
-            )
+            with span("render.frame"):
+                frames[t] = render_frame(
+                    a[t], b[t], v[t], bl[t], times[s + t], sp, conf0=conf_a[t], conf1=conf_b[t],
+                )
     return bulges, frames
 
 
