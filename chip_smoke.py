@@ -137,14 +137,25 @@ Phases:
      value, the kernels are compiled and within ``bench.KERNEL_TOLERANCE``
      (phase 2's tolerances) of their plain versions, the golden SSIM is
      0.99 or more, and the four kernels' counters rise, on the path and in
-     the ``kernels`` check (counted apart: comparisons).
+     the ``kernels`` check (counted apart: comparisons);
+ 21. the render's CUDA graphs (``render_graphs``): ``synth.render.
+     render_frame`` replays a captured graph of its body, bitwise the eager
+     body, at 1024 x 1024 (C = 3, a bulge, no confidences) and 1080 x 1920
+     (C = 4, a bulge and both confidences) at ``RENDER_GRAPH_TIMES``, one
+     capture a signature, kernel 4's counters advancing by the captured
+     launches on each replay; a replay after the constant caches were
+     cleared and refilled by frames of other shapes; a TF32 flip, which
+     captures a graph of its own; bicubic sampling, the linear blend and
+     non-contiguous inputs at 512 x 512; ``with_aux`` runs eagerly; the
+     ``graph_captures``/``graph_replays`` counters of the ``render.frame``
+     span; each frame's call time replayed and eager.
 
 A repeated-device mesh runs its blocks one after another on the card: a
 correctness path, not a speed-up. Any failure raises and exits non-zero.
 The card's name and power limit, then one JSON object with a record per
 kernel, the bf16 forms and the wide strip's launches of kernels 1, 2, 1s
 and 2s (``<name>_wide``, timed at window 17) as records of their own
-(launches summed over the paths of phases 3-5, 7, 8 and 10-20;
+(launches summed over the paths of phases 3-5, 7, 8 and 10-21;
 ``ms`` and ``library_ms`` device times, ``plain_ms`` a call time), are the
 lines before the last; the last line is ``{"ok": true, "device":
 {...}}``. With no CUDA device it exits 1 and prints no result.
@@ -2507,6 +2518,127 @@ def bench_path(dev, card: str) -> dict:
     return launches
 
 
+RENDER_GRAPH_TIMES = (0.0, 1.0 / 119.0, 0.25, 0.5, 0.75, 1.0)
+
+
+def render_graphs(dev, card: str) -> dict:
+    """Phase 21: ``render_frame`` on the card replays a CUDA graph of its
+    body, bitwise equal to the eager body (``render._render_frame_eager``)."""
+    import torch
+
+    from videomorphing_tpu_torch.config import SynthParams
+    from videomorphing_tpu_torch.kernels.warp import bilinear_sample, bilinear_sample_batched
+    from videomorphing_tpu_torch.ops import poisson, pyramid
+    from videomorphing_tpu_torch.synth import render
+    from videomorphing_tpu_torch.utils import profiling
+
+    counters = reset_counters()
+    samplers = (bilinear_sample, bilinear_sample_batched)
+
+    def case(h, w, c, with_conf, seed):
+        rng = np.random.default_rng(seed)
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+        conf = (put(rng.random((h, w))), put(rng.random((h, w)))) if with_conf else (None, None)
+        return (put(rng.random((h, w, c))), put(rng.random((h, w, c))), put(smooth_field(h, w, 24.0, seed)),
+                put(smooth_field(h, w, 6.0, seed + 1))) + conf
+
+    def eager(args, t, sp=SynthParams()):
+        i0, i1, v, b, c0, c1 = args
+        return render._render_frame_eager(i0, i1, v, b, render._time_vector(t, v), sp, c0, c1, False)
+
+    def frame(args, t, sp=SynthParams(), **kw):
+        i0, i1, v, b, c0, c1 = args
+        return render.render_frame(i0, i1, v, b, t, sp, conf0=c0, conf1=c1, **kw)
+
+    def launched(fn):
+        before = [s.launches for s in samplers]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [s.launches - n for s, n in zip(samplers, before)]
+
+    def same(args, t, what, sp=SynthParams()):
+        """A graph frame against the eager body; returns the graph frame
+        and whether it captured (a new key)."""
+        keys = set(render._graphs.keys())
+        want, per_frame = launched(lambda: eager(args, t, sp))
+        got, counted = launched(lambda: frame(args, t, sp))
+        captured = bool(set(render._graphs.keys()) - keys)
+        require(torch.equal(got, want),
+                f"{what}, t = {t}: the replay differs from the eager body by {float((got - want).abs().max())}")
+        require(counted == [n * (2 if captured else 1) for n in per_frame],
+                f"{what}, t = {t}: kernel 4 counted {counted}, one frame launches {per_frame}, "
+                f"captured: {captured}")
+        return got, captured
+
+    render._graphs.clear()
+    a = case(1024, 1024, 3, False, 2101)
+    video = case(1080, 1920, 4, True, 2102)
+    for args, what in ((a, "1024^2, C = 3, a bulge"), (video, "1080x1920, C = 4, a bulge, confidences")):
+        caps = [same(args, t, what)[1] for t in RENDER_GRAPH_TIMES]
+        require(caps == [True] + [False] * (len(caps) - 1), f"{what}: captures at {caps}")
+        log(f"  {what}: {len(caps)} times bitwise the eager body, one capture, kernel 4's counters honest")
+
+    poisson._dct_mat.cache_clear()
+    pyramid._resize_weights.cache_clear()
+    for h, w in ((512, 512), (768, 1024), (1024, 768)):
+        eager(case(h, w, 3, False, h + w), 0.5)
+    same(case(512, 512, 3, False, 2103), 0.3, "512^2 after the caches were cleared")
+    for t in (0.2, 0.6):
+        _, cap = same(a, t, "1024^2 after the caches were cleared and refilled by other shapes")
+        require(not cap, "the 1024^2 graph was captured again")
+    log("  replays after the constant caches were cleared and refilled: bitwise, no capture")
+
+    plain = frame(a, 0.5)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf, cap = same(a, 0.5, "1024^2 under TF32")
+        require(cap, "a TF32 flip did not capture a graph of its own")
+        require(not torch.equal(tf, plain), "the TF32 frame equals the float32 frame")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _, cap = same(a, 0.5, "1024^2 back in float32")
+    require(not cap, "the float32 graph was captured again after the TF32 flip")
+    log(f"  TF32 flip: a graph of its own, bitwise eager TF32, max |TF32 - float32| "
+        f"{float((tf - plain).abs().max()):.3g}")
+
+    small = case(512, 512, 3, True, 2104)
+    for sp, what in ((SynthParams(sampling="bicubic"), "bicubic"), (SynthParams(blend_mode="linear"), "linear blend")):
+        for t in (0.0, 0.4):
+            same(small, t, f"512^2, {what}", sp)
+    strided = tuple(None if x is None else x.transpose(0, 1).contiguous().transpose(0, 1) for x in small)
+    same(strided, 0.4, "512^2, non-contiguous inputs")
+    keys = len(render._graphs.keys())
+    _, aux = frame(small, 0.4, with_aux=True)
+    require(len(render._graphs.keys()) == keys, "with_aux=True captured a graph")
+    require(len(render._graphs.keys()) <= render.GRAPHS_KEPT, f"{len(render._graphs.keys())} graphs kept")
+    log(f"  bicubic, linear blend, non-contiguous inputs bitwise; with_aux eager; {keys} graphs kept "
+        f"(at most {render.GRAPHS_KEPT})")
+
+    with profiling.record_phases():
+        for t in (0.1, 0.2):
+            with profiling.span("render.frame"):
+                frame(case(256, 384, 3, False, 2105), t)
+    spans = [s for s in profiling.spans() if s.name == "render.frame"][-2:]
+    counts = [s.counts for s in spans]
+    require(counts == [{"graph_captures": 1, "graph_replays": 1}, {"graph_replays": 1}],
+            f"render.frame counters {counts}")
+    log(f"  render.frame counters: {counts}")
+
+    for args, what in ((a, "1024^2"), (video, "1080x1920")):
+        g_ms, e_ms = cuda_ms(lambda: frame(args, 0.5)), cuda_ms(lambda: eager(args, 0.5))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            frame(args, 0.5)
+        issued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        done = time.perf_counter() - t0
+        log(f"  {what} frame call: replayed {g_ms:.3f} ms, eager {e_ms:.3f} ms ({e_ms / g_ms:.2f}x); 20 replays "
+            f"back to back issued in {1e3 * issued / 20:.3f} ms a frame, done in {1e3 * done / 20:.3f} on {card}")
+    log(f"  peak memory {peak_gib(dev)}")
+    return read_counters(counters)
+
+
 def main(argv) -> int:
     import torch
 
@@ -2610,10 +2742,13 @@ def main(argv) -> int:
     log("phase 20: bench (cli bench: video_1080p, 3 repeats, in a child process; bench.main for {}, "
         "then kernels)".format(", ".join(BENCH_PATH_CONFIGS)))
     bench_launches = bench_path(dev, card)
+    log("phase 21: render graphs (synth.render.render_frame replayed against its eager body, 1024x1024 and "
+        "1080x1920, cache clears, a TF32 flip)")
+    graph_launches = render_graphs(dev, card)
 
     paths = (launches, golden_launches, video_launches, layered_launches, layered_video_launches, spatial_launches,
              mesh_launches, manifest_launches, stream_launches, stressor_launches, edit_launches, rows_launches,
-             examples_launches, wide_launches, bf16_launches, bench_launches)
+             examples_launches, wide_launches, bf16_launches, bench_launches, graph_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]

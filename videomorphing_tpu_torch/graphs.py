@@ -1,0 +1,81 @@
+"""What a captured CUDA graph needs around it: cached device constants that
+it can hold on to, and a bounded cache of graphs.
+
+A CUDA graph replays its launches on the addresses it was captured with.
+A tensor that it reads but did not allocate, such as a DCT basis that an
+LRU cache hands out, must live as long as the graph: freed and reused,
+its memory would be read as garbage, with no error. :func:`constant_cache`
+is ``functools.lru_cache`` for functions that return such tensors; while
+:func:`collect_constants` is open, every tensor they hand out, hit or miss,
+is also appended to the list it yields, for the graph's owner to keep.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import functools
+from typing import Callable, Hashable, Optional
+
+_collected: Optional[list] = None
+
+
+def constant_cache(maxsize: int):
+    """``functools.lru_cache(maxsize=maxsize)`` whose results are also
+    collected while :func:`collect_constants` is open; the cached function
+    keeps ``cache_clear`` and ``cache_info``."""
+
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def get(*args, **kwargs):
+            out = cached(*args, **kwargs)
+            if _collected is not None:
+                _collected.append(out)
+            return out
+
+        get.cache_clear, get.cache_info = cached.cache_clear, cached.cache_info
+        return get
+
+    return wrap
+
+
+@contextlib.contextmanager
+def collect_constants():
+    """Yield a list that receives every :func:`constant_cache` result handed
+    out inside the block."""
+    global _collected
+    prev, _collected = _collected, []
+    try:
+        yield _collected
+    finally:
+        _collected = prev
+
+
+class LRU:
+    """At most ``size`` entries by key, the least recently used dropped
+    first. A miss drops before it makes the new entry, so that what the
+    dropped entry held (a graph's memory pool) is free by then."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._entries: "collections.OrderedDict[Hashable, object]" = collections.OrderedDict()
+
+    def get(self, key: Hashable, make: Callable[[], object]):
+        """The entry of ``key``, made by ``make()`` on a miss."""
+        entry = self._entries.get(key)
+        if entry is not None:
+            self._entries.move_to_end(key)
+            return entry
+        while len(self._entries) >= self.size:
+            self._entries.popitem(last=False)
+        entry = self._entries[key] = make()
+        return entry
+
+    def keys(self) -> list:
+        """The keys, least recently used first."""
+        return list(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()

@@ -8,16 +8,16 @@ compute the same transform; ``torch.matmul`` runs it in full float32
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
 import torch
 
+from videomorphing_tpu_torch.graphs import constant_cache
 from videomorphing_tpu_torch.ops.pyramid import downsample_2x, upsample_2x
 
 
-@functools.lru_cache(maxsize=32)
+@constant_cache(maxsize=32)
 def _dct_mat(n: int, dtype, device) -> torch.Tensor:
     """Orthonormal DCT-II basis C[k, m] = s_k sqrt(2/n) cos(pi (m+.5) k / n),
     built in float64 and rounded once."""

@@ -6,12 +6,12 @@ Port of ``videomorphing_tpu/ops/pyramid.py``. ``pyr[0]`` is the finest
 
 from __future__ import annotations
 
-import functools
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
+from videomorphing_tpu_torch.graphs import constant_cache
 from videomorphing_tpu_torch.ops.windows import edge_pad, gaussian_taps
 
 
@@ -59,7 +59,7 @@ def downsample_2x(img: torch.Tensor, sigma: float = 0.85) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=64)
+@constant_cache(maxsize=64)
 def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     """(n_in, n_out) linear-resize weights, built as ``jax.image.resize``
     builds them (``scale_and_translate`` with the triangle kernel and

@@ -31,14 +31,21 @@ def blend_weights(
     sources are valid and visible, shifted toward the valid, un-occluded
     source elsewhere (``conf0``/``conf1``: per-source visibility maps from
     ``video.occlusion``)."""
-    a0 = (1.0 - t) * m0
-    a1 = t * m1
+    return blend_weights_of(1.0 - t, t, m0, m1, conf0, conf1)
+
+
+def blend_weights_of(f0, f1, m0, m1, conf0=None, conf1=None) -> torch.Tensor:
+    """:func:`blend_weights` from the sources' factors ``f0`` = 1 - t and
+    ``f1`` = t: Python numbers, or 0-d tensors on the masks' device (a
+    captured frame reads its time from the device)."""
+    a0 = f0 * m0
+    a1 = f1 * m1
     if conf0 is not None:
         a0 = a0 * conf0
     if conf1 is not None:
         a1 = a1 * conf1
     denom = a0 + a1
-    return torch.where(denom > 1e-6, a1 / torch.clamp(denom, min=1e-6), torch.full_like(denom, t))
+    return torch.where(denom > 1e-6, a1 / torch.clamp(denom, min=1e-6), f1)
 
 
 def blend_extended(
@@ -54,7 +61,19 @@ def blend_extended(
     """Blend two warped images (H, W, C) with validity masks (H, W) and
     optional visibility confidences (H, W) at time ``t`` (a float32 value),
     with Poisson extension past invalid regions."""
-    w = blend_weights(t, m0, m1, conf0, conf1)[..., None]
+    return blend_with_weights(w0, w1, m0, m1, blend_weights(t, m0, m1, conf0, conf1), sp)
+
+
+def blend_with_weights(
+    w0: torch.Tensor,
+    w1: torch.Tensor,
+    m0: torch.Tensor,
+    m1: torch.Tensor,
+    weight: torch.Tensor,
+    sp: SynthParams = SynthParams(),
+) -> torch.Tensor:
+    """:func:`blend_extended` with the weight of image 1 given, (H, W)."""
+    w = weight[..., None]
     e0 = pull_push_extend(w0, m0, n_levels=sp.extend_levels)
     e1 = pull_push_extend(w1, m1, n_levels=sp.extend_levels)
     lin = (1.0 - w) * e0 + w * e1

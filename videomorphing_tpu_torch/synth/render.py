@@ -10,35 +10,73 @@ for tensors on the card and runs its plain version on the CPU. The
 reference's ``SynthParams.fused_sampling`` and its TPU-only dispatch are
 ignored: both paths compute the same numbers. ``sampling="bicubic"`` stays
 plain PyTorch, as in the reference, which has no bicubic kernel.
+
+On the card a frame is a fixed chain of about 1,300 launches on fixed
+shapes, which the host takes longer to issue than the card to run, so
+:func:`render_frame` captures the chain once per signature as a CUDA graph
+and replays it: the inputs are copied into the graph's buffers and the
+time enters as data, a device vector of :func:`time_values`, which the
+eager body reads as well.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import SynthParams
+from videomorphing_tpu_torch.graphs import LRU, collect_constants
 from videomorphing_tpu_torch.kernels.warp import bilinear_sample, bilinear_sample_batched
 from videomorphing_tpu_torch.ops.pyramid import downsample_2x, resize_bilinear
 from videomorphing_tpu_torch.ops.resample import bicubic_sample, grid_coords, inside_mask
-from videomorphing_tpu_torch.synth.blend import blend_extended
+from videomorphing_tpu_torch.synth.blend import blend_weights_of, blend_with_weights
 from videomorphing_tpu_torch.utils import profiling
 
 f32 = np.float32
+
+
+GRAPHS_KEPT = 4  # captured frame graphs kept; the least recently used is freed first
+
+
+def time_values(t) -> Tuple[float, float, float, float]:
+    """The numbers a frame at time ``t`` multiplies by: the path's
+    coefficients (2t - 1) and 4t(1 - t), rounded to float32 step by step as
+    the reference's float32 ``t`` rounds them, and the blend's factors
+    1 - t and t of the float32 ``t``."""
+    t = f32(t)
+    return (float(f32(2.0) * t - f32(1.0)), float(f32(4.0) * t * (f32(1.0) - t)), 1.0 - float(t), float(t))
+
+
+def _time_vector(t, like: torch.Tensor) -> torch.Tensor:
+    """:func:`time_values` of ``t`` as a vector of ``like``'s dtype and device."""
+    tv = torch.empty(4, dtype=like.dtype, device=like.device)
+    _write_times(tv.unbind(), t)
+    return tv
+
+
+def _write_times(slots: Sequence[torch.Tensor], t) -> None:
+    """Write :func:`time_values` of ``t`` into a time vector's 0-d views, in
+    stream order (a host copy from pageable memory would wait on the card)."""
+    for slot, x in zip(slots, time_values(t)):
+        slot.fill_(x)
+
+
+def _displacement(v: torch.Tensor, b: Optional[torch.Tensor], cv, cb) -> torch.Tensor:
+    d = cv * v
+    if b is not None:
+        d = d + cb * b
+    return d
 
 
 def path_displacement(v: torch.Tensor, b: Optional[torch.Tensor], t) -> torch.Tensor:
     """Displacement field d_t(p) = x_t(p) - p = (2t-1) v + 4t(1-t) b, with
     the coefficients rounded to float32 step by step as the reference's
     float32 ``t`` rounds them."""
-    t = f32(t)
-    d = float(f32(2.0) * t - f32(1.0)) * v
-    if b is not None:
-        d = d + float(f32(4.0) * t * (f32(1.0) - t)) * b
-    return d
+    cv, cb, _, _ = time_values(t)
+    return _displacement(v, b, cv, cb)
 
 
 def _coarse_fixed_point(disp_c: torch.Tensor, qc: torch.Tensor, n: int, p0=None) -> torch.Tensor:
@@ -109,9 +147,12 @@ def invert_path_with_field(
     the stacked planes ``[d_t, v]`` in one 4-channel gather, with ``v`` at
     the penultimate iterate. Returns ``(p, v_at_p)``. ``use_fused`` is
     accepted and ignored, as in :func:`invert_path`."""
+    return _invert_with_field(v, path_displacement(v, b, t), n_iters, multiscale)
+
+
+def _invert_with_field(v: torch.Tensor, disp: torch.Tensor, n_iters: int, multiscale: bool):
     h, w = v.shape[0], v.shape[1]
     q = grid_coords(h, w, dtype=v.dtype, device=v.device)
-    disp = path_displacement(v, b, t)
     stacked = torch.cat([disp, v], dim=-1)
     if multiscale and min(h, w) >= 128 and n_iters > 1:
         p = _multiscale_start(disp, h, w, n_iters)
@@ -151,14 +192,34 @@ def render_frame(
     launch of the batched sampler. ``with_aux`` also returns a
     :class:`FrameAux`: ``(frame, aux)``.
 
+    When every tensor lies on one card and ``with_aux`` is false (and no
+    capture is open and no gradient is wanted), the frame is a replay of a
+    CUDA graph of this body, captured at the first call of each signature
+    (:func:`frame_graph_key`); it gives the same bits as the eager body,
+    which runs every other call.
+
     ``srcs0``/``srcs1`` are the reference's prebuilt TPU sampler sources
     (copies of ``i0``/``i1`` laid out for its Pallas gather); they are
     accepted and ignored: the port samples ``i0``/``i1`` themselves, and the
     frame does not depend on them.
     """
+    if conf0 is None or conf1 is None:
+        conf0 = conf1 = None
+    inputs = (i0, i1, v, b, conf0, conf1)
+    if not with_aux and _replayable(inputs):
+        return _replay(inputs, t, sp)
+    return _render_frame_eager(i0, i1, v, b, _time_vector(t, v), sp, conf0, conf1, with_aux)
+
+
+def _render_frame_eager(i0, i1, v, b, tv, sp: SynthParams, conf0, conf1, with_aux: bool):
+    """The frame of :func:`render_frame` at the time whose
+    :func:`time_values` the vector ``tv`` holds (``v``'s dtype and device).
+    A product with such an entry gives the bits of the product with the
+    Python number, which the tensor's dtype would have rounded alike."""
     h, w = i0.shape[0], i0.shape[1]
-    t = f32(t)
-    p, v_at_p = invert_path_with_field(v, b, t, sp.invert_iters, multiscale=sp.invert_multiscale)
+    cv, cb, f0, f1 = tv.unbind()
+    disp = _displacement(v, b, cv, cb)
+    p, v_at_p = _invert_with_field(v, disp, sp.invert_iters, sp.invert_multiscale)
     phi0 = p - v_at_p
     phi1 = p + v_at_p
     with_conf = conf0 is not None and conf1 is not None
@@ -175,13 +236,99 @@ def render_frame(
         s1, c1 = s1[..., :-1], torch.clamp(s1[..., -1], 0.0, 1.0)
     m0 = inside_mask(phi0, h, w)
     m1 = inside_mask(phi1, h, w)
-    out = blend_extended(s0, s1, m0, m1, float(t), sp, c0, c1)
+    out = blend_with_weights(s0, s1, m0, m1, blend_weights_of(f0, f1, m0, m1, c0, c1), sp)
     if not with_aux:
         return out
-    disp = path_displacement(v, b, t)
     q = grid_coords(h, w, dtype=v.dtype, device=v.device)
     res = torch.linalg.norm(p + bilinear_sample(disp, p) - q, dim=-1)
     return out, FrameAux(mask0=m0, mask1=m1, inv_residual=res)
+
+
+# kernel 4's wrappers, whose launch counters a replay advances by what its capture recorded
+_SAMPLERS = (bilinear_sample, bilinear_sample_batched)
+
+
+def frame_graph_key(device, stream, specs, sp: SynthParams, allow_tf32: bool, matmul_precision: str) -> tuple:
+    """The cache key of a frame's CUDA graph: everything the captured
+    launches depend on but the inputs' values and the time. ``specs``:
+    ``(shape, dtype)`` of ``(i0, i1, v, b, conf0, conf1)``, None for one not
+    given (H, W, C, the dtypes, whether ``b`` and the confidences are
+    given); ``stream``: the stream the replays run on, which orders them
+    against the copies into the graph's buffers; the matmul precision
+    state, which the captured DCT products keep."""
+    return (device, stream, specs, sp, allow_tf32, matmul_precision)
+
+
+class _FrameGraph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple       # the buffers the graph reads, one per given input (None where not given)
+    times: tuple        # 0-d views of the time vector the graph reads
+    out: torch.Tensor   # the buffer the graph writes the frame into
+    constants: tuple    # cached constants the graph reads (DCT bases, resize weights), held alive
+    launches: tuple     # (sampler wrapper, its launches in one frame)
+
+
+_graphs = LRU(GRAPHS_KEPT)
+
+
+def _replayable(inputs) -> bool:
+    """Whether a frame of these inputs can be a graph replay: every given
+    input a tensor on one card, no capture open on the stream, no gradient
+    wanted."""
+    given = [x for x in inputs if x is not None]
+    if not all(isinstance(x, torch.Tensor) for x in given):
+        return False
+    dev = given[0].device
+    return (dev.type == "cuda" and all(x.device == dev for x in given)
+            and not torch.cuda.is_current_stream_capturing()
+            and not (torch.is_grad_enabled() and any(x.requires_grad for x in given)))
+
+
+def _capture(inputs, t, sp: SynthParams) -> _FrameGraph:
+    """Run the body once on a side stream, which fills the constant caches
+    (their host-to-device copies cannot be captured), then capture it on
+    that stream into buffers of its own; kernel 4's counters keep only the
+    launches that ran."""
+    dev = inputs[0].device
+    bufs = tuple(None if x is None else x.clone(memory_format=torch.contiguous_format) for x in inputs)
+    i0, i1, v, b, conf0, conf1 = bufs
+    tv = _time_vector(t, v)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        _render_frame_eager(i0, i1, v, b, tv, sp, conf0, conf1, False)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    before = [fn.launches for fn in _SAMPLERS]
+    graph = torch.cuda.CUDAGraph()
+    with collect_constants() as constants, torch.cuda.graph(graph, stream=side):
+        out = _render_frame_eager(i0, i1, v, b, tv, sp, conf0, conf1, False)
+    launches = []
+    for fn, n in zip(_SAMPLERS, before):
+        launches.append((fn, fn.launches - n))
+        fn.launches = n
+    profiling.count("graph_captures")
+    return _FrameGraph(graph, bufs, tv.unbind(), out, tuple(constants), tuple(launches))
+
+
+def _replay(inputs, t, sp: SynthParams) -> torch.Tensor:
+    """The frame as a replay of the graph of its signature (captured on a
+    miss): the inputs copied into the graph's buffers, the time written,
+    the graph replayed, a copy of its output returned."""
+    dev = inputs[0].device
+    with torch.cuda.device(dev):
+        specs = tuple(None if x is None else (tuple(x.shape), x.dtype) for x in inputs)
+        key = frame_graph_key(dev, torch.cuda.current_stream(dev).cuda_stream, specs, sp,
+                              torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+        entry = _graphs.get(key, lambda: _capture(inputs, t, sp))
+        for buf, x in zip(entry.inputs, inputs):
+            if buf is not None:
+                buf.copy_(x)
+        _write_times(entry.times, t)
+        entry.graph.replay()
+        for fn, n in entry.launches:
+            fn.launches += n
+        profiling.count("graph_replays")
+        return entry.out.clone()
 
 
 def render_clip(
@@ -192,14 +339,20 @@ def render_clip(
     ts: Sequence[float],
     sp: SynthParams = SynthParams(),
 ) -> torch.Tensor:
-    """One frame per time in ``ts`` (K,) -> (K, H, W, C); traced, each
-    frame is a ``render.frame`` span."""
-    ts = np.asarray(ts.detach().cpu() if isinstance(ts, torch.Tensor) else ts, np.float32)
-    frames = []
-    for t in ts.reshape(-1):
+    """One frame per time in ``ts`` (K,) -> (K, H, W, C), each written into
+    one output as it is made; traced, each frame is a ``render.frame``
+    span."""
+    ts = np.asarray(ts.detach().cpu() if isinstance(ts, torch.Tensor) else ts, np.float32).reshape(-1)
+    frames = None
+    for k, t in enumerate(ts):
         with profiling.span("render.frame"):
-            frames.append(render_frame(i0, i1, v, b, t, sp))
-    return torch.stack(frames)
+            frame = render_frame(i0, i1, v, b, t, sp)
+            if frames is None:
+                frames = frame.new_empty((len(ts),) + tuple(frame.shape))
+            frames[k] = frame
+    if frames is None:
+        raise ValueError("render_clip needs at least one time")
+    return frames
 
 
 @functools.lru_cache(maxsize=None)
