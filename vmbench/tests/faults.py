@@ -1,82 +1,111 @@
 """Faults planted in the program's timed path, for the tests that see
-``correct`` come out false: each patches the program with ``monkeypatch``."""
+``correct`` come out false.
 
-import torch
+Each fault replaces one function of the program wherever the program holds
+it: in the module that defines it and in every module of
+``videomorphing_tpu_torch`` that holds the same object under a name
+(compared by identity), so that every entry that reaches the function, by
+whatever path, meets the fault. Every module of the program is imported
+first, so that none binds the fault at its own import and keeps it once
+``monkeypatch`` has undone the rest."""
+
+import importlib
+import pkgutil
+import sys
+
+PROGRAM = "videomorphing_tpu_torch"
+
+
+def program_modules() -> list:
+    """Every module of the program, imported."""
+    package = importlib.import_module(PROGRAM)
+    for info in pkgutil.walk_packages(package.__path__, PROGRAM + "."):
+        importlib.import_module(info.name)
+    return [m for name, m in list(sys.modules.items())
+            if m is not None and (name == PROGRAM or name.startswith(PROGRAM + "."))]
+
+
+def plant(monkeypatch, module: str, name: str, make) -> None:
+    """``make(original)`` in place of ``<module>.<name>`` of the program,
+    under every name that any module of the program holds it by."""
+    original = getattr(importlib.import_module(f"{PROGRAM}.{module}"), name)
+    fault = make(original)
+    for mod in program_modules():
+        for attr, value in list(vars(mod).items()):
+            if value is original:
+                monkeypatch.setattr(mod, attr, fault)
 
 
 def unchanged(monkeypatch):
     """Every level solve runs, reports what it ran, and returns the field it
     was given."""
-    import videomorphing_tpu_torch.solver.ctf as ctf
-    import videomorphing_tpu_torch.video.pipeline as pipeline
-    from videomorphing_tpu_torch.solver.descent import make_level_solver
 
-    def make(p, n):
-        solve = make_level_solver(p, n)
-        return lambda v, data: (v, solve(v, data)[1])
+    def make(make_level_solver):
+        def make_unchanged(p, n):
+            solve = make_level_solver(p, n)
+            return lambda v, data: (v, solve(v, data)[1])
 
-    monkeypatch.setattr(ctf, "make_level_solver", make)
-    monkeypatch.setattr(pipeline, "make_level_solver", make)
+        return make_unchanged
+
+    plant(monkeypatch, "solver.descent", "make_level_solver", make)
 
 
 def stale(monkeypatch):
-    """The cold solve runs every level and reports its true ``LevelStats``,
-    and returns the field its finest level started from (a stale buffer):
-    the pair's solve and the video's frame 0."""
-    import videomorphing_tpu_torch.models.image_morph as image_morph
-    import videomorphing_tpu_torch.solver.ctf as ctf
-    import videomorphing_tpu_torch.video.pipeline as pipeline
-    from videomorphing_tpu_torch.solver.descent import make_level_solver
-
+    """Every coarse-to-fine solve runs every level and reports its true
+    ``LevelStats``, and returns the field its finest level started from (a
+    stale buffer): the pair's solve, the video's frame 0, each pair of a
+    batch."""
     last = {}
 
-    def make(p, n):
-        solve = make_level_solver(p, n)
+    def make_recorded(make_level_solver):
+        def make(p, n):
+            solve = make_level_solver(p, n)
 
-        def run(v, data):
-            last["v"] = v.clone()
-            return solve(v, data)
+            def run(v, data):
+                last["v"] = v.clone()
+                return solve(v, data)
 
-        return run
+            return run
 
-    optimize = ctf.optimize_pair
+        return make
 
-    def optimize_stale(*a, **k):
-        res = optimize(*a, **k)
-        return res._replace(v=last["v"])
+    def make_stale(optimize_pair):
+        def optimize_stale(*a, **k):
+            return optimize_pair(*a, **k)._replace(v=last["v"])
 
-    monkeypatch.setattr(ctf, "make_level_solver", make)
-    monkeypatch.setattr(image_morph, "optimize_pair", optimize_stale)
-    monkeypatch.setattr(pipeline, "optimize_pair", optimize_stale)
+        return optimize_stale
+
+    plant(monkeypatch, "solver.descent", "make_level_solver", make_recorded)
+    plant(monkeypatch, "solver.ctf", "optimize_pair", make_stale)
 
 
 def frames(monkeypatch, broken):
-    """The program's frames pass through ``broken(frames)``: the pair's
-    ``render_clip`` and the video's per-frame ``render_frame``."""
-    import videomorphing_tpu_torch.models.image_morph as image_morph
-    import videomorphing_tpu_torch.video.pipeline as pipeline
+    """Each frame that ``synth.render.render_frame`` returns passes through
+    ``broken(k, frame, before)``: ``k`` counts the frames rendered since the
+    fault was planted, ``before`` is the frame rendered before this one."""
 
-    clip, frame = image_morph.render_clip, pipeline.render_frame
-    monkeypatch.setattr(image_morph, "render_clip", lambda *a, **k: broken(clip(*a, **k)))
-    seen = []
+    def make(render_frame):
+        seen = {"k": 0, "before": None}
 
-    def one(*a, **k):
-        seen.append(frame(*a, **k))
-        return broken(torch.stack(seen))[-1]
+        def one(*a, **k):
+            frame = render_frame(*a, **k)
+            out = broken(seen["k"], frame, seen["before"])
+            seen["k"], seen["before"] = seen["k"] + 1, frame
+            return out
 
-    monkeypatch.setattr(pipeline, "render_frame", one)
+        return one
+
+    plant(monkeypatch, "synth.render", "render_frame", make)
 
 
-def half(out):
+def half(k, frame, before):
     """Half of the frames left out: each odd frame repeats the one before."""
-    out = out.clone()
-    out[1::2] = out[0:-1:2][: out[1::2].shape[0]]
-    return out
+    return before.clone() if k % 2 else frame
 
 
-def altered(out):
-    out = out.clone()
-    out[-1, :4, :4] += 0.05
+def altered(k, frame, before):
+    out = frame.clone()
+    out[:4, :4] += 0.05
     return out
 
 

@@ -1,7 +1,9 @@
-"""A tiny cell of each kind end to end through the harness on the CPU
-(``run.run_cell`` with ``device="cpu"`` skips the look for a card), sound
-and with the timed path broken underneath: ``correct`` has to come out
-true for the sound program and false for each fault a cell can have."""
+"""Every cell of ``BENCHMARK.json`` at a tiny size end to end through the
+harness on the CPU (``run.run_cell`` with ``device="cpu"`` skips the look
+for a card), sound and with the timed path broken underneath: ``correct``
+has to come out true for the sound program and false for each fault a cell
+can have. A cell without an entry in ``TINY`` takes the sizes of
+``tiny_sizes``."""
 
 import json
 from pathlib import Path
@@ -20,31 +22,44 @@ TINY = {
     "pair_1k.render120": ({"height": 36, "width": 44}, {"pool": 2, "frames": 4}),
     "video_1080p.clip30": ({"height": 36, "width": 44, "frames": 3}, {"pool": 2}),
 }
+CELLS = sorted(w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"])
 SEED = 2**31 + 12345
+
+
+def tiny_sizes(config, mix):
+    """36 x 44, 3 frames where the configuration has frames; a pool of 2, and
+    at most 4 frames where the mix has frames."""
+    over = {"height": 36, "width": 44, **({"frames": 3} if "frames" in config else {})}
+    mover = {"pool": 2, **({"frames": min(int(mix["frames"]), 4)} if "frames" in mix else {})}
+    return over, mover
 
 
 def tiny(name):
     cell = run.load_cell(ROOT, name)
-    over, mover = TINY[name]
+    over, mover = TINY.get(name) or tiny_sizes(cell.config, cell.mix)
     return cell._replace(config={**cell.config, **over}, mix={**cell.mix, **mover})
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("trace", [0, 1])
 def test_sound_cell_is_correct(name, trace):
-    res = run.run_cell(tiny(name), SEED, 0.0, bool(trace), "cpu")
+    cell = tiny(name)
+    res = run.run_cell(cell, SEED, 0.0, bool(trace), "cpu")
     assert res["correct"] is True
     assert list(res)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(res)[-1] == "check" and res["check"]
     assert all(c["value"] <= c["limit"] for c in res["check"].values())
     json.dumps(res)  # one JSON object
     if trace:
-        assert "solve_ms_per_morph" in res["metrics"] and "frames_per_s" not in res["metrics"]
+        per_layer = {m["name"] for m in cell.per_layer}
+        assert res["metrics"] and set(res["metrics"]) <= per_layer
+        assert "solve_ms_per_morph" in res["metrics"] or "solve_ms_per_morph" not in per_layer
     else:
-        assert res["metrics"]["frames_per_s"]["value"] > 0 and res["metrics"]["setup_s"]["value"] > 0
+        assert set(res["metrics"]) == {m["name"] for m in cell.end_to_end}
+        assert all(m["value"] > 0 for m in res["metrics"].values())
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_broken_cell_is_not_correct(name, fault, monkeypatch):
     FAULTS[fault](monkeypatch)
