@@ -17,7 +17,11 @@ against its own pair path, on the CPU.
   re-chunk, a short block runs unpadded, the ``stats`` dicts carry the
   reference's keys; the frames handed back own their memory (pageable
   copies, not views of a staging buffer); ``_pad_block`` raises on an
-  oversize block and the runner on streams out of step.
+  oversize block and the runner on streams out of step;
+- the step hands back its solves (``results``) without changing its
+  frames, and those solves are ``solver.ctf.optimize_pair``'s; traced, it
+  logs its phases, one ``batch.step`` span and a ``render.frame`` span a
+  frame.
 """
 
 import numpy as np
@@ -30,12 +34,17 @@ from videomorphing_tpu.io.clips import open_clip_reader as jax_open_clip_reader
 from videomorphing_tpu.parallel import batch as jbatch
 from videomorphing_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from videomorphing_tpu_torch import api
+from videomorphing_tpu_torch.bench import make_clips_device
 from videomorphing_tpu_torch.config import MorphParams, SynthParams
 from videomorphing_tpu_torch.io.clips import open_clip_reader, write_vmc
 from videomorphing_tpu_torch.models.image_morph import ImageMorpher
 from videomorphing_tpu_torch.parallel import batch as tbatch
 from videomorphing_tpu_torch.parallel.mesh import make_mesh
 from videomorphing_tpu_torch.solver.constraints import rasterize_point_constraints
+from videomorphing_tpu_torch.solver.ctf import optimize_pair
+from videomorphing_tpu_torch.synth.paths import bulge_field
+from videomorphing_tpu_torch.synth.render import render_frame
+from videomorphing_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 H, W = 40, 48
@@ -204,3 +213,66 @@ def test_pad_block_and_stream_sync_raise():
     blk = np.zeros((1, H, W, 3), np.float32)
     with pytest.raises(ValueError, match="out of sync"):
         list(runner.run_clip_pair(iter([(0, blk)]), iter([(1, blk)]), 2, (H, W)))
+
+
+# --- the step's solves and spans ----------------------------------------------
+
+HW4 = (36, 44)
+SEED4 = 2**31 + 4321
+
+
+def _seeded_block(n=2):
+    """``n`` of the bench's seeded pairs at 36 x 44, stacked."""
+    pairs = [make_clips_device(1, *HW4, SEED4 + k, "cpu") for k in range(n)]
+    return torch.cat([a for a, _ in pairs]), torch.cat([b for _, b in pairs])
+
+
+def test_step_hands_back_its_solves_and_the_same_frames():
+    """Frames with ``results`` equal those without, bit for bit; each
+    result is ``optimize_pair``'s on its pair, and its field renders the
+    step's frames."""
+    i0s, i1s = _seeded_block()
+    mp, sp = MorphParams(**FAST), SynthParams()
+    step = tbatch.make_batch_step(mp, sp, make_mesh(devices=["cpu"] * 2), HW4, n_out=2)
+    pts = torch.zeros((2, 0, 2, 2))
+    ts = np.asarray([[0.25, 0.75], [0.5, 1.0]], np.float32)
+    results = []
+    frames = step(i0s, i1s, pts, ts, results=results)
+    assert torch.equal(frames, step(i0s, i1s, pts, ts))
+    assert len(results) == 2
+    for j, res in enumerate(results):
+        ref = optimize_pair(i0s[j], i1s[j], points=pts[j], params=mp)
+        assert torch.equal(res.v, ref.v) and res.n_levels == ref.n_levels == 2
+        assert len(res.level_stats) == len(ref.level_stats)
+        for got, want in zip(res.level_stats, ref.level_stats):
+            assert (got.e0, got.e_final, got.iters, got.step) == (want.e0, want.e_final, want.iters, want.step)
+            assert torch.equal(got.energy_history, want.energy_history)
+        b = bulge_field(res.v, sp)
+        for k in range(2):
+            assert torch.equal(frames[j, k], render_frame(i0s[j], i1s[j], res.v, b, ts[j, k], sp))
+
+
+def test_step_logs_its_phases_and_spans():
+    i0s, i1s = _seeded_block()
+    step = tbatch.make_batch_step(MorphParams(**FAST), SynthParams(), make_mesh(devices=["cpu"]), HW4, n_out=1)
+    profiling.clear()
+    try:
+        with profiling.record_phases() as rec:
+            step(i0s, i1s, torch.zeros((2, 0, 2, 2)), np.full((2, 1), 0.5, np.float32))
+        log = profiling.spans()
+    finally:
+        profiling.clear()
+    assert {"cold_solve", "bulges", "render"} <= set(rec) and all(rec[k] >= 0.0 for k in ("cold_solve", "render"))
+    steps = [s for s in log if s.name == "batch.step"]
+    assert len(steps) == 1
+    top = steps[0]
+    assert top.parent is None and top.counts == {"frames": 2}
+    assert top.attrs == {"pairs": 2, "n_out": 1, "h": HW4[0], "w": HW4[1]}
+    byid = {s.id: s for s in log}
+    frames = [s for s in log if s.name == "render.frame"]
+    assert len(frames) == 2 and all(byid[s.parent].name == "render" for s in frames)
+    levels = [s for s in log if s.name == "solve.level"]
+    assert len(levels) == 4 and all(byid[s.parent].name == "cold_solve" for s in levels)
+    assert all(s.trace == top.id and top.start_ns <= s.start_ns <= s.end_ns <= top.end_ns
+               for s in log if s is not top)
+

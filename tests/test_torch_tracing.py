@@ -12,7 +12,7 @@ readers of them.
 - the log is bounded and counts what it drops; ``phase_scope`` keeps its
   synced walls inside a recording; ``MetricsLogger.phase`` still emits
   its JSON line;
-- each of ``vmbench``'s six readers of the spans returns its value on a
+- each of ``vmbench``'s seven readers of the spans returns its value on a
   hand-built log and trace, and None without them.
 """
 
@@ -39,7 +39,8 @@ MP = MorphParams(n_levels=2, iters_coarse=6, iters_fine=3)
 SP = SynthParams()
 TS = np.array([0.0, 0.5], np.float32)
 READERS = ("solve_reads_per_iter", "armijo_trials_per_iter", "solve_read_wait_pct",
-           "solve_kernels_per_iter", "solve_device_idle_pct", "render_host_ms_per_frame")
+           "solve_kernels_per_iter", "solve_device_idle_pct", "render_host_ms_per_frame",
+           "solve_fine_device_ms_per_iter")
 TOL_NS = 500_000
 
 
@@ -244,6 +245,7 @@ EXPECTED = {
     "solve_kernels_per_iter": 3 / 6,
     "solve_device_idle_pct": 100 * (1 - 0.85 / 1.5),
     "render_host_ms_per_frame": 5.0,
+    "solve_fine_device_ms_per_iter": 1e3 * 0.1 / 2,  # the 16 x 16 level: k3 busy 0.1 s, 2 iterations
 }
 
 
@@ -268,6 +270,7 @@ def test_reader_without_spans_or_trace_gives_none(name, monkeypatch):
     assert _reader(name)(_reading()) is None
     monkeypatch.setattr(profiling, "spans", lambda: list(LOG))
     no_trace = _reader(name)(_reading(trace=False))
-    assert (no_trace is None) == (name in ("solve_kernels_per_iter", "solve_device_idle_pct"))
+    assert (no_trace is None) == (name in ("solve_kernels_per_iter", "solve_device_idle_pct",
+                                           "solve_fine_device_ms_per_iter"))
     monkeypatch.delattr(profiling, "spans")  # a program that keeps no log
     assert _reader(name)(_reading()) is None

@@ -7,6 +7,9 @@ pairs split over a mesh (port of ``videomorphing_tpu/parallel/batch.py``).
   then each pair's bulge (``synth.paths.bulge_field``; none when
   ``quadratic_paths`` is off, as ``models.image_morph`` has it) and one
   ``render_frame`` per output time, in turn, so the peak holds one frame.
+  Traced (``utils.profiling``), a step is a ``batch.step`` span around the
+  phases ``cold_solve``, ``bulges`` and ``render``, each frame a
+  ``render.frame`` span.
 - :class:`StreamingBatchRunner`: the host pipeline of a streamed clip pair.
 - :func:`run_manifest`: many independent image-pair jobs in mesh-sized
   blocks.
@@ -48,6 +51,7 @@ from videomorphing_tpu_torch.parallel.frames import optimize_pairs_batched, shar
 from videomorphing_tpu_torch.parallel.mesh import as_mesh
 from videomorphing_tpu_torch.synth.paths import bulge_field
 from videomorphing_tpu_torch.synth.render import render_frame
+from videomorphing_tpu_torch.utils.profiling import count, phase_scope, span
 
 
 def make_batch_step(
@@ -62,35 +66,52 @@ def make_batch_step(
 
     Signature of the returned function::
 
-        step(i0s, i1s, points, ts) -> frames
+        step(i0s, i1s, points, ts, results=None) -> frames
         i0s, i1s : (B, H, W, C) tensors; B at most the mesh's ``axis`` size
                    in the runners, any B >= 1 here
         points   : (B, N, 2, 2) per-pair correspondences (N may be 0)
         ts       : (B, n_out) per-pair morph times (host array)
+        results  : optional list; each pair's ``solver.ctf.OptimizeResult``
+                   (its field, ``level_stats`` and ``n_levels``) is appended
+                   in the block's order, as ``optimize_pairs_batched`` hands
+                   them back: the solves the frames were rendered from
         frames   : (B, n_out, H, W, C) on ``i0s``' device
 
     ``n_out=1`` is the clip-batch mode (each pair gives one frame at its
     time); manifest jobs use ``n_out=n_frames``. Each pair solves and
     renders on its device of the mesh.
+
+    Traced (``utils.profiling``), a step is one ``batch.step`` span
+    (attributes ``pairs``, ``n_out``, ``h``, ``w``; counter ``frames``)
+    around the phases ``cold_solve`` (the block's solves, with their
+    ``solve.level`` spans), ``bulges`` and ``render`` (each pair's, summed
+    over the block), and each frame is a ``render.frame`` span. Off, each
+    costs one check.
     """
     devs = as_mesh(mesh).axis_devices(axis)
     h, w = hw
 
-    def step(i0s, i1s, points, ts) -> torch.Tensor:
+    def step(i0s, i1s, points, ts, results: Optional[list] = None) -> torch.Tensor:
         bsz = i0s.shape[0]
         ts = np.asarray(ts.detach().cpu() if isinstance(ts, torch.Tensor) else ts, np.float32)
         if tuple(i0s.shape[1:3]) != (h, w) or i1s.shape != i0s.shape:
             raise ValueError(f"pairs of {tuple(i0s.shape)} / {tuple(i1s.shape)} for a step of {hw}")
         if ts.shape != (bsz, n_out) or bsz < 1:
             raise ValueError(f"times {ts.shape} for a block of {bsz} x {n_out}")
-        vs = optimize_pairs_batched(i0s, i1s, mesh, mp, points, axis)
-        frames = torch.empty((bsz, n_out) + tuple(i0s.shape[1:]), dtype=i0s.dtype, device=i0s.device)
-        for dev, sl in zip(devs, shares(bsz, len(devs))):
-            for j in range(sl.start, sl.stop):
-                i0, i1, v = (x.to(dev) for x in (i0s[j], i1s[j], vs[j]))
-                b = bulge_field(v, sp) if sp.quadratic_paths else None
-                for k in range(n_out):
-                    frames[j, k] = render_frame(i0, i1, v, b, ts[j, k], sp)
+        with span("batch.step", pairs=bsz, n_out=n_out, h=h, w=w):
+            count("frames", bsz * n_out)
+            with phase_scope("cold_solve"):
+                vs = optimize_pairs_batched(i0s, i1s, mesh, mp, points, axis, results)
+            frames = torch.empty((bsz, n_out) + tuple(i0s.shape[1:]), dtype=i0s.dtype, device=i0s.device)
+            for dev, sl in zip(devs, shares(bsz, len(devs))):
+                for j in range(sl.start, sl.stop):
+                    i0, i1, v = (x.to(dev) for x in (i0s[j], i1s[j], vs[j]))
+                    with phase_scope("bulges"):
+                        b = bulge_field(v, sp) if sp.quadratic_paths else None
+                    with phase_scope("render"):
+                        for k in range(n_out):
+                            with span("render.frame"):
+                                frames[j, k] = render_frame(i0, i1, v, b, ts[j, k], sp)
         return frames
 
     return step

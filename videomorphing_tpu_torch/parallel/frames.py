@@ -113,12 +113,18 @@ def optimize_pairs_batched(
     params: MorphParams = MorphParams(),
     points: Optional[torch.Tensor] = None,
     axis: str = "batch",
+    results: Optional[list] = None,
 ) -> torch.Tensor:
     """Coarse-to-fine solves of a batch of pairs (B, H, W, C), B split over
     the mesh by :func:`shares`: each device solves its pairs one after
     another. B need not divide over the devices (the reference's sharded
     jit needs that; a short block leaves the last devices idle here).
-    Returns (B, H, W, 2) fields on ``i0s``' device."""
+    Returns (B, H, W, 2) fields on ``i0s``' device.
+
+    ``results``: optional list; each pair's ``solver.ctf.OptimizeResult``
+    (``v`` on its device of the mesh, ``level_stats``, ``n_levels``) is
+    appended to it in the block's order, as ``optimize_pair`` returned it.
+    The fields returned are copies of those ``v``, bit for bit."""
     from videomorphing_tpu_torch.solver.ctf import optimize_pair
 
     devs = as_mesh(mesh).axis_devices(axis)
@@ -129,4 +135,6 @@ def optimize_pairs_batched(
             pts = None if points is None else points[j].to(dev)
             res = optimize_pair(i0s[j].to(dev), i1s[j].to(dev), points=pts, params=params)
             out.append(res.v.to(i0s.device))
+            if results is not None:
+                results.append(res)
     return torch.stack(out, 0)
