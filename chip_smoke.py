@@ -149,13 +149,24 @@ Phases:
      non-contiguous inputs at 512 x 512; ``with_aux`` runs eagerly; the
      ``graph_captures``/``graph_replays`` counters of the ``render.frame``
      span; each frame's call time replayed and eager.
+ 22. the level solver's CUDA graphs (``solver_graphs``): each level of
+     ``SOLVER_GRAPH_CASES`` (64^2, 1024^2, 1080 x 1920 and 2160 x 3840; 2
+     and 4 colours, the bf16 pack, a re-warp every iteration, the median
+     off) solved eagerly (``eager_levels``) and twice as graph replays, the
+     field and every ``LevelStats`` field bitwise, one capture a key, the
+     span's ``graph_iters`` its iterations and its ``reads`` its Armijo
+     trials, the kernels' counters as the eager loop's (the capture's
+     warm-up beside); ``optimize_pair`` at ``SOLVER_GRAPH_PAIR_N``^2 and the
+     video's warm solve at ``SOLVER_GRAPH_VIDEO_HW`` the same way, a second
+     morph capturing nothing; the 4K pair's 8-level solve with its peak
+     memory and the memory its graphs keep; each solve's wall both ways.
 
 A repeated-device mesh runs its blocks one after another on the card: a
 correctness path, not a speed-up. Any failure raises and exits non-zero.
 The card's name and power limit, then one JSON object with a record per
 kernel, the bf16 forms and the wide strip's launches of kernels 1, 2, 1s
 and 2s (``<name>_wide``, timed at window 17) as records of their own
-(launches summed over the paths of phases 3-5, 7, 8 and 10-21;
+(launches summed over the paths of phases 3-5, 7, 8 and 10-22;
 ``ms`` and ``library_ms`` device times, ``plain_ms`` a call time), are the
 lines before the last; the last line is ``{"ok": true, "device":
 {...}}``. With no CUDA device it exits 1 and prints no result.
@@ -270,6 +281,19 @@ BF16_PARITY_WINDOWS = (3, 5, 11)
 ENERGY_STRIP_HW = ((17, 30), (53, 37))
 ENERGY_STRIP_WINDOWS = (9, 11, 13, 15)
 ENERGY_STRIP_SHARD_WINDOWS = (9, 11, 15)
+# phase 22's levels ((h, w), MorphParams overrides, iterations), its whole
+# pair solve and its video warm solve; module constants so a rehearsal can
+# shrink them
+SOLVER_GRAPH_CASES = (
+    ((64, 64), {}, 40), ((64, 64), {"n_colors": 4, "relin_every": 1}, 30),
+    ((1024, 1024), {}, 30), ((1024, 1024), {"n_colors": 4}, 30), ((1024, 1024), {"pack_dtype": "bfloat16"}, 30),
+    ((1024, 1024), {"relin_every": 1, "relin_median": False}, 20),
+    ((1080, 1920), {}, 30), ((1080, 1920), {"pack_dtype": "bfloat16", "n_colors": 4}, 20),
+    ((2160, 3840), {}, 20), ((2160, 3840), {"pack_dtype": "bfloat16"}, 20),
+)
+SOLVER_GRAPH_PAIR_N = 1024
+SOLVER_GRAPH_VIDEO_HW = (1080, 1920)
+SOLVER_GRAPH_4K_HW = (2160, 3840)
 BASE = ("halfway_warp", "bilinear_sample", "bilinear_sample_batched", "sweep_grad", "sweep_energy")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -2234,6 +2258,9 @@ def record_forms():
 
     seen: set = set()
     grad, shard = descent.sweep_grad, spatial.sweep_grad_shard
+    # a level's steps run in Python only when its graphs are captured: drop
+    # the graphs, so that every level of the block is seen
+    descent._graphs.clear()
 
     def whole(planes, v_lin, v, data, p):
         seen.add(("level", planes.shape[1], planes.shape[2], planes.dtype))
@@ -2639,6 +2666,159 @@ def render_graphs(dev, card: str) -> dict:
     return read_counters(counters)
 
 
+@contextlib.contextmanager
+def eager_levels():
+    """Every level solve inside the block runs its steps eagerly, as on the
+    CPU (``descent.replayable`` answers no)."""
+    from videomorphing_tpu_torch.solver import descent
+
+    replayable = descent.replayable
+    descent.replayable = lambda tensors: False
+    try:
+        yield
+    finally:
+        descent.replayable = replayable
+
+
+def same_level_stats(a, b) -> bool:
+    """Two ``LevelStats`` equal field for field, the histories' NaNs in
+    the same places."""
+    import torch
+
+    return ((a.e0, a.e_final, a.iters, a.step) == (b.e0, b.e_final, b.iters, b.step)
+            and torch.equal(a.energy_history.isnan(), b.energy_history.isnan())
+            and torch.equal(a.energy_history.nan_to_num(), b.energy_history.nan_to_num()))
+
+
+def solver_graphs(dev, card: str) -> dict:
+    """Phase 22: the level solver on the card replays CUDA graphs of its
+    steps, bitwise the eager loop (``eager_levels``)."""
+    import dataclasses
+
+    import torch
+
+    from videomorphing_tpu_torch.config import MorphParams, VideoParams
+    from videomorphing_tpu_torch.solver import descent
+    from videomorphing_tpu_torch.solver.constraints import rasterize_point_constraints
+    from videomorphing_tpu_torch.solver.ctf import optimize_pair
+    from videomorphing_tpu_torch.solver.energy import make_level_data
+    from videomorphing_tpu_torch.utils import profiling
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
+    from videomorphing_tpu_torch.video.pipeline import _make_warm_solver
+
+    counters = reset_counters()
+    descent._graphs.clear()
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    def pair(h, w, seed):
+        clip_a, clip_b = make_clips(1, h, w, seed=seed)
+        return put(clip_a[0]), put(clip_b[0]), put(bench_points(h, w))
+
+    def timed(fn):
+        """(fn(), its wall in s, the launches it counted, the new
+        ``solve.level`` spans)."""
+        profiling.clear()
+        before = read_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profiling.record_phases():
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = read_counters(counters)
+        levels = [s for s in profiling.spans() if s.name == "solve.level"]
+        return out, wall, {k: after[k] - before[k] for k in after if after[k] != before[k]}, levels
+
+    def check_spans(levels, what, captures):
+        for s in levels:
+            c = s.counts
+            require(c.get("graph_iters") == s.attrs["iters"] and c.get("reads") == c.get("armijo_trials"),
+                    f"{what}: level {s.attrs['h']}x{s.attrs['w']} counted {c}, {s.attrs['iters']} iterations")
+        got = sum(s.counts.get("graph_captures", 0) for s in levels)
+        require(got == captures, f"{what}: {got} captures, expected {captures}")
+
+    for (h, w), overrides, n in SOLVER_GRAPH_CASES:
+        p = dataclasses.replace(MorphParams(), **overrides)
+        i0, i1, pts = pair(h, w, h + w)
+        ui_w, ui_v = rasterize_point_constraints(pts, (h, w), p.ui_sigma, torch.float32, dev)
+        data = make_level_data(i0, i1, ui_w, ui_v)
+        v0 = put(smooth_field(h, w, 2.0, h))
+        what = f"{h}x{w} {overrides or 'defaults'}, {n} iterations"
+        with eager_levels():
+            (v_e, st_e), t_e, l_e, _ = timed(lambda: descent.make_level_solver(p, n)(v0, data))
+        runs = [timed(lambda: descent.make_level_solver(p, n)(v0, data)) for _ in range(2)]
+        for k, ((v_g, st_g), _, l_g, levels) in enumerate(runs):
+            require(torch.equal(v_g, v_e) and same_level_stats(st_g, st_e),
+                    f"{what}, replay {k}: max |dv| {float((v_g - v_e).abs().max()):.3e}, stats {st_g} / {st_e}")
+            check_spans(levels, what, int(k == 0))
+        dt = descent.pack_dtype_for(p, h, w, dev)
+        sfx = "_bf16" if dt == torch.bfloat16 else ""
+        warm_up = {"halfway_warp" + sfx: 1, "sweep_grad" + sfx: p.n_colors, "sweep_energy" + sfx: p.n_colors + 1}
+        first = {k: runs[0][2].get(k, 0) - l_e.get(k, 0) for k in set(runs[0][2]) | set(l_e)}
+        require({k: v for k, v in first.items() if v} == warm_up and runs[1][2] == l_e,
+                f"{what}: launches eager {l_e}, replayed {runs[0][2]} then {runs[1][2]}")
+        log(f"  {what}: bitwise the eager loop (iters {st_e.iters}, e {st_e.e0:.6f} -> {st_e.e_final:.6f}), "
+            f"one capture; eager {1e3 * t_e:.1f} ms, replayed {1e3 * runs[1][1]:.1f} ms "
+            f"({1e3 * runs[1][1] / max(st_e.iters, 1):.3f} ms an iteration) on {card}")
+
+    def whole_pair(n, seed):
+        i0, i1, pts = pair(n, n, seed)
+        return lambda: optimize_pair(i0, i1, pts, MorphParams(n_levels=5))
+
+    solve_a = whole_pair(SOLVER_GRAPH_PAIR_N, 2201)
+    descent._graphs.clear()
+    with eager_levels():
+        want, t_e, _, _ = timed(solve_a)
+    got, t_first, _, levels = timed(solve_a)
+    check_spans(levels, "optimize_pair, first", len(got.level_stats))
+    require(torch.equal(got.v, want.v) and all(map(same_level_stats, got.level_stats, want.level_stats)),
+            "optimize_pair: the replays differ from the eager loop")
+    got2, t_g, _, levels = timed(whole_pair(SOLVER_GRAPH_PAIR_N, 2202))
+    check_spans(levels, "optimize_pair, a second pair", 0)
+    log(f"  optimize_pair {SOLVER_GRAPH_PAIR_N}^2, 5 levels, 4 points: bitwise the eager loop, "
+        f"{sum(s.iters for s in got.level_stats)} iterations; eager {t_e:.3f} s, first (captures) {t_first:.3f} s, "
+        f"a second pair {t_g:.3f} s, no capture; {len(descent._graphs.keys())} levels kept")
+
+    (h, w), vp = SOLVER_GRAPH_VIDEO_HW, VideoParams()
+    i0, i1, pts = pair(h, w, 2203)
+    v_init = put(smooth_field(h, w, 3.0, 2204))
+    tc_w = torch.full((h, w, 1), 0.5, device=dev)
+    warm = _make_warm_solver(MorphParams(), (h, w), vp)
+    with eager_levels():
+        (v_e, it_e), t_e, _, _ = timed(lambda: warm(i0, i1, pts, v_init, v_init, tc_w))
+    runs = [timed(lambda: warm(i0, i1, pts, v_init, v_init, tc_w)) for _ in range(2)]
+    for (v_g, it_g), _, _, levels in runs:
+        require(torch.equal(v_g, v_e) and it_g == it_e, f"video warm solve: the replays differ ({it_g} / {it_e})")
+    check_spans(runs[1][3], "video warm solve, again", 0)
+    log(f"  video warm solve {h}x{w} ({it_e} iterations): bitwise the eager loop; eager {1e3 * t_e:.1f} ms, "
+        f"replayed {1e3 * runs[1][1]:.1f} ms")
+
+    descent._graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    h, w = SOLVER_GRAPH_4K_HW
+    i0, i1, _ = pair(h, w, 2205)
+    solve_4k = lambda: optimize_pair(i0, i1, None, MorphParams())
+    got, t_first, _, levels = timed(solve_4k)
+    check_spans(levels, "4K optimize_pair", len(got.level_stats))
+    kept = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    with eager_levels():
+        want, t_e, _, _ = timed(solve_4k)
+    got, t_g, _, levels = timed(solve_4k)
+    check_spans(levels, "4K optimize_pair, again", 0)
+    require(torch.equal(got.v, want.v) and all(map(same_level_stats, got.level_stats, want.level_stats)),
+            "4K optimize_pair: the replays differ from the eager loop")
+    log(f"  4K optimize_pair, {len(got.level_stats)} levels: bitwise the eager loop; eager {t_e:.3f} s, first "
+        f"(captures) {t_first:.3f} s, replayed {t_g:.3f} s; peak {peak / 2**30:.2f} GiB above the inputs, "
+        f"{kept / 2**30:.2f} GiB kept by the levels' graphs and buffers on {card}")
+    descent._graphs.clear()
+    torch.cuda.empty_cache()
+    return read_counters(counters)
+
+
 def main(argv) -> int:
     import torch
 
@@ -2745,10 +2925,14 @@ def main(argv) -> int:
     log("phase 21: render graphs (synth.render.render_frame replayed against its eager body, 1024x1024 and "
         "1080x1920, cache clears, a TF32 flip)")
     graph_launches = render_graphs(dev, card)
+    log("phase 22: solver graphs (make_level_solver replayed against its eager loop at 64^2 to 2160x3840, "
+        "optimize_pair, the video's warm solve, the 4K pyramid's memory)")
+    solver_graph_launches = solver_graphs(dev, card)
 
     paths = (launches, golden_launches, video_launches, layered_launches, layered_video_launches, spatial_launches,
              mesh_launches, manifest_launches, stream_launches, stressor_launches, edit_launches, rows_launches,
-             examples_launches, wide_launches, bf16_launches, bench_launches, graph_launches)
+             examples_launches, wide_launches, bf16_launches, bench_launches, graph_launches,
+             solver_graph_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]

@@ -8,7 +8,8 @@ readers of them.
   range in the kineto trace at both ends and nests under its parent;
 - a level's ``iters`` are its ``LevelStats.iters``, its ``reads`` are the
   ``.item()``/``.tolist()`` calls made inside it, each a ``host.read``
-  span, and every iteration reads once besides its Armijo trials;
+  span, and it reads once an Armijo trial: an iteration reads once, with
+  its first trial, and each backtrack once;
 - the log is bounded and counts what it drops; ``phase_scope`` keeps its
   synced walls inside a recording; ``MetricsLogger.phase`` still emits
   its JSON line;
@@ -186,7 +187,7 @@ def test_level_counters_match_the_solver(fresh, monkeypatch):
     assert [(s.attrs["h"], s.attrs["w"]) for s in levels] == [(H // 2, W // 2), (H, W)]
     assert sum(s.counts["reads"] for s in levels) == reads["n"] > 0
     for s in levels:
-        assert s.counts["reads"] == s.attrs["iters"] + s.counts["armijo_trials"]
+        assert s.counts["reads"] == s.counts["armijo_trials"]
         assert s.counts["armijo_trials"] >= s.attrs["iters"] > 0
         assert sum(r.name == "host.read" and r.parent == s.id for r in profiling.spans()) == s.counts["reads"]
 

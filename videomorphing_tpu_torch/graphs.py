@@ -1,5 +1,6 @@
-"""What a captured CUDA graph needs around it: cached device constants that
-it can hold on to, and a bounded cache of graphs.
+"""What a captured CUDA graph needs around it: the test of whether work can
+be a replay, cached device constants that it can hold on to, and a bounded
+cache of graphs.
 
 A CUDA graph replays its launches on the addresses it was captured with.
 A tensor that it reads but did not allocate, such as a DCT basis that an
@@ -15,9 +16,23 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
-from typing import Callable, Hashable, Optional
+from typing import Callable, Hashable, Optional, Sequence
+
+import torch
 
 _collected: Optional[list] = None
+
+
+def replayable(tensors: Sequence) -> bool:
+    """Whether work on ``tensors`` can run as a replay of a captured CUDA
+    graph: every one a tensor on one card, no capture open on the current
+    stream, no gradient wanted."""
+    if not tensors or not all(isinstance(t, torch.Tensor) for t in tensors):
+        return False
+    dev = tensors[0].device
+    return (dev.type == "cuda" and all(t.device == dev for t in tensors)
+            and not torch.cuda.is_current_stream_capturing()
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)))
 
 
 def constant_cache(maxsize: int):

@@ -95,6 +95,7 @@ import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import MorphParams
+from videomorphing_tpu_torch.graphs import constant_cache
 from videomorphing_tpu_torch.kernels import build
 from videomorphing_tpu_torch.kernels.warp import PLANE_DTYPES, check_cuda_input, count_launch, on_cuda, stream_of
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, separable_filter
@@ -227,27 +228,25 @@ def kernel_radius(p: MorphParams) -> int:
     return (k - 1) // 2
 
 
-_TAPS: dict = {}
-
-
 def window_taps(p: MorphParams, device) -> torch.Tensor:
     """The window's 2R + 1 Gaussian taps (float32) on ``device``: the
     buffer ``VmSweepScalars.taps`` points at, made once per window, sigma
-    and device and kept (on a card, its copy is synchronized before use,
-    so no stream reads it early). Raises ``ValueError`` unless the taps are
-    symmetric, ``taps[t] == taps[2R - t]`` exactly: the energy strip holds
-    R + 1 of them."""
-    dev = torch.device(device)
-    key = (int(p.ssim_window), float(p.ssim_sigma), dev)
-    taps = _TAPS.get(key)
-    if taps is None:
-        values = gaussian_taps(key[0], key[1])
-        if values != values[::-1]:
-            raise ValueError(f"the taps of window {key[0]}, sigma {key[1]} are not symmetric: {values}")
-        taps = torch.tensor(values, dtype=torch.float32).to(dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        _TAPS[key] = taps
+    and device and cached (:func:`~videomorphing_tpu_torch.graphs.constant_cache`,
+    so that a captured graph that reads it keeps it; on a card, its copy is
+    synchronized before use, so no stream reads it early). Raises
+    ``ValueError`` unless the taps are symmetric, ``taps[t] == taps[2R - t]``
+    exactly: the energy strip holds R + 1 of them."""
+    return _window_taps(int(p.ssim_window), float(p.ssim_sigma), torch.device(device))
+
+
+@constant_cache(maxsize=64)
+def _window_taps(window: int, sigma: float, dev: torch.device) -> torch.Tensor:
+    values = gaussian_taps(window, sigma)
+    if values != values[::-1]:
+        raise ValueError(f"the taps of window {window}, sigma {sigma} are not symmetric: {values}")
+    taps = torch.tensor(values, dtype=torch.float32).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     return taps
 
 

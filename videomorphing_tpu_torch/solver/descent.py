@@ -22,8 +22,13 @@ reference's jnp path is. ``fused_warp``, ``warp_into_pack`` and
 
 The level loop runs in Python and keeps v, the warp planes and the step
 direction on the device; it reads back only the scalars the loop
-conditions and the Armijo test need, and does that scalar arithmetic in
-float32 as the reference's ``lax.while_loop`` does.
+conditions and the Armijo test need, once an iteration and once a
+backtrack, and does that scalar arithmetic in float32 as the reference's
+``lax.while_loop`` does. Between two reads the card runs a fixed chain of
+about sixty launches on fixed shapes, which the host takes longer to issue
+than the card to run, so on the card each such chain is a replay of a CUDA
+graph captured once per level signature (:func:`level_graph_key`), as the
+render's frames are (``synth/render.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import MorphParams
+from videomorphing_tpu_torch.graphs import LRU, collect_constants, replayable
 from videomorphing_tpu_torch.kernels.sweep import pack_dtype, pack_maps, quantize_v_lin, sweep_energy, sweep_grad
 from videomorphing_tpu_torch.kernels.warp import bundle_from_planes, halfway_warp
 from videomorphing_tpu_torch.ops.ssim import dssim_grad_bundle, dssim_map
@@ -257,6 +263,191 @@ def _read(t: torch.Tensor):
         return t.item() if t.numel() == 1 else t.tolist()
 
 
+def level_masks(h: int, w: int, n_colors: int, dtype=torch.float32, device=None):
+    """``(boundary mask, (colour mask, ...))`` of an h x w level: the
+    :func:`boundary_mask` and the ``n_colors`` :func:`color_mask` maps,
+    made once per level."""
+    return (boundary_mask(h, w, dtype, device),
+            tuple(color_mask(h, w, c, n_colors, dtype, device) for c in range(n_colors)))
+
+
+class _Level:
+    """A level's device state between two reads, which the steps below
+    write in place: the field ``v``, the trial field ``v_try``, the step
+    ``d``, the linearization (``planes``, ``v_lin``), the step length
+    ``alpha`` (0-d), the read vector ``out`` (E(v), <grad, d>, E(v_try)),
+    the level's data with its maps in the pack's dtype ``dt``, and the
+    masks."""
+
+    def __init__(self, v: torch.Tensor, data: LevelData, dt: torch.dtype, masks=None):
+        self.v, self.data, self.dt = v, data, dt
+        self.v_try, self.d, self.v_lin = torch.empty_like(v), torch.empty_like(v), torch.empty_like(v)
+        self.planes = None
+        self.alpha = v.new_zeros(())
+        self.out = v.new_zeros((3,))
+        self.bmask, self.cmasks = masks if masks is not None else (None, ())
+
+
+def _median_step(s: _Level, p: MorphParams) -> None:
+    """The re-warp's 3x3 median of the field, the boundary kept."""
+    s.v.copy_(s.v + (median3x3(s.v) - s.v) * s.bmask)
+
+
+def _warp_step(s: _Level, p: MorphParams) -> None:
+    """Re-warp both images (kernel 3) at the field rounded to the pack's
+    dtype, the linearization point ``v_lin``."""
+    s.v_lin.copy_(s.v if s.dt == torch.float32 else quantize_v_lin(s.v, p))
+    s.planes = halfway_warp(s.data.i0, s.data.i1, s.v_lin, s.dt)
+
+
+def _try(s: _Level, p: MorphParams) -> torch.Tensor:
+    """The linearized energy (kernel 2) at ``v_try = v + alpha d``, the
+    product and the sum two float32 ops as with a Python ``alpha``."""
+    torch.add(s.v, s.alpha * s.d, out=s.v_try)
+    return sweep_energy(s.planes, s.v_lin, s.v_try, s.data, p)
+
+
+def _iterate_step(s: _Level, p: MorphParams, color: int) -> None:
+    """Energy, gradient and preconditioner at ``v`` (kernel 1), the step
+    ``d`` masked to ``color`` and the boundary and clamped against
+    foldover, and the first trial: ``out`` = (E(v), <grad, d>, E(v_try))."""
+    e_cur, grad, precond = sweep_grad(s.planes, s.v_lin, s.v, s.data, p)
+    d = (-grad / precond) * s.cmasks[color] * s.bmask
+    s.d.copy_(foldover_scale(s.v, d, p.fold_margin))
+    torch.stack([e_cur, torch.sum(grad * s.d), _try(s, p)], out=s.out)
+
+
+def _trial_step(s: _Level, p: MorphParams) -> None:
+    """A backtrack: ``out[2]`` = E(v_try) at the new ``alpha``."""
+    s.out[2].copy_(_try(s, p))
+
+
+def _steps(s: _Level, p: MorphParams) -> dict:
+    """The level's steps by name, the warp first (the others read its
+    planes): ``"warp"``, ``"median"`` (with ``relin_median``), one
+    ``("iterate", colour)`` per colour, ``"trial"``."""
+    steps = {"warp": lambda: _warp_step(s, p)}
+    if p.relin_median:
+        steps["median"] = lambda: _median_step(s, p)
+    for c in range(len(s.cmasks)):
+        steps[("iterate", c)] = lambda c=c: _iterate_step(s, p, c)
+    steps["trial"] = lambda: _trial_step(s, p)
+    return steps
+
+
+def _load(s: _Level, v: torch.Tensor, data: LevelData) -> None:
+    """Copy a call's field and data into a level's buffers (the maps cast
+    to the pack's dtype as :func:`~videomorphing_tpu_torch.kernels.sweep.pack_maps` casts them)."""
+    s.v.copy_(v)
+    for buf, x in zip(s.data, data):
+        buf.copy_(x)
+
+
+# ---------------------------------------------------------------------------
+# the level's CUDA graphs
+# ---------------------------------------------------------------------------
+
+LEVEL_GRAPHS_KEPT = 12  # levels whose graphs are kept (a 4K pyramid has 8); the least recently used is freed first
+
+# the MorphParams fields that the captured launches read; the others only steer the host's loop
+GRAPH_FIELDS = ("ssim_window", "ssim_sigma", "ssim_c1", "ssim_c2", "ssim_use_luminance", "lambda_tps",
+                "gamma_ui", "beta_tc", "precond_eps", "fold_margin", "n_colors", "relin_median")
+
+# the kernel wrappers whose launch counters a replay advances by what its capture recorded
+_KERNELS = (sweep_grad, sweep_energy, halfway_warp)
+
+
+def level_graph_key(device, stream, specs, pack: torch.dtype, p: MorphParams) -> tuple:
+    """The cache key of a level's CUDA graphs: everything the captured
+    launches depend on but the values of the field and the data. ``specs``:
+    ``(shape, dtype)`` of ``v`` and of each ``LevelData`` field (H, W, C,
+    the dtypes); ``stream``: the stream the replays run on; ``pack``: the
+    sweeps' pack dtype (:func:`pack_dtype_for`); of ``p``, the
+    :data:`GRAPH_FIELDS`."""
+    return (device, stream, specs, pack, tuple(getattr(p, f) for f in GRAPH_FIELDS))
+
+
+class _LevelGraphs(NamedTuple):
+    state: _Level       # the buffers the graphs read and write
+    graphs: dict        # step name -> its captured graph
+    launches: dict      # step name -> ((kernel wrapper, counter, launches in one replay), ...)
+    constants: tuple    # cached constants the graphs read (the window's taps), held alive
+
+
+_graphs = LRU(LEVEL_GRAPHS_KEPT)
+
+
+def _launch_counts() -> dict:
+    return {(fn, k): n for fn in _KERNELS for k, n in vars(fn).items() if k.startswith("launches")}
+
+
+def _capture_step(step, pool, stream):
+    """A CUDA graph of ``step()``, captured on ``stream`` into ``pool``,
+    and the launches it holds, which the counters do not keep (none ran)."""
+    before = _launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool)
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    launches = []
+    for (fn, k), n in before.items():
+        if getattr(fn, k) != n:
+            launches.append((fn, k, getattr(fn, k) - n))
+            setattr(fn, k, n)
+    return graph, tuple(launches)
+
+
+def _capture_level(v: torch.Tensor, data: LevelData, p: MorphParams, dt: torch.dtype) -> _LevelGraphs:
+    """Make a level's buffers and masks, load them, run every step once on
+    a side stream (which builds the kernels and fills the window's taps,
+    whose host-to-device copy cannot be captured), then capture each step
+    on that stream into one memory pool."""
+    dev = v.device
+    maps = ("ui_w", "ui_v", "tc_w", "tc_v")
+    bufs = LevelData(**{k: torch.empty(x.shape, dtype=dt if k in maps else x.dtype, device=dev)
+                        for k, x in data._asdict().items()})
+    s = _Level(torch.empty(v.shape, dtype=v.dtype, device=dev), bufs, dt,
+               level_masks(v.shape[0], v.shape[1], p.n_colors, v.dtype, dev))
+    _load(s, v, data)
+    steps = _steps(s, p)
+    current = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        for step in steps.values():
+            step()
+    current.wait_stream(side)
+    pool = torch.cuda.graph_pool_handle()
+    graphs, launches = {}, {}
+    with collect_constants() as constants:
+        for name, step in steps.items():
+            graphs[name], launches[name] = _capture_step(step, pool, side)
+    profiling.count("graph_captures")
+    return _LevelGraphs(s, graphs, launches, tuple(constants))
+
+
+def _replaying(v: torch.Tensor, data: LevelData, p: MorphParams, dt: torch.dtype):
+    """``(state, run)`` of a level as graph replays: the graphs of its key
+    (captured on a miss) with the call's field and data loaded, and
+    ``run(name)``, which replays a step's graph and advances the kernels'
+    launch counters by its launches."""
+    dev = v.device
+    specs = tuple((tuple(x.shape), x.dtype) for x in (v,) + tuple(data))
+    key = level_graph_key(dev, torch.cuda.current_stream(dev).cuda_stream, specs, dt, p)
+    entry = _graphs.get(key, lambda: _capture_level(v, data, p, dt))
+    _load(entry.state, v, data)
+
+    def run(name) -> None:
+        entry.graphs[name].replay()
+        for fn, k, n in entry.launches[name]:
+            setattr(fn, k, getattr(fn, k) + n)
+
+    return entry.state, run
+
+
 def make_level_solver(p: MorphParams, n_iters: int):
     """The per-level solve ``(v, data) -> (v', LevelStats)``.
 
@@ -266,12 +457,24 @@ def make_level_solver(p: MorphParams, n_iters: int):
     (:func:`pack_dtype_for`, :func:`~videomorphing_tpu_torch.kernels.sweep.quantize_v_lin`).
     Per iteration: energy, gradient and preconditioner (kernel 1); a masked,
     foldover-clamped preconditioned step; Armijo backtracking on the
-    linearized energy (kernel 2 per trial).
+    linearized energy (kernel 2 per trial). The host reads once an
+    iteration, (E(v), <grad, d>) with the first trial's energy at the
+    current step, and once a backtrack; it makes every decision.
+
+    On a card (every tensor on it, no capture open, no gradient wanted,
+    ``n_iters`` > 0) each step between two reads is a replay of a CUDA
+    graph, captured once per :func:`level_graph_key` and kept in an LRU of
+    :data:`LEVEL_GRAPHS_KEPT` levels: an iteration of each colour, a
+    backtrack, the re-warp and the median. The field and the data are
+    copied into the graphs' buffers, the step length enters as a 0-d
+    device tensor, and the field returned is a copy. Elsewhere the same
+    steps run eagerly; both give the same bits.
 
     Traced, each call is a ``solve.level`` span (attributes ``h``, ``w``,
     ``n_iters``, on exit ``iters``) that counts its ``armijo_trials``
-    (kernel 2 calls of the line search) and ``reads`` (device-to-host
-    reads, each a ``host.read`` span).
+    (kernel 2 calls of the line search), ``reads`` (device-to-host reads,
+    each a ``host.read`` span), ``graph_iters`` (iterations run as graph
+    replays) and ``graph_captures``.
     """
     armijo_c, shrink, grow = f32(p.armijo_c), f32(p.step_shrink), f32(p.step_grow)
     min_step, tol = f32(p.min_step), f32(p.tol)
@@ -284,22 +487,27 @@ def make_level_solver(p: MorphParams, n_iters: int):
 
     def run(v: torch.Tensor, data: LevelData):
         h, w = v.shape[0], v.shape[1]
-        v = v.contiguous()
-        bmask = boundary_mask(h, w, v.dtype, v.device)
-        hist = torch.full((max(n_iters, 0),), float("nan"), dtype=torch.float32)
         dt = pack_dtype_for(p, h, w, v.device)
-        data_k = pack_maps(data, dt)
-
-        def linearize(v_):
-            """(the warp planes, v_lin) of a re-warp at ``v_``."""
-            v_q = v_ if dt == torch.float32 else quantize_v_lin(v_, p)
-            return halfway_warp(data.i0, data.i1, v_q, dt), v_q
-
         if n_iters <= 0:
-            e0 = f32(_read(sweep_energy(*linearize(v), v, data_k, p)))
-            return v, LevelStats(e0=float(e0), e_final=float(e0), iters=0,
-                                 step=float(f32(p.init_step)), energy_history=hist)
+            s = _Level(v.contiguous(), pack_maps(data, dt), dt)
+            _warp_step(s, p)
+            e0 = f32(_read(sweep_energy(s.planes, s.v_lin, s.v, s.data, p)))
+            return s.v, LevelStats(e0=float(e0), e_final=float(e0), iters=0, step=float(f32(p.init_step)),
+                                   energy_history=torch.full((0,), float("nan"), dtype=torch.float32))
+        if replayable((v,) + tuple(data)):
+            with torch.cuda.device(v.device):
+                s, go = _replaying(v, data, p, dt)
+                v, stats = descend(s, go, True)
+                return v.clone(), stats
+        s = _Level(v.clone(memory_format=torch.contiguous_format), pack_maps(data, dt), dt,
+                   level_masks(h, w, p.n_colors, v.dtype, v.device))
+        steps = _steps(s, p)
+        return descend(s, lambda name: steps[name](), False)
 
+    def descend(s: _Level, go, graphed: bool):
+        """The loop: ``go(name)`` runs a step; the host reads, decides and
+        keeps the float32 scalars."""
+        hist = torch.full((n_iters,), float("nan"), dtype=torch.float32)
         relin = max(int(p.relin_every), 1)
         step, e, e0 = f32(p.init_step), f32(0.0), f32(0.0)
         stall, it = 0, 0
@@ -307,36 +515,35 @@ def make_level_solver(p: MorphParams, n_iters: int):
         def cond():
             return it < n_iters and stall <= p.n_colors and step > min_step
 
+        def trial(name, alpha):
+            s.alpha.fill_(float(alpha))
+            go(name)
+            profiling.count("armijo_trials")
+
         while cond():
             it0 = it
             if p.relin_median and it0 > 0:
-                v = v + (median3x3(v) - v) * bmask
-            planes, v_lin = linearize(v)
+                go("median")
+            go("warp")
             while cond() and it < it0 + relin:
-                e_cur_t, grad, precond = sweep_grad(planes, v_lin, v, data_k, p)
-                cmask = color_mask(h, w, it % p.n_colors, p.n_colors, v.dtype, v.device)
-                d = (-grad / precond) * cmask * bmask
-                d = foldover_scale(v, d, p.fold_margin)
-                e_cur, gd = (f32(x) for x in _read(torch.stack([e_cur_t, torch.sum(grad * d)])))
+                alpha = step
+                trial(("iterate", it % p.n_colors), alpha)
+                if graphed:
+                    profiling.count("graph_iters")
+                e_cur, gd, e_try = (f32(x) for x in _read(s.out))
                 if it == 0:
                     e0 = e_cur
-
-                def trial(alpha):
-                    v_try = v + float(alpha) * d
-                    profiling.count("armijo_trials")
-                    return v_try, f32(_read(sweep_energy(planes, v_lin, v_try, data_k, p)))
-
-                alpha = step
-                v_try, e_try = trial(alpha)
                 tries = 0
                 while (e_try > e_cur + armijo_c * alpha * gd and tries < p.max_backtracks
                        and alpha > min_step):
                     alpha = alpha * shrink
-                    v_try, e_try = trial(alpha)
+                    trial("trial", alpha)
+                    e_try = f32(_read(s.out[2]))
                     tries += 1
                 accepted = e_try <= e_cur + armijo_c * alpha * gd
                 if accepted:
-                    v, e_new = v_try, e_try
+                    s.v.copy_(s.v_try)
+                    e_new = e_try
                     step = alpha * grow if tries == 0 else alpha
                 else:
                     e_new = e_cur
@@ -347,7 +554,7 @@ def make_level_solver(p: MorphParams, n_iters: int):
                 e = e_new
                 it += 1
 
-        return v, LevelStats(e0=float(e0), e_final=float(e), iters=it, step=float(step),
-                             energy_history=hist)
+        return s.v, LevelStats(e0=float(e0), e_final=float(e), iters=it, step=float(step),
+                               energy_history=hist)
 
     return solve

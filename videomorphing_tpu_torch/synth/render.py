@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import SynthParams
-from videomorphing_tpu_torch.graphs import LRU, collect_constants
+from videomorphing_tpu_torch.graphs import LRU, collect_constants, replayable
 from videomorphing_tpu_torch.kernels.warp import bilinear_sample, bilinear_sample_batched
 from videomorphing_tpu_torch.ops.pyramid import downsample_2x, resize_bilinear
 from videomorphing_tpu_torch.ops.resample import bicubic_sample, grid_coords, inside_mask
@@ -272,16 +272,9 @@ _graphs = LRU(GRAPHS_KEPT)
 
 
 def _replayable(inputs) -> bool:
-    """Whether a frame of these inputs can be a graph replay: every given
-    input a tensor on one card, no capture open on the stream, no gradient
-    wanted."""
-    given = [x for x in inputs if x is not None]
-    if not all(isinstance(x, torch.Tensor) for x in given):
-        return False
-    dev = given[0].device
-    return (dev.type == "cuda" and all(x.device == dev for x in given)
-            and not torch.cuda.is_current_stream_capturing()
-            and not (torch.is_grad_enabled() and any(x.requires_grad for x in given)))
+    """Whether a frame of these inputs can be a graph replay
+    (:func:`~videomorphing_tpu_torch.graphs.replayable` of the given ones)."""
+    return replayable([x for x in inputs if x is not None])
 
 
 def _capture(inputs, t, sp: SynthParams) -> _FrameGraph:
