@@ -18,6 +18,12 @@ inputs are seeded numpy in both. Tolerances are the reference's own
   ``make_level_solver``: v within 2e-3, e0 within 1e-5 relative, e_final
   within 1e-4 relative (float32 sums in another order, compounded over the
   iterations);
+- the row-sharded solver's pieces: each row block's boundary and colour
+  masks are the frame's at its rows (1, 2, 4 colours; 2-4 blocks), the
+  foldover clamp on an extended block is the frame's clamp at the owned
+  rows, bitwise, and a solve is one ``solve.level`` span whose ``iters``
+  and ``armijo_trials`` are its ``LevelStats.iters`` and its kernel-2
+  shard calls over the blocks;
 - ``optimize_pair_spatial`` (2 levels, 64 x 48): p99 of |dv| below 5e-3 and
   max below 0.05 against the reference (an Armijo test may flip at
   isolated pixels; a halo or seam fault shifts whole bands).
@@ -47,6 +53,7 @@ from videomorphing_tpu_torch.kernels import warp as kw
 from videomorphing_tpu_torch.models.image_morph import ImageMorpher
 from videomorphing_tpu_torch.models.video_morph import VideoMorpher
 from videomorphing_tpu_torch.parallel import mesh as pm
+from videomorphing_tpu_torch.parallel import spatial
 from videomorphing_tpu_torch.parallel.halo import halo_exchange_rows
 from videomorphing_tpu_torch.parallel.spatial import (
     exchange_halo,
@@ -54,8 +61,10 @@ from videomorphing_tpu_torch.parallel.spatial import (
     make_spatial_level_solver,
     optimize_pair_spatial,
 )
+from videomorphing_tpu_torch.solver import descent
 from videomorphing_tpu_torch.solver.descent import make_level_solver
 from videomorphing_tpu_torch.solver.energy import LevelData
+from videomorphing_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 N_DEV = 4
@@ -317,6 +326,70 @@ def test_spatial_level_solver_rejects_short_blocks(pair):
     data = level_data_from_numpy(i0[:20], i1[:20])
     with pytest.raises(ValueError, match="blocks"):
         make_spatial_level_solver(MorphParams(), 2, _cpu_mesh())(torch.zeros((20, W, 2)), data)
+
+
+@pytest.mark.parametrize("n_colors", [1, 2, 4])
+@pytest.mark.parametrize("n_blocks", [2, 3, 4])
+def test_block_masks_are_the_frame_masks_at_its_rows(pair, n_colors, n_blocks):
+    i0, i1 = pair
+    h = 48  # divides into 2, 3 and 4 blocks of at least the halo
+    data = level_data_from_numpy(i0[:h], i1[:h])
+    rows = spatial._RowBlocks(MorphParams(n_colors=n_colors), ["cpu"] * n_blocks, torch.zeros((h, W, 2)), data,
+                              torch.float32)
+    bh = h // n_blocks
+    assert len(rows.blocks) == n_blocks and len(rows.v_blks) == n_blocks
+    for k, b in enumerate(rows.blocks):
+        own = slice(k * bh, (k + 1) * bh)
+        assert torch.equal(b.bmask, descent.boundary_mask(h, W)[own]), k
+        assert len(b.cmasks) == n_colors
+        for c, m in enumerate(b.cmasks):
+            assert torch.equal(m, descent.color_mask(h, W, c, n_colors)[own]), (k, c)
+
+
+@pytest.mark.parametrize("n_blocks", [2, 3, 4])
+def test_extended_block_clamp_is_the_frame_clamp_at_its_rows(n_blocks):
+    """``foldover_scale`` on a block's extended field (zero rows beyond the
+    frame) clamps a boundary-locked step as the frame's clamp does at the
+    owned rows, bitwise."""
+    rng = np.random.default_rng(11)
+    h, w, halo = 48, 20, exchange_halo(MorphParams())
+    v = torch.from_numpy((0.4 * rng.standard_normal((h, w, 2))).astype(np.float32))
+    d = torch.from_numpy(rng.standard_normal((h, w, 2)).astype(np.float32)) * descent.boundary_mask(h, w)
+    want = descent.foldover_scale(v, d, 0.4)
+    assert not torch.equal(want, d)  # the clamp bites
+    bh = h // n_blocks
+    v_ext = halo_exchange_rows([v[k * bh:(k + 1) * bh] for k in range(n_blocks)], halo)
+    for k, ve in enumerate(v_ext):
+        own = slice(k * bh, (k + 1) * bh)
+        assert torch.equal(descent.foldover_scale(ve, d[own], 0.4), want[own]), k
+
+
+@pytest.mark.parametrize("case", ["jnp_colors2", "backtracks"])
+def test_spatial_solve_opens_one_level_span(pair, monkeypatch, case):
+    """A row-sharded solve is one ``solve.level`` span of ``descent.descend``:
+    ``h``, ``w``, ``n_iters``, ``iters`` its ``LevelStats.iters``, and
+    ``armijo_trials`` its kernel-2 shard calls over the blocks."""
+    kw_ = dict(init_step=1e4, max_backtracks=2, backend="jnp") if case == "backtracks" else SOLVER_CASES[case]
+    calls = {"n": 0}
+    shard = spatial.sweep_energy_shard
+
+    def counted(*args):
+        calls["n"] += 1
+        return shard(*args)
+
+    monkeypatch.setattr(spatial, "sweep_energy_shard", counted)
+    i0, i1 = pair
+    profiling.clear()
+    with profiling.record_phases():
+        v, st = make_spatial_level_solver(MorphParams(**kw_), 6, _cpu_mesh())(
+            torch.zeros((H, W, 2)), level_data_from_numpy(i0, i1))
+    levels = [s for s in profiling.spans() if s.name == "solve.level"]
+    profiling.clear()
+    assert len(levels) == 1
+    span = levels[0]
+    assert span.attrs == {"h": H, "w": W, "n_iters": 6, "iters": st.iters} and st.iters > 0
+    assert span.counts["armijo_trials"] * N_DEV == calls["n"]
+    assert span.counts["armijo_trials"] >= st.iters + (case == "backtracks")
 
 
 # ------------------------------------------- the 2-D pairs x rows layout

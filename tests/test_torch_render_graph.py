@@ -13,14 +13,18 @@ phase 21 holds the replays to the eager body bitwise there. Here:
   frames;
 - the key function separates every field it names;
 - CPU inputs, and ``with_aux``, never reach the graph path;
-- the capture and replay bookkeeping, with stand-ins for the CUDA calls
-  (a "replay" runs the eager body on the graph's buffers): every call
-  copies its inputs and time in, gives the eager frame, captures once per
-  key, counts its capture and replay in the ``render.frame`` span and
-  advances kernel 4's counters by one frame's launches;
-- ``graphs``: the constant caches hand their tensors to an open
-  collection, the LRU drops the least recently used before it makes an
-  entry;
+- the dispatch through ``graphs.capture``, with the stand-ins of
+  ``fake_cuda`` below (a "replay" runs the eager body on the graph's
+  buffers): every call copies its inputs and time in, gives the eager
+  frame, captures once per key into a pool of its own, counts its capture
+  and replay in the ``render.frame`` span and advances kernel 4's counters
+  by one frame's launches;
+- ``graphs``: the one capture runs each step once, then captures them
+  into one new pool, takes back every ``launches*`` counter the captures
+  moved and holds the constants they read, and a replay reruns a step and
+  advances its counters; ``kernels.COUNTED`` lists every wrapper that
+  counts; the constant caches hand their tensors to an open collection,
+  the LRU drops the least recently used before it makes an entry;
 - each of the modules that use ``graphs`` imports first in a fresh
   interpreter (no import cycle through ``utils``);
 - ``vmbench``'s ``render_graph_frames_pct`` reads a hand-built log, and
@@ -39,6 +43,8 @@ import pytest
 import torch
 
 from videomorphing_tpu_torch.config import SynthParams
+from videomorphing_tpu_torch.kernels import sweep as ks
+from videomorphing_tpu_torch.kernels import warp as kw
 from videomorphing_tpu_torch.ops import poisson, pyramid
 from videomorphing_tpu_torch.synth import render
 from videomorphing_tpu_torch import graphs
@@ -150,44 +156,58 @@ def test_cpu_inputs_never_reach_the_graph_path(monkeypatch):
     assert render._graphs.keys() == []
 
 
-class _Graph:
-    """A stand-in for ``torch.cuda.CUDAGraph``: a replay reruns what was
-    captured."""
+class FakeGraph:
+    """A stand-in for ``torch.cuda.CUDAGraph``. Work that runs while it
+    captures sets ``FakeGraph.capturing[-1].rerun`` to what a replay does
+    (a replay runs no Python, so it counts no launch); ``pool`` is the pool
+    it captured into."""
+
+    capturing = []
 
     def __init__(self):
-        self.rerun = None
+        self.rerun = self.pool = None
+
+    def capture_begin(self, pool=None):
+        self.pool = pool
+        FakeGraph.capturing.append(self)
+
+    def capture_end(self):
+        FakeGraph.capturing.pop()
 
     def replay(self):
         self.rerun()
 
 
-def test_capture_and_replay_bookkeeping(monkeypatch):
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """``torch.cuda`` replaced by what ``graphs.capture`` and the replays
+    call: :class:`FakeGraph`, a new pool object per ``graph_pool_handle()``,
+    one stream, no-op stream and device contexts. Yields ``FakeGraph``;
+    ``test_torch_solver_graph.py`` imports both."""
+    stream = types.SimpleNamespace(cuda_stream=0, wait_stream=lambda other: None)
+    cuda = types.SimpleNamespace(CUDAGraph=FakeGraph, graph_pool_handle=object, Stream=lambda dev: stream,
+                                 stream=lambda s: contextlib.nullcontext(), current_stream=lambda dev: stream,
+                                 device=lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "cuda", cuda)
+    yield FakeGraph
+    FakeGraph.capturing.clear()
+
+
+def test_capture_and_replay_bookkeeping(monkeypatch, fake_cuda):
     real = render._render_frame_eager
-    capturing = []
-    sampler = render._SAMPLERS[0]
+    sampler = kw.bilinear_sample
 
     def eager(*args):
         sampler.launches += 7  # as if the body launched kernel 4 seven times
         out = real(*args)
-        if capturing:
-            capturing[-1].rerun = lambda: out.copy_(real(*args))
+        if fake_cuda.capturing:
+            fake_cuda.capturing[-1].rerun = lambda: out.copy_(real(*args))
         return out
 
-    @contextlib.contextmanager
-    def capture(graph, stream=None):
-        capturing.append(graph)
-        yield
-        capturing.pop()
-
-    stream = types.SimpleNamespace(cuda_stream=0, wait_stream=lambda other: None)
     monkeypatch.setattr(render, "_render_frame_eager", eager)
     monkeypatch.setattr(render, "_replayable", lambda inputs: True)
     monkeypatch.setattr(render, "_graphs", graphs.LRU(render.GRAPHS_KEPT))
     monkeypatch.setattr(sampler, "launches", 0)
-    cuda = types.SimpleNamespace(CUDAGraph=_Graph, graph=capture, Stream=lambda dev: stream,
-                                 stream=lambda s: contextlib.nullcontext(), current_stream=lambda dev: stream,
-                                 device=lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(render.torch, "cuda", cuda)
     monkeypatch.setattr(render.torch, "backends", types.SimpleNamespace(
         cuda=types.SimpleNamespace(matmul=types.SimpleNamespace(allow_tf32=False))))
     sp = SynthParams()
@@ -208,11 +228,62 @@ def test_capture_and_replay_bookkeeping(monkeypatch):
     assert launches == [14, 7, 7, 7]  # the capture's own 7 are not counted: nothing ran
     assert len(render._graphs.keys()) == 1
     entry = render._graphs.get(render._graphs.keys()[0], None)
-    assert entry.launches == ((sampler, 7), (render._SAMPLERS[1], 0))
-    assert entry.constants and all(isinstance(c, torch.Tensor) for c in entry.constants)
+    assert entry.graph.launches == {"frame": ((sampler, "launches", 7),)}
+    assert entry.graph.constants and all(isinstance(c, torch.Tensor) for c in entry.graph.constants)
     render.render_frame(*args, 0.5, sp)  # without the confidences: a key of its own
     render.render_frame(*args, 0.5, sp, with_aux=True)
     assert len(render._graphs.keys()) == 2
+    pools = [render._graphs.get(k, None).graph.graphs["frame"].pool for k in render._graphs.keys()]
+    assert pools[0] is not pools[1]  # a pool a frame graph
+
+
+class _Wrapper:
+    """A kernel wrapper's launch counters."""
+
+    def __init__(self):
+        self.launches = self.launches_bf16 = self.launches_wide = 0
+
+
+def test_capture_takes_the_launches_back_and_replay_adds_them(fake_cuda):
+    fp, bf = _Wrapper(), _Wrapper()
+    out = torch.zeros(3)
+    cached = graphs.constant_cache(4)(lambda n: torch.arange(float(n)))
+
+    def step(name, bumps, value):
+        def run():
+            for fn, k, n in bumps:
+                setattr(fn, k, getattr(fn, k) + n)
+            taps = cached(3)
+            if fake_cuda.capturing:
+                fake_cuda.capturing[-1].rerun = lambda: out.add_(value * taps)
+            return name
+        return run
+
+    steps = {"a": step("a", ((fp, "launches", 2), (bf, "launches_bf16", 1), (bf, "launches_wide", 1)), 1.0),
+             ("b", 0): step("b", ((fp, "launches", 1),), 10.0), "c": step("c", (), 0.0)}
+    got = graphs.capture(steps, "cuda:0", (fp, bf))
+    # the warm-up ran each step once and counts; the captures ran nothing
+    assert (fp.launches, bf.launches, bf.launches_bf16, bf.launches_wide) == (3, 0, 1, 1)
+    assert got.outputs == {"a": "a", ("b", 0): "b", "c": "c"}
+    assert got.launches == {"a": ((fp, "launches", 2), (bf, "launches_bf16", 1), (bf, "launches_wide", 1)),
+                            ("b", 0): ((fp, "launches", 1),), "c": ()}
+    assert len({g.pool for g in got.graphs.values()}) == 1 and got.graphs["a"].pool is not None
+    assert len(got.constants) == 3 and all(c is cached(3) for c in got.constants)  # one a captured step
+    got.replay("a")
+    got.replay(("b", 0))
+    got.replay("a")
+    assert torch.equal(out, torch.tensor([0.0, 12.0, 24.0]))
+    assert (fp.launches, bf.launches, bf.launches_bf16, bf.launches_wide) == (8, 0, 3, 3)
+    got.replay("c")
+    assert (fp.launches, bf.launches_bf16) == (8, 3)
+    assert graphs.capture({"d": step("d", (), 0.0)}, "cuda:0", ()).graphs["d"].pool is not got.graphs["a"].pool
+
+
+def test_counted_lists_every_counting_kernel_wrapper():
+    from videomorphing_tpu_torch import kernels
+
+    wrappers = {fn for mod in (ks, kw) for fn in vars(mod).values() if callable(fn) and hasattr(fn, "launches")}
+    assert set(kernels.COUNTED) == wrappers and len(kernels.COUNTED) == len(wrappers) == 8
 
 
 def test_one_confidence_alone_is_ignored_as_before():

@@ -15,11 +15,12 @@ to the eager loop bitwise there. Here:
 - the key function separates every field it names, and the fields that
   only steer the host (``relin_every``, the line search's) share a key;
 - CPU inputs never reach the graph path;
-- the capture and replay bookkeeping, with stand-ins for the CUDA calls (a
-  "replay" reruns the step on the level's buffers): a level captures once
-  per key, each call copies its field and data in and returns a copy, the
-  span counts ``graph_iters``, ``armijo_trials`` and ``reads`` as it should,
-  and the kernels' launch counters advance by one replay's launches;
+- the dispatch through ``graphs.capture``, with the stand-ins of
+  ``test_torch_render_graph.fake_cuda`` (a "replay" reruns the step on
+  the level's buffers): a level captures once per key, its steps into one
+  pool, each call copies its field and data in and returns a copy, the span counts
+  ``graph_iters``, ``armijo_trials`` and ``reads`` as it should, and the
+  kernels' launch counters advance by one replay's launches;
 - the LRU keeps every level of a 4K pyramid, and the video's cold levels
   with its warm one;
 - the window's taps reach an open constant collection;
@@ -27,13 +28,11 @@ to the eager loop bitwise there. Here:
   None where no ``solve.level`` span carries the counter.
 """
 
-import contextlib
 import dataclasses
 import importlib
 import math
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import numpy as np
@@ -52,6 +51,7 @@ from videomorphing_tpu_torch.video.pipeline import warm_level_count
 from vmbench.reference.config import MorphParams as RefMorphParams
 from vmbench.reference.solver import descent as ref_descent
 from vmbench.reference.solver.energy import make_level_data as ref_level_data
+from test_torch_render_graph import fake_cuda  # noqa: F401  (the fixture)
 
 torch.set_num_threads(2)
 H, W = 36, 44
@@ -173,36 +173,16 @@ def test_cpu_inputs_never_reach_the_graph_path(monkeypatch):
     assert descent._graphs.keys() == []
 
 
-class _Graph:
-    """A stand-in for ``torch.cuda.CUDAGraph``: a replay reruns what was
-    captured."""
-
-    capturing = []
-
-    def __init__(self):
-        self.rerun = None
-
-    def capture_begin(self, pool=None):
-        assert pool == "pool"
-        _Graph.capturing.append(self)
-
-    def capture_end(self):
-        _Graph.capturing.pop()
-
-    def replay(self):
-        self.rerun()
-
-
 # the launches each step makes on the card, which the plain versions do not count
 STEP_LAUNCHES = {"_warp_step": ((kw.halfway_warp, 1),), "_median_step": (),
                  "_iterate_step": ((ks.sweep_grad, 1), (ks.sweep_energy, 1)), "_trial_step": ((ks.sweep_energy, 1),)}
 
 
-def _stand_ins(monkeypatch):
-    """The CUDA calls of the graph path replaced: a step run while a
-    stand-in graph captures is also what that graph reruns, and each step
-    counts the launches it would make (and reads the window's taps, as a
-    launch does)."""
+def _stand_ins(monkeypatch, fake_graph):
+    """The CUDA calls of the graph path replaced (``fake_cuda``): a step run
+    while a stand-in graph captures is also what that graph reruns, and
+    each step counts the launches it would make (and reads the window's
+    taps, as a launch does)."""
     def counted(real, launches):
         def step(*args):
             real(*args)
@@ -210,8 +190,8 @@ def _stand_ins(monkeypatch):
                 fn.launches += n
             if launches:
                 ks.window_taps(args[1], "cpu")
-            if _Graph.capturing:
-                _Graph.capturing[-1].rerun = lambda: real(*args)  # a replay runs no Python: counts nothing
+            if fake_graph.capturing:
+                fake_graph.capturing[-1].rerun = lambda: real(*args)  # a replay runs no Python: counts nothing
 
         return step
 
@@ -219,11 +199,6 @@ def _stand_ins(monkeypatch):
         monkeypatch.setattr(descent, name, counted(getattr(descent, name), launches))
     for fn in (kw.halfway_warp, ks.sweep_grad, ks.sweep_energy):
         monkeypatch.setattr(fn, "launches", 0)
-    stream = types.SimpleNamespace(cuda_stream=0, wait_stream=lambda other: None)
-    cuda = types.SimpleNamespace(CUDAGraph=_Graph, graph_pool_handle=lambda: "pool", Stream=lambda dev: stream,
-                                 stream=lambda s: contextlib.nullcontext(), current_stream=lambda dev: stream,
-                                 device=lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(descent.torch, "cuda", cuda)
     monkeypatch.setattr(descent, "replayable", lambda tensors: True)
     monkeypatch.setattr(descent, "_graphs", graphs.LRU(descent.LEVEL_GRAPHS_KEPT))
 
@@ -232,14 +207,14 @@ def _counters():
     return [kw.halfway_warp.launches, ks.sweep_grad.launches, ks.sweep_energy.launches]
 
 
-def test_capture_and_replay_bookkeeping(monkeypatch):
+def test_capture_and_replay_bookkeeping(monkeypatch, fake_cuda):
     p = MorphParams(relin_every=3)
     n_iters = 10
     want = {}
     for seed in (5, 6):
         v0, arrs = _level(seed)
         want[seed] = ref_descent.make_level_solver(RefMorphParams(relin_every=3), n_iters)(v0, ref_level_data(*arrs))
-    _stand_ins(monkeypatch)
+    _stand_ins(monkeypatch, fake_cuda)
     solve = descent.make_level_solver(p, n_iters)
     spans, advanced, fields = [], [], []
     with profiling.record_phases():
@@ -257,8 +232,9 @@ def test_capture_and_replay_bookkeeping(monkeypatch):
     for seed, v in zip((5, 6, 5), fields):
         assert torch.equal(v, want[seed][0]), seed
     assert len(descent._graphs.keys()) == 1
-    entry = descent._graphs.get(descent._graphs.keys()[0], None)
+    entry = descent._graphs.get(descent._graphs.keys()[0], None).graphs
     assert set(entry.graphs) == {"warp", "median", ("iterate", 0), ("iterate", 1), "trial"}
+    assert len({g.pool for g in entry.graphs.values()}) == 1  # one pool a level
     assert entry.launches["warp"] == ((kw.halfway_warp, "launches", 1),)
     assert entry.launches[("iterate", 1)] == ((ks.sweep_grad, "launches", 1), (ks.sweep_energy, "launches", 1))
     assert entry.launches["trial"] == ((ks.sweep_energy, "launches", 1),) and entry.launches["median"] == ()
@@ -281,8 +257,8 @@ def test_capture_and_replay_bookkeeping(monkeypatch):
     assert len(descent._graphs.keys()) == 3
 
 
-def test_graph_path_without_the_median_captures_none(monkeypatch):
-    _stand_ins(monkeypatch)
+def test_graph_path_without_the_median_captures_none(monkeypatch, fake_cuda):
+    _stand_ins(monkeypatch, fake_cuda)
     p = MorphParams(relin_median=False, n_colors=4, relin_every=1)
     v0, arrs = _level(8)
     v, st = descent.make_level_solver(p, 9)(v0, make_level_data(*arrs))
@@ -291,7 +267,7 @@ def test_graph_path_without_the_median_captures_none(monkeypatch):
     assert torch.equal(v, v_ref)
     _same_stats(st, st_ref)
     entry = descent._graphs.get(descent._graphs.keys()[0], None)
-    assert set(entry.graphs) == {"warp", "trial"} | {("iterate", c) for c in range(4)}
+    assert set(entry.graphs.graphs) == {"warp", "trial"} | {("iterate", c) for c in range(4)}
 
 
 def _level_keys(hw, n_levels, p=MorphParams()):

@@ -4,8 +4,9 @@ readers of them.
 - with tracing off a tiny CPU ``ImageMorpher`` solve and render, and a
   ``MetricsLogger`` phase, enter no ``record_function``, read no clock on
   the span path, synchronize nothing and log nothing;
-- under ``torch.profiler`` every logged span lies within 0.5 ms of its own
-  range in the kineto trace at both ends and nests under its parent;
+- under ``torch.profiler`` every logged span lies inside its own range in
+  the kineto trace (10 us of slack), within 0.5 ms of it at both ends, and
+  nests under its parent;
 - a level's ``iters`` are its ``LevelStats.iters``, its ``reads`` are the
   ``.item()``/``.tolist()`` calls made inside it, each a ``host.read``
   span, and it reads once an Armijo trial: an iteration reads once, with
@@ -43,6 +44,7 @@ READERS = ("solve_reads_per_iter", "armijo_trials_per_iter", "solve_read_wait_pc
            "solve_kernels_per_iter", "solve_device_idle_pct", "render_host_ms_per_frame",
            "solve_fine_device_ms_per_iter")
 TOL_NS = 500_000
+SLACK_NS = 10_000  # the profiler's conversion of its own clock to unix ns
 
 
 def _pair(seed=3):
@@ -127,14 +129,15 @@ def _traced_morph():
     return profiling.spans(), _ranges(prof), art
 
 
-def _gaps_ns(log, ranges):
-    """Each span's distance from its own range at either end, in ns."""
+def _offsets_ns(log, ranges):
+    """How far each span lies inside its own range, in ns: its start after
+    the range's start and its end before the range's end."""
     out = []
     for name in {s.name for s in log}:
         mine = sorted((s.start_ns, s.end_ns) for s in log if s.name == name)
         theirs = ranges[name]
         assert len(mine) == len(theirs), name
-        out += [max(abs(a - c), abs(b - d)) for (a, b), (c, d) in zip(mine, theirs)]
+        out += [x for (a, b), (c, d) in zip(mine, theirs) for x in (a - c, d - b)]
     return out
 
 
@@ -142,16 +145,18 @@ def test_spans_share_the_profiler_clock_and_nest(fresh):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         with profiling.span("warm"):  # the process's first ranges are slow to open
             pass
-    # Another clock would part every span from its range; the host being
-    # descheduled between a range's time and the span's parts one span, so
-    # a loaded machine gets three tries.
+    # A span reads its clock after its range opens and before it closes, so
+    # on one clock it lies inside the range; another clock would put every
+    # span's start or end outside by that clock's offset. How far inside is
+    # record_function's own cost, and the host being descheduled inside a
+    # range widens it, so a loaded machine gets three tries at TOL_NS.
     for _ in range(3):
         log, ranges, art = _traced_morph()
-        gaps = _gaps_ns(log, ranges)
-        assert sorted(gaps)[len(gaps) // 2] <= TOL_NS // 10
-        if max(gaps) <= TOL_NS:
+        offsets = _offsets_ns(log, ranges)
+        assert min(offsets) >= -SLACK_NS, sorted(offsets)[:5]
+        if max(offsets) <= TOL_NS:
             break
-    assert max(gaps) <= TOL_NS, sorted(gaps)[-5:]
+    assert max(offsets) <= TOL_NS, sorted(offsets)[-5:]
     names = {s.name for s in log}
     assert {"morph.solve", "morph.render", "solve.level", "host.read", "render.frame"} <= names
     by_id = {s.id: s for s in log}

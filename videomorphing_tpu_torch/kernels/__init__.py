@@ -11,6 +11,10 @@ PyTorch version on CPU tensors:
 - kernel 4, the bilinear sampler: ``bilinear_sample`` and
   ``bilinear_sample_batched``.
 
+Each wrapper counts its launches in its ``launches*`` attributes;
+``COUNTED`` lists the wrappers, for the CUDA graphs' capture and replay
+(``graphs.capture``).
+
 ``REFERENCE_COUNTERPARTS`` answers the reference's kernel layer
 (``videomorphing_tpu/pallas/{__init__,sweep,warp}.py``): each of its public
 names maps to the port function that computes the same thing, as a dotted
@@ -45,6 +49,10 @@ __all__ = [
     "bilinear_sample_batched",
     "REFERENCE_COUNTERPARTS",
 ]
+
+# the wrappers that count their launches
+COUNTED = (sweep_grad, sweep_energy, sweep_grad_shard, sweep_energy_shard, halfway_warp, halfway_warp_rows,
+           bilinear_sample, bilinear_sample_batched)
 
 _PORT = "videomorphing_tpu_torch."
 _PACKING = ("not ported: the TPU packing (sweep._pack's column groups for Mosaic's 128-lane DMA); "

@@ -45,7 +45,14 @@ from videomorphing_tpu_torch.kernels.warp import halfway_warp_rows
 from videomorphing_tpu_torch.ops.windows import median3x3
 from videomorphing_tpu_torch.parallel.halo import halo_exchange_rows
 from videomorphing_tpu_torch.parallel.mesh import as_mesh, make_mesh
-from videomorphing_tpu_torch.solver.descent import LevelStats, _axis_gaps, make_level_solver, pack_dtype_for
+from videomorphing_tpu_torch.solver.descent import (
+    LevelStats,
+    descend,
+    foldover_scale,
+    level_masks,
+    make_level_solver,
+    pack_dtype_for,
+)
 from videomorphing_tpu_torch.solver.energy import LevelData
 
 f32 = np.float32
@@ -69,29 +76,8 @@ class _Block(NamedTuple):
     dev: torch.device
     row0: int              # global row of the extended block's first row
     data: LevelData        # replicated images, the owned rows' maps
-    parity: torch.Tensor   # (bh, W) checkerboard colour of each owned pixel
-    bmask: torch.Tensor    # (bh, W, 2) boundary lock in global coordinates
-
-
-def _parity(ys: torch.Tensor, xs: torch.Tensor, n_colors: int) -> torch.Tensor:
-    if n_colors == 2:
-        return (ys[:, None] + xs[None, :]) % 2
-    if n_colors == 4:
-        return (ys[:, None] % 2) * 2 + (xs[None, :] % 2)
-    if n_colors == 1:
-        return torch.zeros((ys.shape[0], xs.shape[0]), dtype=ys.dtype, device=ys.device)
-    raise ValueError(f"n_colors must be 1, 2 or 4, got {n_colors}")
-
-
-def _foldover_scale_ext(v_ext: torch.Tensor, d: torch.Tensor, halo: int, margin: float) -> torch.Tensor:
-    """``descent.foldover_scale`` with the neighbour gaps taken on the
-    extended block (a block-edge gap needs the neighbour's row)."""
-    bh = d.shape[0]
-    m_y = _axis_gaps(v_ext[..., 0], 0)[halo:halo + bh]
-    m_x = _axis_gaps(v_ext[..., 1], 1)[halo:halo + bh]
-    s_y = torch.clamp(margin * m_y / (torch.abs(d[..., 0]) + 1e-12), max=1.0)
-    s_x = torch.clamp(margin * m_x / (torch.abs(d[..., 1]) + 1e-12), max=1.0)
-    return torch.stack([d[..., 0] * s_y, d[..., 1] * s_x], dim=-1)
+    bmask: torch.Tensor    # (bh, W, 2) the frame's boundary lock at the owned rows
+    cmasks: tuple          # (bh, W, 1) the frame's colour masks at the owned rows
 
 
 def _sum_rows(a: np.ndarray) -> np.ndarray:
@@ -100,6 +86,89 @@ def _sum_rows(a: np.ndarray) -> np.ndarray:
     for row in a[1:]:
         acc = acc + row
     return acc
+
+
+class _RowBlocks:
+    """A row-sharded level's operations for ``descent.descend``: the field
+    as owned row blocks ``v_blks``, each block's halo exchange and shard
+    kernels, the values gathered in one transfer and summed in block
+    order. ``states``: per block (the warp planes, v_lin) of the last
+    re-warp; ``v_try``: the extended blocks of the last trial."""
+
+    def __init__(self, p: MorphParams, devs, v: torch.Tensor, data: LevelData, dt: torch.dtype):
+        self.p, self.dt, self.home = p, dt, v.device
+        self.h, w = v.shape[0], v.shape[1]
+        self.bh = bh = self.h // len(devs)
+        self.halo = halo = exchange_halo(p)
+        self.npix, self.c = self.h * w, data.i0.shape[-1]
+        bmask, cmasks = level_masks(self.h, w, p.n_colors, v.dtype, v.device)
+        images = {}
+        self.blocks: List[_Block] = []
+        for k, dev in enumerate(devs):
+            rows = slice(k * bh, (k + 1) * bh)
+            if dev not in images:
+                images[dev] = (data.i0.to(dev).contiguous(), data.i1.to(dev).contiguous())
+            maps = [m[rows].to(dev).contiguous() for m in (data.ui_w, data.ui_v, data.tc_w, data.tc_v)]
+            self.blocks.append(_Block(dev, k * bh - halo, pack_maps(LevelData(*images[dev], *maps), dt),
+                                      bmask[rows].to(dev, copy=True),  # a block holds only its rows
+                                      tuple(m[rows].to(dev, copy=True) for m in cmasks)))
+        self.v_blks = [v[k * bh:(k + 1) * bh].to(b.dev).contiguous() for k, b in enumerate(self.blocks)]
+
+    def _gather(self, vals) -> np.ndarray:
+        """Per-block device vectors -> (n_dev, k) float32, one transfer."""
+        return torch.stack([x.to(self.home) for x in vals]).cpu().numpy()
+
+    def _energy_at(self, v_ext) -> np.float32:
+        parts = [
+            sweep_energy_shard(planes, v_lin, ve, b.data, self.p, b.row0, self.h, self.halo)
+            for b, (planes, v_lin), ve in zip(self.blocks, self.states, v_ext)
+        ]
+        return combine_parts(_sum_rows(self._gather(parts)), self.p, self.npix, self.c)
+
+    def relin(self, median: bool) -> None:
+        if median:
+            # 3x3 median with real neighbour rows at the seams and the
+            # frame's own edge row at its top and bottom (the
+            # single-device median's edge replication)
+            last = len(self.blocks) - 1
+            v1 = halo_exchange_rows(self.v_blks, 1)
+            med = []
+            for k, (b, vb, ve) in enumerate(zip(self.blocks, self.v_blks, v1)):
+                top = vb[:1] if k == 0 else ve[:1]
+                bot = vb[-1:] if k == last else ve[-1:]
+                sl = torch.cat([top, vb, bot], 0)
+                med.append(vb + (median3x3(sl)[1:-1] - vb) * b.bmask)
+            self.v_blks = med
+        v_ext = halo_exchange_rows(self.v_blks, self.halo)
+        v_q = v_ext if self.dt == torch.float32 else [quantize_v_lin(ve, self.p) for ve in v_ext]
+        self.states = [(halfway_warp_rows(b.data.i0, b.data.i1, vq, b.row0, self.dt), vq)
+                       for b, vq in zip(self.blocks, v_q)]
+
+    def iterate(self, color: int, alpha) -> tuple:
+        p, halo = self.p, self.halo
+        self.v_ext = halo_exchange_rows(self.v_blks, halo)
+        ds, vals = [], []
+        for b, (planes, v_lin), ve in zip(self.blocks, self.states, self.v_ext):
+            parts, grad, precond = sweep_grad_shard(planes, v_lin, ve, b.data, p, b.row0, self.h, halo)
+            d = foldover_scale(ve, (-grad / precond) * b.cmasks[color] * b.bmask, p.fold_margin)
+            ds.append(d)
+            vals.append(torch.cat([parts, torch.sum(grad * d).reshape(1)]))
+        tot = _sum_rows(self._gather(vals))
+        self.d_ext = halo_exchange_rows(ds, halo)
+        return combine_parts(tot[:4], p, self.npix, self.c), f32(tot[4]), self.backtrack(alpha)
+
+    def backtrack(self, alpha) -> np.float32:
+        self.v_try = [ve + float(alpha) * de for ve, de in zip(self.v_ext, self.d_ext)]
+        return self._energy_at(self.v_try)
+
+    def accept(self) -> None:
+        self.v_blks = [vt[self.halo:self.halo + self.bh] for vt in self.v_try]
+
+    def energy(self) -> np.float32:
+        return self._energy_at(halo_exchange_rows(self.v_blks, self.halo))
+
+    def field(self) -> torch.Tensor:
+        return torch.cat([vb.to(self.home) for vb in self.v_blks], 0)
 
 
 def make_spatial_level_solver(
@@ -113,7 +182,8 @@ def make_spatial_level_solver(
     ``solve(v, data) -> (v', LevelStats)`` with ``v`` and ``data`` whole
     frames on one device; the frame's H must divide the axis size and leave
     every block at least the exchange halo. The result lands on ``v``'s
-    device.
+    device. The loop and its ``solve.level`` span are ``descent.descend``'s
+    (no ``reads`` counted).
 
     With ``batch_axis`` (the reference's pairs x rows layout on a 2-D
     mesh), every input carries a leading batch dimension B that divides
@@ -136,8 +206,6 @@ def make_spatial_level_solver(
     """
     mesh = as_mesh(mesh)
     halo = exchange_halo(p)
-    armijo_c, shrink, grow = f32(p.armijo_c), f32(p.step_shrink), f32(p.step_grow)
-    min_step, tol = f32(p.min_step), f32(p.tol)
     if p.n_colors not in (1, 2, 4):
         raise ValueError(f"n_colors must be 1, 2 or 4, got {p.n_colors}")
 
@@ -148,118 +216,8 @@ def make_spatial_level_solver(
             raise ValueError(
                 f"{h} rows do not split into {n_dev} blocks of at least {halo} rows"
             )
-        bh = h // n_dev
-        dt = torch.float32 if batch_axis is not None else pack_dtype_for(p, bh, w, devs[0])
-        home = v.device
-        c = data.i0.shape[-1]
-        npix = h * w
-        images = {}
-        blocks: List[_Block] = []
-        for k, dev in enumerate(devs):
-            rows = slice(k * bh, (k + 1) * bh)
-            if dev not in images:
-                images[dev] = (data.i0.to(dev).contiguous(), data.i1.to(dev).contiguous())
-            maps = [m[rows].to(dev).contiguous() for m in (data.ui_w, data.ui_v, data.tc_w, data.tc_v)]
-            ys = torch.arange(k * bh, (k + 1) * bh, device=dev)
-            xs = torch.arange(w, device=dev)
-            bmask = torch.ones((bh, w, 2), dtype=v.dtype, device=dev)
-            bmask[..., 0] = ((ys != 0) & (ys != h - 1)).to(v.dtype)[:, None]
-            bmask[..., 1] = ((xs != 0) & (xs != w - 1)).to(v.dtype)[None, :]
-            blocks.append(_Block(dev, k * bh - halo, pack_maps(LevelData(*images[dev], *maps), dt),
-                                 _parity(ys, xs, p.n_colors), bmask))
-        v_blks = [v[k * bh:(k + 1) * bh].to(b.dev).contiguous() for k, b in enumerate(blocks)]
-
-        def gather(vals) -> np.ndarray:
-            """Per-block device vectors -> (n_dev, k) float32, one transfer."""
-            return torch.stack([x.to(home) for x in vals]).cpu().numpy()
-
-        def energy_at(states, v_ext) -> np.float32:
-            parts = [
-                sweep_energy_shard(planes, v_lin, ve, b.data, p, b.row0, h, halo)
-                for b, (planes, v_lin), ve in zip(blocks, states, v_ext)
-            ]
-            return combine_parts(_sum_rows(gather(parts)), p, npix, c)
-
-        def warp_states(v_ext):
-            """Per block (the warp planes, v_lin) of a re-warp at ``v_ext``."""
-            v_q = v_ext if dt == torch.float32 else [quantize_v_lin(ve, p) for ve in v_ext]
-            return [(halfway_warp_rows(b.data.i0, b.data.i1, vq, b.row0, dt), vq) for b, vq in zip(blocks, v_q)]
-
-        hist = torch.full((max(n_iters, 0),), float("nan"), dtype=torch.float32)
-        if n_iters <= 0:
-            v_ext = halo_exchange_rows(v_blks, halo)
-            e0 = energy_at(warp_states(v_ext), v_ext)
-            return v, LevelStats(e0=float(e0), e_final=float(e0), iters=0,
-                                 step=float(f32(p.init_step)), energy_history=hist)
-
-        relin = max(int(p.relin_every), 1)
-        step, e, e0 = f32(p.init_step), f32(0.0), f32(0.0)
-        stall, it = 0, 0
-
-        def cond():
-            return it < n_iters and stall <= p.n_colors and step > min_step
-
-        while cond():
-            it0 = it
-            if p.relin_median and it0 > 0:
-                # 3x3 median with real neighbour rows at the seams and the
-                # frame's own edge row at its top and bottom (the
-                # single-device median's edge replication)
-                v1 = halo_exchange_rows(v_blks, 1)
-                med = []
-                for k, (b, vb, ve) in enumerate(zip(blocks, v_blks, v1)):
-                    top = vb[:1] if k == 0 else ve[:1]
-                    bot = vb[-1:] if k == n_dev - 1 else ve[-1:]
-                    sl = torch.cat([top, vb, bot], 0)
-                    med.append(vb + (median3x3(sl)[1:-1] - vb) * b.bmask)
-                v_blks = med
-            states = warp_states(halo_exchange_rows(v_blks, halo))
-            while cond() and it < it0 + relin:
-                v_ext = halo_exchange_rows(v_blks, halo)
-                ds, vals = [], []
-                for b, (planes, v_lin), ve in zip(blocks, states, v_ext):
-                    parts, grad, precond = sweep_grad_shard(planes, v_lin, ve, b.data, p, b.row0, h, halo)
-                    cmask = (b.parity == it % p.n_colors).to(v.dtype)[..., None]
-                    d = (-grad / precond) * cmask * b.bmask
-                    d = _foldover_scale_ext(ve, d, halo, p.fold_margin)
-                    ds.append(d)
-                    vals.append(torch.cat([parts, torch.sum(grad * d).reshape(1)]))
-                tot = _sum_rows(gather(vals))
-                e_cur = combine_parts(tot[:4], p, npix, c)
-                gd = f32(tot[4])
-                if it == 0:
-                    e0 = e_cur
-                d_ext = halo_exchange_rows(ds, halo)
-
-                def trial(alpha):
-                    v_try = [ve + float(alpha) * de for ve, de in zip(v_ext, d_ext)]
-                    return v_try, energy_at(states, v_try)
-
-                alpha = step
-                v_try, e_try = trial(alpha)
-                tries = 0
-                while (e_try > e_cur + armijo_c * alpha * gd and tries < p.max_backtracks
-                       and alpha > min_step):
-                    alpha = alpha * shrink
-                    v_try, e_try = trial(alpha)
-                    tries += 1
-                accepted = e_try <= e_cur + armijo_c * alpha * gd
-                if accepted:
-                    v_blks = [vt[halo:halo + bh] for vt in v_try]
-                    e_new = e_try
-                    step = alpha * grow if tries == 0 else alpha
-                else:
-                    e_new = e_cur
-                    step = alpha * shrink
-                rel_dec = (e_cur - e_new) / np.maximum(np.abs(e_cur), f32(1e-12))
-                stall = stall + 1 if rel_dec < tol else 0
-                hist[it] = float(e_new)
-                e = e_new
-                it += 1
-
-        v_out = torch.cat([vb.to(home) for vb in v_blks], 0)
-        return v_out, LevelStats(e0=float(e0), e_final=float(e), iters=it, step=float(step),
-                                 energy_history=hist)
+        dt = torch.float32 if batch_axis is not None else pack_dtype_for(p, h // n_dev, w, devs[0])
+        return descend(lambda: _RowBlocks(p, devs, v, data, dt), p, n_iters, h, w)
 
     if batch_axis is None:
         devs = mesh.axis_devices(axis)

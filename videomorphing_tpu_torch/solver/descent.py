@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import MorphParams
-from videomorphing_tpu_torch.graphs import LRU, collect_constants, replayable
+from videomorphing_tpu_torch.graphs import LRU, Captured, capture, replayable
+from videomorphing_tpu_torch.kernels import COUNTED
 from videomorphing_tpu_torch.kernels.sweep import pack_dtype, pack_maps, quantize_v_lin, sweep_energy, sweep_grad
 from videomorphing_tpu_torch.kernels.warp import bundle_from_planes, halfway_warp
 from videomorphing_tpu_torch.ops.ssim import dssim_grad_bundle, dssim_map
@@ -98,9 +99,14 @@ def _axis_gaps(comp: torch.Tensor, axis: int) -> torch.Tensor:
 
 def foldover_scale(v: torch.Tensor, d: torch.Tensor, margin: float) -> torch.Tensor:
     """Clamp a step ``d`` so ``v + d`` folds neither warp: each pixel covers
-    at most ``margin`` (< 1/2) of its smallest neighbour gap per axis."""
-    m_y = _axis_gaps(v[..., 0], 0)
-    m_x = _axis_gaps(v[..., 1], 1)
+    at most ``margin`` (< 1/2) of its smallest neighbour gap per axis.
+
+    ``v`` may have as many more rows above as below ``d``'s (a row block's
+    field extended by its neighbours' rows): the gaps are taken on all of
+    ``v`` and clamp ``d`` at its own rows."""
+    r = (v.shape[0] - d.shape[0]) // 2
+    m_y = _axis_gaps(v[..., 0], 0)[r:r + d.shape[0]]
+    m_x = _axis_gaps(v[..., 1], 1)[r:r + d.shape[0]]
     s_y = torch.clamp(margin * m_y / (torch.abs(d[..., 0]) + 1e-12), max=1.0)
     s_x = torch.clamp(margin * m_x / (torch.abs(d[..., 1]) + 1e-12), max=1.0)
     return torch.stack([d[..., 0] * s_y, d[..., 1] * s_x], dim=-1)
@@ -279,13 +285,13 @@ class _Level:
     the level's data with its maps in the pack's dtype ``dt``, and the
     masks."""
 
-    def __init__(self, v: torch.Tensor, data: LevelData, dt: torch.dtype, masks=None):
+    def __init__(self, v: torch.Tensor, data: LevelData, dt: torch.dtype, masks):
         self.v, self.data, self.dt = v, data, dt
         self.v_try, self.d, self.v_lin = torch.empty_like(v), torch.empty_like(v), torch.empty_like(v)
         self.planes = None
         self.alpha = v.new_zeros(())
         self.out = v.new_zeros((3,))
-        self.bmask, self.cmasks = masks if masks is not None else (None, ())
+        self.bmask, self.cmasks = masks
 
 
 def _median_step(s: _Level, p: MorphParams) -> None:
@@ -343,6 +349,103 @@ def _load(s: _Level, v: torch.Tensor, data: LevelData) -> None:
         buf.copy_(x)
 
 
+class _OneDevice:
+    """A level's operations for :func:`descend` on one device: ``go(name)``
+    runs a step of :func:`_steps` on the buffers ``s``, as a graph replay
+    where ``graphed`` (each iteration then counts as ``graph_iters``) or
+    eagerly; ``field()`` is what the solve returns."""
+
+    def __init__(self, s: _Level, p: MorphParams, go, field, graphed: bool):
+        self.s, self.p, self.go, self.field, self.graphed = s, p, go, field, graphed
+
+    def relin(self, median: bool) -> None:
+        if median:
+            self.go("median")
+        self.go("warp")
+
+    def iterate(self, color: int, alpha) -> tuple:
+        self.s.alpha.fill_(float(alpha))
+        self.go(("iterate", color))
+        if self.graphed:
+            profiling.count("graph_iters")
+        return tuple(f32(x) for x in _read(self.s.out))
+
+    def backtrack(self, alpha):
+        self.s.alpha.fill_(float(alpha))
+        self.go("trial")
+        return f32(_read(self.s.out[2]))
+
+    def accept(self) -> None:
+        self.s.v.copy_(self.s.v_try)
+
+    def energy(self):
+        s = self.s
+        return f32(_read(sweep_energy(s.planes, s.v_lin, s.v, s.data, self.p)))
+
+
+def descend(open_level, p: MorphParams, n_iters: int, h: int, w: int):
+    """The level loop of both level solvers: ``(v', LevelStats)`` of the
+    level that ``open_level()`` makes, inside a ``solve.level`` span
+    (``h``, ``w``, ``n_iters``, on exit ``iters``) that counts
+    ``armijo_trials`` (the first trial and each backtrack).
+
+    The level does the device work and the reads: ``relin(median)`` (the
+    field's 3x3 median where ``median``, then the re-warp),
+    ``iterate(colour, alpha)`` (float32 (E(v), <grad, d>, E(v + alpha d))
+    of the step of that colour), ``backtrack(alpha)`` (float32
+    E(v + alpha d)), ``accept()`` (v <- the last trial), ``energy()``
+    (float32 E(v)) and ``field()`` (v'). The loop makes every decision in
+    float32, as the reference's ``lax.while_loop``.
+    """
+    armijo_c, shrink, grow = f32(p.armijo_c), f32(p.step_shrink), f32(p.step_grow)
+    min_step, tol = f32(p.min_step), f32(p.tol)
+    hist = torch.full((max(n_iters, 0),), float("nan"), dtype=torch.float32)
+    step, e, e0 = f32(p.init_step), f32(0.0), f32(0.0)
+    stall, it = 0, 0
+
+    def cond():
+        return it < n_iters and stall <= p.n_colors and step > min_step
+
+    with profiling.span("solve.level", h=h, w=w, n_iters=n_iters) as span:
+        level = open_level()
+        if n_iters <= 0:
+            level.relin(False)
+            e0 = e = level.energy()
+        relin = max(int(p.relin_every), 1)
+        while cond():
+            it0 = it
+            level.relin(p.relin_median and it0 > 0)
+            while cond() and it < it0 + relin:
+                alpha = step
+                e_cur, gd, e_try = level.iterate(it % p.n_colors, alpha)
+                profiling.count("armijo_trials")
+                if it == 0:
+                    e0 = e_cur
+                tries = 0
+                while (e_try > e_cur + armijo_c * alpha * gd and tries < p.max_backtracks
+                       and alpha > min_step):
+                    alpha = alpha * shrink
+                    e_try = level.backtrack(alpha)
+                    profiling.count("armijo_trials")
+                    tries += 1
+                accepted = e_try <= e_cur + armijo_c * alpha * gd
+                if accepted:
+                    level.accept()
+                    e_new = e_try
+                    step = alpha * grow if tries == 0 else alpha
+                else:
+                    e_new = e_cur
+                    step = alpha * shrink
+                rel_dec = (e_cur - e_new) / np.maximum(np.abs(e_cur), f32(1e-12))
+                stall = stall + 1 if rel_dec < tol else 0
+                hist[it] = float(e_new)
+                e = e_new
+                it += 1
+        v = level.field()
+        span.set(iters=it)
+    return v, LevelStats(e0=float(e0), e_final=float(e), iters=it, step=float(step), energy_history=hist)
+
+
 # ---------------------------------------------------------------------------
 # the level's CUDA graphs
 # ---------------------------------------------------------------------------
@@ -352,9 +455,6 @@ LEVEL_GRAPHS_KEPT = 12  # levels whose graphs are kept (a 4K pyramid has 8); the
 # the MorphParams fields that the captured launches read; the others only steer the host's loop
 GRAPH_FIELDS = ("ssim_window", "ssim_sigma", "ssim_c1", "ssim_c2", "ssim_use_luminance", "lambda_tps",
                 "gamma_ui", "beta_tc", "precond_eps", "fold_margin", "n_colors", "relin_median")
-
-# the kernel wrappers whose launch counters a replay advances by what its capture recorded
-_KERNELS = (sweep_grad, sweep_energy, halfway_warp)
 
 
 def level_graph_key(device, stream, specs, pack: torch.dtype, p: MorphParams) -> tuple:
@@ -369,42 +469,15 @@ def level_graph_key(device, stream, specs, pack: torch.dtype, p: MorphParams) ->
 
 class _LevelGraphs(NamedTuple):
     state: _Level       # the buffers the graphs read and write
-    graphs: dict        # step name -> its captured graph
-    launches: dict      # step name -> ((kernel wrapper, counter, launches in one replay), ...)
-    constants: tuple    # cached constants the graphs read (the window's taps), held alive
+    graphs: Captured    # a graph per step of :func:`_steps`
 
 
 _graphs = LRU(LEVEL_GRAPHS_KEPT)
 
 
-def _launch_counts() -> dict:
-    return {(fn, k): n for fn in _KERNELS for k, n in vars(fn).items() if k.startswith("launches")}
-
-
-def _capture_step(step, pool, stream):
-    """A CUDA graph of ``step()``, captured on ``stream`` into ``pool``,
-    and the launches it holds, which the counters do not keep (none ran)."""
-    before = _launch_counts()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool)
-        try:
-            step()
-        finally:
-            graph.capture_end()
-    launches = []
-    for (fn, k), n in before.items():
-        if getattr(fn, k) != n:
-            launches.append((fn, k, getattr(fn, k) - n))
-            setattr(fn, k, n)
-    return graph, tuple(launches)
-
-
 def _capture_level(v: torch.Tensor, data: LevelData, p: MorphParams, dt: torch.dtype) -> _LevelGraphs:
-    """Make a level's buffers and masks, load them, run every step once on
-    a side stream (which builds the kernels and fills the window's taps,
-    whose host-to-device copy cannot be captured), then capture each step
-    on that stream into one memory pool."""
+    """Make a level's buffers and masks, load them, and capture every step
+    (:func:`~videomorphing_tpu_torch.graphs.capture`) into one memory pool."""
     dev = v.device
     maps = ("ui_w", "ui_v", "tc_w", "tc_v")
     bufs = LevelData(**{k: torch.empty(x.shape, dtype=dt if k in maps else x.dtype, device=dev)
@@ -412,44 +485,26 @@ def _capture_level(v: torch.Tensor, data: LevelData, p: MorphParams, dt: torch.d
     s = _Level(torch.empty(v.shape, dtype=v.dtype, device=dev), bufs, dt,
                level_masks(v.shape[0], v.shape[1], p.n_colors, v.dtype, dev))
     _load(s, v, data)
-    steps = _steps(s, p)
-    current = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        for step in steps.values():
-            step()
-    current.wait_stream(side)
-    pool = torch.cuda.graph_pool_handle()
-    graphs, launches = {}, {}
-    with collect_constants() as constants:
-        for name, step in steps.items():
-            graphs[name], launches[name] = _capture_step(step, pool, side)
+    graphs = capture(_steps(s, p), dev, COUNTED)
     profiling.count("graph_captures")
-    return _LevelGraphs(s, graphs, launches, tuple(constants))
+    return _LevelGraphs(s, graphs)
 
 
-def _replaying(v: torch.Tensor, data: LevelData, p: MorphParams, dt: torch.dtype):
-    """``(state, run)`` of a level as graph replays: the graphs of its key
-    (captured on a miss) with the call's field and data loaded, and
-    ``run(name)``, which replays a step's graph and advances the kernels'
-    launch counters by its launches."""
+def _replaying(v: torch.Tensor, data: LevelData, p: MorphParams, dt: torch.dtype) -> _OneDevice:
+    """A level as graph replays: the graphs of its key (captured on a miss)
+    with the call's field and data loaded; each iteration replayed counts
+    as ``graph_iters``, and the field returned is a copy."""
     dev = v.device
     specs = tuple((tuple(x.shape), x.dtype) for x in (v,) + tuple(data))
     key = level_graph_key(dev, torch.cuda.current_stream(dev).cuda_stream, specs, dt, p)
     entry = _graphs.get(key, lambda: _capture_level(v, data, p, dt))
     _load(entry.state, v, data)
-
-    def run(name) -> None:
-        entry.graphs[name].replay()
-        for fn, k, n in entry.launches[name]:
-            setattr(fn, k, getattr(fn, k) + n)
-
-    return entry.state, run
+    return _OneDevice(entry.state, p, entry.graphs.replay, entry.state.v.clone, graphed=True)
 
 
 def make_level_solver(p: MorphParams, n_iters: int):
-    """The per-level solve ``(v, data) -> (v', LevelStats)``.
+    """The per-level solve ``(v, data) -> (v', LevelStats)``: the loop of
+    :func:`descend` on one device.
 
     Per outer block of ``relin_every`` iterations: 3x3-median the field
     (``relin_median``, skipped at the first block), re-warp both images
@@ -459,7 +514,7 @@ def make_level_solver(p: MorphParams, n_iters: int):
     foldover-clamped preconditioned step; Armijo backtracking on the
     linearized energy (kernel 2 per trial). The host reads once an
     iteration, (E(v), <grad, d>) with the first trial's energy at the
-    current step, and once a backtrack; it makes every decision.
+    current step, and once a backtrack.
 
     On a card (every tensor on it, no capture open, no gradient wanted,
     ``n_iters`` > 0) each step between two reads is a replay of a CUDA
@@ -468,93 +523,23 @@ def make_level_solver(p: MorphParams, n_iters: int):
     backtrack, the re-warp and the median. The field and the data are
     copied into the graphs' buffers, the step length enters as a 0-d
     device tensor, and the field returned is a copy. Elsewhere the same
-    steps run eagerly; both give the same bits.
-
-    Traced, each call is a ``solve.level`` span (attributes ``h``, ``w``,
-    ``n_iters``, on exit ``iters``) that counts its ``armijo_trials``
-    (kernel 2 calls of the line search), ``reads`` (device-to-host reads,
-    each a ``host.read`` span), ``graph_iters`` (iterations run as graph
-    replays) and ``graph_captures``.
+    steps run eagerly; both give the same bits. The ``solve.level`` span
+    also counts ``reads`` (each a ``host.read`` span), ``graph_iters``
+    (iterations replayed) and ``graph_captures``.
     """
-    armijo_c, shrink, grow = f32(p.armijo_c), f32(p.step_shrink), f32(p.step_grow)
-    min_step, tol = f32(p.min_step), f32(p.tol)
+
+    def eager(v: torch.Tensor, data: LevelData, dt: torch.dtype) -> _OneDevice:
+        s = _Level(v.clone(memory_format=torch.contiguous_format), pack_maps(data, dt), dt,
+                   level_masks(v.shape[0], v.shape[1], p.n_colors, v.dtype, v.device))
+        steps = _steps(s, p)
+        return _OneDevice(s, p, lambda name: steps[name](), lambda: s.v, graphed=False)
 
     def solve(v: torch.Tensor, data: LevelData):
-        with profiling.span("solve.level", h=v.shape[0], w=v.shape[1], n_iters=n_iters) as s:
-            v, stats = run(v, data)
-            s.set(iters=stats.iters)
-        return v, stats
-
-    def run(v: torch.Tensor, data: LevelData):
         h, w = v.shape[0], v.shape[1]
         dt = pack_dtype_for(p, h, w, v.device)
-        if n_iters <= 0:
-            s = _Level(v.contiguous(), pack_maps(data, dt), dt)
-            _warp_step(s, p)
-            e0 = f32(_read(sweep_energy(s.planes, s.v_lin, s.v, s.data, p)))
-            return s.v, LevelStats(e0=float(e0), e_final=float(e0), iters=0, step=float(f32(p.init_step)),
-                                   energy_history=torch.full((0,), float("nan"), dtype=torch.float32))
-        if replayable((v,) + tuple(data)):
+        if n_iters > 0 and replayable((v,) + tuple(data)):
             with torch.cuda.device(v.device):
-                s, go = _replaying(v, data, p, dt)
-                v, stats = descend(s, go, True)
-                return v.clone(), stats
-        s = _Level(v.clone(memory_format=torch.contiguous_format), pack_maps(data, dt), dt,
-                   level_masks(h, w, p.n_colors, v.dtype, v.device))
-        steps = _steps(s, p)
-        return descend(s, lambda name: steps[name](), False)
-
-    def descend(s: _Level, go, graphed: bool):
-        """The loop: ``go(name)`` runs a step; the host reads, decides and
-        keeps the float32 scalars."""
-        hist = torch.full((n_iters,), float("nan"), dtype=torch.float32)
-        relin = max(int(p.relin_every), 1)
-        step, e, e0 = f32(p.init_step), f32(0.0), f32(0.0)
-        stall, it = 0, 0
-
-        def cond():
-            return it < n_iters and stall <= p.n_colors and step > min_step
-
-        def trial(name, alpha):
-            s.alpha.fill_(float(alpha))
-            go(name)
-            profiling.count("armijo_trials")
-
-        while cond():
-            it0 = it
-            if p.relin_median and it0 > 0:
-                go("median")
-            go("warp")
-            while cond() and it < it0 + relin:
-                alpha = step
-                trial(("iterate", it % p.n_colors), alpha)
-                if graphed:
-                    profiling.count("graph_iters")
-                e_cur, gd, e_try = (f32(x) for x in _read(s.out))
-                if it == 0:
-                    e0 = e_cur
-                tries = 0
-                while (e_try > e_cur + armijo_c * alpha * gd and tries < p.max_backtracks
-                       and alpha > min_step):
-                    alpha = alpha * shrink
-                    trial("trial", alpha)
-                    e_try = f32(_read(s.out[2]))
-                    tries += 1
-                accepted = e_try <= e_cur + armijo_c * alpha * gd
-                if accepted:
-                    s.v.copy_(s.v_try)
-                    e_new = e_try
-                    step = alpha * grow if tries == 0 else alpha
-                else:
-                    e_new = e_cur
-                    step = alpha * shrink
-                rel_dec = (e_cur - e_new) / np.maximum(np.abs(e_cur), f32(1e-12))
-                stall = stall + 1 if rel_dec < tol else 0
-                hist[it] = float(e_new)
-                e = e_new
-                it += 1
-
-        return s.v, LevelStats(e0=float(e0), e_final=float(e), iters=it, step=float(step),
-                               energy_history=hist)
+                return descend(lambda: _replaying(v, data, p, dt), p, n_iters, h, w)
+        return descend(lambda: eager(v, data, dt), p, n_iters, h, w)
 
     return solve

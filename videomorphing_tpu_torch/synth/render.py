@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from videomorphing_tpu_torch.config import SynthParams
-from videomorphing_tpu_torch.graphs import LRU, collect_constants, replayable
+from videomorphing_tpu_torch.graphs import LRU, Captured, capture, replayable
+from videomorphing_tpu_torch.kernels import COUNTED
 from videomorphing_tpu_torch.kernels.warp import bilinear_sample, bilinear_sample_batched
 from videomorphing_tpu_torch.ops.pyramid import downsample_2x, resize_bilinear
 from videomorphing_tpu_torch.ops.resample import bicubic_sample, grid_coords, inside_mask
@@ -244,10 +245,6 @@ def _render_frame_eager(i0, i1, v, b, tv, sp: SynthParams, conf0, conf1, with_au
     return out, FrameAux(mask0=m0, mask1=m1, inv_residual=res)
 
 
-# kernel 4's wrappers, whose launch counters a replay advances by what its capture recorded
-_SAMPLERS = (bilinear_sample, bilinear_sample_batched)
-
-
 def frame_graph_key(device, stream, specs, sp: SynthParams, allow_tf32: bool, matmul_precision: str) -> tuple:
     """The cache key of a frame's CUDA graph: everything the captured
     launches depend on but the inputs' values and the time. ``specs``:
@@ -260,12 +257,9 @@ def frame_graph_key(device, stream, specs, sp: SynthParams, allow_tf32: bool, ma
 
 
 class _FrameGraph(NamedTuple):
-    graph: "torch.cuda.CUDAGraph"
+    graph: Captured     # the frame's graph, as step "frame"
     inputs: tuple       # the buffers the graph reads, one per given input (None where not given)
     times: tuple        # 0-d views of the time vector the graph reads
-    out: torch.Tensor   # the buffer the graph writes the frame into
-    constants: tuple    # cached constants the graph reads (DCT bases, resize weights), held alive
-    launches: tuple     # (sampler wrapper, its launches in one frame)
 
 
 _graphs = LRU(GRAPHS_KEPT)
@@ -278,29 +272,15 @@ def _replayable(inputs) -> bool:
 
 
 def _capture(inputs, t, sp: SynthParams) -> _FrameGraph:
-    """Run the body once on a side stream, which fills the constant caches
-    (their host-to-device copies cannot be captured), then capture it on
-    that stream into buffers of its own; kernel 4's counters keep only the
-    launches that ran."""
-    dev = inputs[0].device
+    """The body captured (:func:`~videomorphing_tpu_torch.graphs.capture`)
+    on buffers of its own, into a memory pool of its own."""
     bufs = tuple(None if x is None else x.clone(memory_format=torch.contiguous_format) for x in inputs)
     i0, i1, v, b, conf0, conf1 = bufs
     tv = _time_vector(t, v)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        _render_frame_eager(i0, i1, v, b, tv, sp, conf0, conf1, False)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    before = [fn.launches for fn in _SAMPLERS]
-    graph = torch.cuda.CUDAGraph()
-    with collect_constants() as constants, torch.cuda.graph(graph, stream=side):
-        out = _render_frame_eager(i0, i1, v, b, tv, sp, conf0, conf1, False)
-    launches = []
-    for fn, n in zip(_SAMPLERS, before):
-        launches.append((fn, fn.launches - n))
-        fn.launches = n
+    graph = capture({"frame": lambda: _render_frame_eager(i0, i1, v, b, tv, sp, conf0, conf1, False)},
+                    inputs[0].device, COUNTED)
     profiling.count("graph_captures")
-    return _FrameGraph(graph, bufs, tv.unbind(), out, tuple(constants), tuple(launches))
+    return _FrameGraph(graph, bufs, tv.unbind())
 
 
 def _replay(inputs, t, sp: SynthParams) -> torch.Tensor:
@@ -317,11 +297,9 @@ def _replay(inputs, t, sp: SynthParams) -> torch.Tensor:
             if buf is not None:
                 buf.copy_(x)
         _write_times(entry.times, t)
-        entry.graph.replay()
-        for fn, n in entry.launches:
-            fn.launches += n
+        entry.graph.replay("frame")
         profiling.count("graph_replays")
-        return entry.out.clone()
+        return entry.graph.outputs["frame"].clone()
 
 
 def render_clip(
