@@ -160,13 +160,23 @@ Phases:
      video's warm solve at ``SOLVER_GRAPH_VIDEO_HW`` the same way, a second
      morph capturing nothing; the 4K pair's 8-level solve with its peak
      memory and the memory its graphs keep; each solve's wall both ways.
+ 23. the flows' sweep (``flow_sweeps``): kernel 5 (``kernels.flow.hs_sweep``)
+     bitwise its plain version on the card, one sweep and a chain of
+     sweeps through two buffers, at ``FLOW_SWEEP_SHAPES`` (clip30's six
+     flow levels with its 58 problems, and ragged shapes); its device time
+     at the finest level beside its bound (40 bytes a site over 3.35 TB/s),
+     at 60 % of it or better, and the plain version's call time; then
+     ``clip_flows`` of phase 5's clip A bitwise a run with every sweep in
+     eager operations, one launch a sweep and each ``flow.level`` span's
+     ``fused_sweeps`` its sweeps, both walls; only the ``clip_flows`` runs
+     count launches.
 
 A repeated-device mesh runs its blocks one after another on the card: a
 correctness path, not a speed-up. Any failure raises and exits non-zero.
 The card's name and power limit, then one JSON object with a record per
 kernel, the bf16 forms and the wide strip's launches of kernels 1, 2, 1s
 and 2s (``<name>_wide``, timed at window 17) as records of their own
-(launches summed over the paths of phases 3-5, 7, 8 and 10-22;
+(launches summed over the paths of phases 3-5, 7, 8 and 10-23;
 ``ms`` and ``library_ms`` device times, ``plain_ms`` a call time), are the
 lines before the last; the last line is ``{"ok": true, "device":
 {...}}``. With no CUDA device it exits 1 and prints no result.
@@ -198,7 +208,8 @@ def wide_name(name: str) -> str:
 
 # the kernel numbering of PERF.md and ROADMAP.md: 1 sweep_grad (shard form
 # sweep_grad_shard), 2 sweep_energy (sweep_energy_shard), 3 halfway_warp (its
-# row-offset form halfway_warp_rows), 4 bilinear_sample (and its batched form);
+# row-offset form halfway_warp_rows), 4 bilinear_sample (and its batched form),
+# 5 hs_sweep (the flows' Jacobi sweep);
 # a name ending in _bf16 is the bf16 form of kernels 1-3 (pack_dtype =
 # "bfloat16"), counted under launches_bf16 of the same wrapper
 KERNELS = {
@@ -210,6 +221,7 @@ KERNELS = {
     "sweep_energy": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:502"),
     "sweep_grad_shard": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:936"),
     "sweep_energy_shard": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:959"),
+    "hs_sweep": ("videomorphing_tpu_torch/csrc/flow.cu", "none: videomorphing_tpu/video/flow.py _hs_level is jnp"),
 }
 BF16_FORMS = ("halfway_warp", "halfway_warp_rows", "sweep_grad", "sweep_energy", "sweep_grad_shard",
               "sweep_energy_shard")
@@ -294,6 +306,13 @@ SOLVER_GRAPH_CASES = (
 SOLVER_GRAPH_PAIR_N = 1024
 SOLVER_GRAPH_VIDEO_HW = (1080, 1920)
 SOLVER_GRAPH_4K_HW = (2160, 3840)
+# phase 23's shapes (h, w, batch): clip30's six flow levels (540 x 960 down,
+# 2 x 29 frame pairs a clip), then ragged ones; the first is timed
+FLOW_SWEEP_SHAPES = ((540, 960, 58), (270, 480, 58), (135, 240, 58), (68, 120, 58), (34, 60, 58), (17, 30, 58),
+                     (17, 30, 3), (1, 5, 1))
+FLOW_SWEEP_BYTES = 40       # a site: ut and u_w (8 each), it, ix, iy, denom (4 each), the new ut (8)
+FLOW_SWEEP_OPS = 15         # a site: the average (4 + 4), the residual (5), the update (4); ~2 more
+FLOW_SWEEP_MIN_SHARE = 0.6  # of its bound at the timed shape
 BASE = ("halfway_warp", "bilinear_sample", "bilinear_sample_batched", "sweep_grad", "sweep_energy")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -1243,6 +1262,7 @@ def kernel_counters():
     """Every kernel's launch counter as (name, wrapper, attribute), in
     ``KERNELS`` order: a bf16 form's is ``launches_bf16`` of its wrapper,
     the wide strip's ``launches_wide`` (``launches_wide_bf16``)."""
+    from videomorphing_tpu_torch.kernels import flow as kf
     from videomorphing_tpu_torch.kernels import sweep as ks
     from videomorphing_tpu_torch.kernels import warp as kw
 
@@ -1251,7 +1271,7 @@ def kernel_counters():
         base = name.removesuffix("_bf16")
         wide = base.endswith("_wide")
         base = base.removesuffix("_wide")
-        fn = getattr(ks, base, None) or getattr(kw, base)
+        fn = getattr(ks, base, None) or getattr(kw, base, None) or getattr(kf, base)
         out.append((name, fn, "launches" + ("_wide" if wide else "") + ("_bf16" if name.endswith("_bf16") else "")))
     return tuple(out)
 
@@ -2819,6 +2839,112 @@ def solver_graphs(dev, card: str) -> dict:
     return read_counters(counters)
 
 
+def flow_sweep_inputs(h: int, w: int, nb: int, dev, seed: int) -> dict:
+    """Kernel 5's inputs at (h, w, nb) on ``dev``: flows of a few pixels,
+    data terms of the grey images' scale, ``denom`` as the level makes it."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g).to(dev)
+    ix, iy = 20.0 * r(h, w, nb), 20.0 * r(h, w, nb)
+    alpha2 = 15.0 * 15.0
+    return dict(ut=3.0 * r(h, w, nb, 2), u_w=3.0 * r(h, w, nb, 2), it=30.0 * r(h, w, nb), ix=ix, iy=iy,
+                denom=alpha2 + ix * ix + iy * iy)
+
+
+def flow_sweeps(dev, card: str) -> tuple:
+    """Phase 23: kernel 5 against its plain version, bitwise, at
+    ``FLOW_SWEEP_SHAPES``, timed at the first; then ``clip_flows`` of phase
+    5's clip A against the same flows with every sweep eager, each level's
+    ``fused_sweeps`` counter read. Returns the launches of the
+    ``clip_flows`` runs (the checks and the timing left out) and kernel 5's
+    record."""
+    import torch
+
+    from videomorphing_tpu_torch.config import VideoParams
+    from videomorphing_tpu_torch.kernels import flow as kf
+    from videomorphing_tpu_torch.utils import profiling
+    from videomorphing_tpu_torch.utils.synthetic import make_clips
+    from videomorphing_tpu_torch.video import flow as tf
+
+    rec = {"max_abs_err": 0.0, "library_ms": None}
+    for k, (h, w, nb) in enumerate(FLOW_SWEEP_SHAPES):
+        x = flow_sweep_inputs(h, w, nb, dev, seed=k)
+        args = (x["u_w"], x["it"], x["ix"], x["iy"], x["denom"])
+        bufs = (torch.empty_like(x["ut"]), torch.empty_like(x["ut"]))
+        one = kf.hs_sweep(x["ut"], *args, bufs[0])
+        require(torch.equal(one, kf.hs_sweep_plain(x["ut"], *args)), f"hs_sweep {h}x{w}x{nb}: one sweep differs")
+        got, ref = x["ut"], x["ut"]
+        for i in range(8):
+            got = kf.hs_sweep(got, *args, bufs[i % 2])
+            ref = kf.hs_sweep_plain(ref, *args)
+        err = float((got - ref).abs().max())
+        log(f"  hs_sweep {h}x{w}x{nb}: one sweep and 8 chained bitwise the plain version "
+            f"(max |ut| {float(got.abs().max()):.3f} px)")
+        require(torch.equal(got, ref), f"hs_sweep {h}x{w}x{nb}: 8 sweeps differ by {err}")
+        if k == 0:
+            n = h * w * nb
+            rec["bound"] = bound(FLOW_SWEEP_BYTES * n, FLOW_SWEEP_OPS * n)
+            kern = lambda: kf.hs_sweep(x["ut"], *args, bufs[0])
+            plain = lambda: kf.hs_sweep_plain(x["ut"], *args)
+            rec["ms"], rec["plain_ms"], (k1, k2, pl1, pl2), call = timed_pair(kern, plain)
+            b_ms, b_by = rec["bound"]
+            share = b_ms / rec["ms"]
+            log(f"  hs_sweep {h}x{w}x{nb} time: kernel {k1:.4f}/{k2:.4f} ms (device), {call:.4f} ms (call), "
+                f"plain {pl1:.4f}/{pl2:.4f} ms; bound {b_ms:.4f} ms ({b_by}), {100 * share:.1f} % of it, "
+                f"{FLOW_SWEEP_BYTES * n / (rec['ms'] * 1e-3) / 1e12:.3f} TB/s on {card}")
+            require(share >= FLOW_SWEEP_MIN_SHARE,
+                    f"hs_sweep at {100 * share:.1f} % of its bound, under {100 * FLOW_SWEEP_MIN_SHARE:.0f} %")
+        del x, args, bufs, one, got, ref
+    torch.cuda.empty_cache()
+
+    vp = VideoParams()
+    t_len, h, w = 30, 1080, 1920
+    clip = torch.from_numpy(make_clips(t_len, h, w, seed=0)[0]).to(dev)
+
+    def eager_sweep(ut, u_w, it, ix, iy, denom, out):
+        return out.copy_(kf.hs_sweep_plain(ut, u_w, it, ix, iy, denom))
+
+    eager_sweep.launches = 0
+    fused_sweep = kf.hs_sweep
+
+    def timed_flows():
+        sync(dev)
+        t0 = time.perf_counter()
+        fwd, bwd = tf.clip_flows(clip, vp)
+        sync(dev)
+        return fwd, bwd, time.perf_counter() - t0
+
+    counters = reset_counters()
+    profiling.clear()
+    with profiling.record_phases():
+        tf.clip_flows(clip, vp)  # warm-up
+    levels = [s for s in profiling.spans() if s.name == "flow.level"]
+    profiling.clear()
+    require(levels and all(s.counts.get("fused_sweeps") == s.attrs["sweeps"] for s in levels),
+            "flow.level spans without one fused_sweeps count a sweep: "
+            + str([(s.attrs["h"], s.attrs["sweeps"], s.counts.get("fused_sweeps")) for s in levels]))
+    before = kf.hs_sweep.launches
+    fwd, bwd, wall = timed_flows()
+    n_levels = len(tf._gray_pyramid(clip[:1].permute(1, 2, 0, 3), vp))
+    fused = kf.hs_sweep.launches - before
+    require(fused == n_levels * vp.flow_warps * vp.flow_iters, f"{fused} sweep launches for {n_levels} levels")
+    kf.hs_sweep = eager_sweep
+    try:
+        tf.clip_flows(clip, vp)
+        e_fwd, e_bwd, e_wall = timed_flows()
+    finally:
+        kf.hs_sweep = fused_sweep
+    require(torch.equal(fwd, e_fwd) and torch.equal(bwd, e_bwd),
+            f"clip_flows differs from its eager sweeps by {float((fwd - e_fwd).abs().max())} px")
+    log(f"  clip_flows {t_len}x{h}x{w}: bitwise the eager sweeps; {fused} sweep launches ({n_levels} levels, "
+        f"each level's fused_sweeps its sweeps), wall {wall:.3f} s, eager sweeps {e_wall:.3f} s, on {card}")
+    launches = read_counters(counters)
+    del clip, fwd, bwd, e_fwd, e_bwd
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def main(argv) -> int:
     import torch
 
@@ -2928,11 +3054,14 @@ def main(argv) -> int:
     log("phase 22: solver graphs (make_level_solver replayed against its eager loop at 64^2 to 2160x3840, "
         "optimize_pair, the video's warm solve, the 4K pyramid's memory)")
     solver_graph_launches = solver_graphs(dev, card)
+    log("phase 23: flow sweeps (kernels.flow.hs_sweep against its plain version at clip30's levels, timed at "
+        "540x960x58; clip_flows against its eager sweeps)")
+    flow_launches, rec["hs_sweep"] = flow_sweeps(dev, card)
 
     paths = (launches, golden_launches, video_launches, layered_launches, layered_video_launches, spatial_launches,
              mesh_launches, manifest_launches, stream_launches, stressor_launches, edit_launches, rows_launches,
              examples_launches, wide_launches, bf16_launches, bench_launches, graph_launches,
-             solver_graph_launches)
+             solver_graph_launches, flow_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]

@@ -70,8 +70,6 @@ def main() -> int:
         return 1
     import videomorphing_tpu_torch
     from videomorphing_tpu_torch import api
-    from videomorphing_tpu_torch.kernels import sweep as ks
-    from videomorphing_tpu_torch.kernels import warp as kw
     from videomorphing_tpu_torch.models import layered
 
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(videomorphing_tpu_torch.__file__)))
@@ -85,8 +83,7 @@ def main() -> int:
         i0, i1 = (np.nextafter(a, np.float32(np.inf)) for a in (i0, i1))
     layer = dict(mask0=cs.blob_discs(1, n, n, 0.45 * n, dev)[0], mask1=cs.blob_discs(1, n, n, 0.55 * n, dev)[0])
     # the float32 forms: the layered pair solves at the default pack_dtype
-    names = [k for k in cs.KERNELS if not k.endswith("_bf16")]
-    counters = [getattr(ks, k, None) or getattr(kw, k, None) for k in names]
+    counters = [(k, fn, attr) for k, fn, attr in cs.kernel_counters() if not k.endswith("_bf16")]
 
     stages: dict = {}
     solves: list = []
@@ -123,8 +120,8 @@ def main() -> int:
     for run in range(args.runs):
         stages.clear()
         solves.clear()
-        for fn in counters:
-            fn.launches = 0
+        for _, fn, attr in counters:
+            setattr(fn, attr, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         frames = api.morph_pair_layered(i0, i1, [layer], pts, n_frames=n_frames, device=dev)
@@ -133,7 +130,7 @@ def main() -> int:
         out = frames.cpu().numpy()
         rec = {
             "label": label, "run": run, "pair_1k_s": pair_s, "wall_s": wall, "stages_s": stages,
-            "launches": {k: fn.launches for k, fn in zip(names, counters)},
+            "launches": {k: getattr(fn, attr) for k, fn, attr in counters},
             "iters": solves, "frames_sha256": hashlib.sha256(out.tobytes()).hexdigest(),
         }
         if ref is not None:

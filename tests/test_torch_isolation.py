@@ -206,7 +206,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_compiles_only_the_package_sources():
     srcs = build.sources()
-    assert {p.name for p in srcs} == {"warp.cu", "sweep.cu"}
+    assert {p.name for p in srcs} == {"warp.cu", "sweep.cu", "flow.cu"}
     assert all(p.parent == PKG / "csrc" for p in srcs)
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     for p in srcs:

@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from videomorphing_tpu_torch.config import SynthParams
+from videomorphing_tpu_torch.kernels import flow as kf
 from videomorphing_tpu_torch.kernels import sweep as ks
 from videomorphing_tpu_torch.kernels import warp as kw
 from videomorphing_tpu_torch.ops import poisson, pyramid
@@ -282,8 +283,8 @@ def test_capture_takes_the_launches_back_and_replay_adds_them(fake_cuda):
 def test_counted_lists_every_counting_kernel_wrapper():
     from videomorphing_tpu_torch import kernels
 
-    wrappers = {fn for mod in (ks, kw) for fn in vars(mod).values() if callable(fn) and hasattr(fn, "launches")}
-    assert set(kernels.COUNTED) == wrappers and len(kernels.COUNTED) == len(wrappers) == 8
+    wrappers = {fn for mod in (ks, kw, kf) for fn in vars(mod).values() if callable(fn) and hasattr(fn, "launches")}
+    assert set(kernels.COUNTED) == wrappers and len(kernels.COUNTED) == len(wrappers) == 9
 
 
 def test_one_confidence_alone_is_ignored_as_before():

@@ -108,6 +108,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     sigs = {
         "vm_halfway_warp": [P, P, P, P, I, I, I, I, I, I, P],
         "vm_bilinear_sample": [P, P, P, I, I, I, I, L, I, P],
+        "vm_hs_sweep": [P] * 7 + [I, I, I, P],
         "vm_sweep_grad": [P] * 10 + [I, P, L] + [P] * 3,
         "vm_sweep_energy": [P] * 8 + [I, P, L] + [P] * 3,
         "vm_sweep_grad_bf16": [P] * 10 + [I, P, L] + [P] * 3,

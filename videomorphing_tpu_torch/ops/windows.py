@@ -37,6 +37,13 @@ def edge_pad(x: torch.Tensor, pad_y, pad_x) -> torch.Tensor:
     return x[iy][:, ix]
 
 
+def edge_shifts(f: torch.Tensor):
+    """Edge-replicated 4-neighbourhood of (H, W, ...): up/down/left/right,
+    as views into one padded copy."""
+    p = edge_pad(f, (1, 1), (1, 1))
+    return p[:-2, 1:-1], p[2:, 1:-1], p[1:-1, :-2], p[1:-1, 2:]
+
+
 def _taps_list(k) -> Sequence[float]:
     if isinstance(k, torch.Tensor):
         return [float(t) for t in k.detach().cpu().tolist()]

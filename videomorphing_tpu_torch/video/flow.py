@@ -17,6 +17,11 @@ Every warp gather runs through kernel 4 (``kernels.warp``; the batched form
 for a batch) at every pyramid level. On the TPU the reference keeps levels
 under 128 px on the plain gather (``flow.py:63-66``): the values are the
 same, only the launch counts differ. ``VideoParams.fused_flow`` is ignored.
+Every Horn-Schunck Jacobi sweep runs through kernel 5
+(``kernels.flow.hs_sweep``: one launch a sweep on the card, the plain
+version on the CPU, the same bits). Each level opens a ``flow.level`` span
+(``h``, ``w``, ``batch``, ``sweeps``); ``_hs_level`` counts kernel 5's
+launches there as ``fused_sweeps``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import List, Tuple
 import torch
 
 from videomorphing_tpu_torch.config import VideoParams
+from videomorphing_tpu_torch.kernels import flow as kflow
 from videomorphing_tpu_torch.kernels.warp import bilinear_sample, bilinear_sample_batched
 from videomorphing_tpu_torch.ops.pyramid import (
     auto_n_levels,
@@ -34,8 +40,9 @@ from videomorphing_tpu_torch.ops.pyramid import (
     resize_bilinear,
 )
 from videomorphing_tpu_torch.ops.resample import grid_coords
-from videomorphing_tpu_torch.ops.windows import edge_pad, gaussian_kernel_1d, separable_filter
+from videomorphing_tpu_torch.ops.windows import edge_shifts, gaussian_kernel_1d, separable_filter
 from videomorphing_tpu_torch.solver.ctf import resample_field
+from videomorphing_tpu_torch.utils import profiling
 
 
 def _gray(img: torch.Tensor, vp: VideoParams | None = None) -> torch.Tensor:
@@ -65,17 +72,10 @@ def _warp_gray(b: torch.Tensor, coords: torch.Tensor, vp: VideoParams) -> torch.
     return out[..., 0].permute(1, 2, 0)
 
 
-def _shifts(f: torch.Tensor):
-    """Edge-replicated 4-neighbourhood of (H, W, ...): up/down/left/right,
-    as views into one padded copy."""
-    p = edge_pad(f, (1, 1), (1, 1))
-    return p[:-2, 1:-1], p[2:, 1:-1], p[1:-1, :-2], p[1:-1, 2:]
-
-
 def _deriv(f: torch.Tensor):
     """Central differences (dy, dx) of (H, W, ...), edge-replicated (the
     borders degrade to one-sided half-differences)."""
-    up, dn, lf, rt = _shifts(f)
+    up, dn, lf, rt = edge_shifts(f)
     return 0.5 * (dn - up), 0.5 * (rt - lf)
 
 
@@ -89,31 +89,29 @@ def _hs_level(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor, vp: VideoParams
     """Horn-Schunck at one level: ``vp.flow_warps`` outer warps, each with
     ``vp.flow_iters`` Jacobi sweeps on the total flow, the data term
     linearized at the warp's start and each warp's correction clamped to
-    ``vp.flow_clamp``."""
+    ``vp.flow_clamp``. The sweeps that launched kernel 5 add to the open
+    span's ``fused_sweeps`` counter."""
     h, w = a.shape[0], a.shape[1]
     g = _grid_like(h, w, u)
     alpha2 = vp.flow_alpha * vp.flow_alpha
 
-    def navg(f):
-        up, dn, lf, rt = _shifts(f)
-        return 0.25 * (up + dn + lf + rt)
+    u = u.contiguous()
+    bufs = (torch.empty_like(u), torch.empty_like(u))  # the sweeps write these in turn
+    launched = kflow.hs_sweep.launches
 
     for _ in range(vp.flow_warps):
         u_w = u
-        bw = _warp_gray(b, g + u_w, vp)
+        bw = _warp_gray(b, g + u_w, vp).contiguous()  # kernel 4 gives (B, H, W): the sweeps take (H, W, B)
         it = bw - a
         iy, ix = _deriv(bw)
         denom = alpha2 + ix * ix + iy * iy
-        grad = torch.stack([iy, ix], -1)
-        # both flow components share each stencil op (the same values as
-        # the reference's per-component navg and stack)
         ut = u_w
-        for _ in range(vp.flow_iters):
-            ua = navg(ut)
-            diff = ua - u_w
-            resid = (it + ix * diff[..., 1] + iy * diff[..., 0]) / denom
-            ut = ua - grad * resid[..., None]
+        for k in range(vp.flow_iters):
+            ut = kflow.hs_sweep(ut, u_w, it, ix, iy, denom, bufs[k % 2])
         u = u_w + torch.clamp(ut - u_w, -vp.flow_clamp, vp.flow_clamp)
+    fused = kflow.hs_sweep.launches - launched
+    if fused:
+        profiling.count("fused_sweeps", fused)
     return u
 
 
@@ -151,7 +149,7 @@ def _robust_level(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor, vp: VideoPa
         for _ in range(n_irls):
             du = ut - u_w
             ws = []
-            for n in _shifts(ut):
+            for n in edge_shifts(ut):
                 d = n - ut
                 ws.append(1.0 / torch.sqrt(torch.sum(d * d, -1) + eps2_s))
             wsum = ws[0] + ws[1] + ws[2] + ws[3]
@@ -179,7 +177,7 @@ def _robust_level(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor, vp: VideoPa
             det = a11 * a22 - a12 * a12
 
             for _ in range(inner):
-                un_u, un_d, un_l, un_r = _shifts(ut)
+                un_u, un_d, un_l, un_r = edge_shifts(ut)
                 ua = (
                     ws[0][..., None] * un_u + ws[1][..., None] * un_d
                     + ws[2][..., None] * un_l + ws[3][..., None] * un_r
@@ -195,6 +193,13 @@ def _robust_level(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor, vp: VideoPa
 
 def _level_solver(vp: VideoParams):
     return _robust_level if vp.flow_robust else _hs_level
+
+
+def _sweeps(vp: VideoParams) -> int:
+    """The Jacobi sweeps of one level of :func:`_level_solver`."""
+    if vp.flow_robust:
+        return vp.flow_warps * vp.flow_irls * max(vp.flow_iters // vp.flow_irls, 1)
+    return vp.flow_warps * vp.flow_iters
 
 
 def _flow_downscale(x: torch.Tensor, vp: VideoParams) -> torch.Tensor:
@@ -225,7 +230,8 @@ def _flow_solve(pyr_a: List[torch.Tensor], pyr_b: List[torch.Tensor], vp: VideoP
     solve = _level_solver(vp)
     u = pyr_a[0].new_zeros(shapes[-1] + (nb, 2))
     for level in range(len(pyr_a) - 1, -1, -1):
-        u = solve(pyr_a[level], pyr_b[level], u, vp)
+        with profiling.span("flow.level", h=shapes[level][0], w=shapes[level][1], batch=nb, sweeps=_sweeps(vp)):
+            u = solve(pyr_a[level], pyr_b[level], u, vp)
         if level > 0:
             u = resample_field(u, shapes[level - 1])
     return u
