@@ -21,7 +21,8 @@ Every Horn-Schunck Jacobi sweep runs through kernel 5
 (``kernels.flow.hs_sweep``: one launch a sweep on the card, the plain
 version on the CPU, the same bits). Each level opens a ``flow.level`` span
 (``h``, ``w``, ``batch``, ``sweeps``); ``_hs_level`` counts kernel 5's
-launches there as ``fused_sweeps``.
+launches there as ``fused_sweeps``, ``_robust_level`` its IRLS steps as
+``irls_steps``, each inside a ``flow.irls`` span of its own.
 """
 
 from __future__ import annotations
@@ -121,8 +122,11 @@ def _robust_level(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor, vp: VideoPa
     residuals and TV-like smoothness, as lagged IRLS weights around damped
     Jacobi sweeps that solve each pixel's 2x2 normal matrix in closed form.
     ``flow_iters`` splits as ``max(flow_iters // flow_irls, 1)`` sweeps per
-    IRLS step."""
+    IRLS step. Each IRLS step (its weights, its normal matrix, its sweeps)
+    opens a ``flow.irls`` span (``h``, ``w``, ``batch``, ``sweeps``: its
+    inner count) and adds one to the open span's ``irls_steps`` counter."""
     h, w = a.shape[0], a.shape[1]
+    nb = a.shape[2] if a.dim() > 2 else 1
     g = _grid_like(h, w, u)
     alpha2 = vp.flow_alpha_robust * vp.flow_alpha_robust
     eps2 = vp.flow_eps * vp.flow_eps
@@ -147,46 +151,48 @@ def _robust_level(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor, vp: VideoPa
 
         ut = u_w
         for _ in range(n_irls):
-            du = ut - u_w
-            ws = []
-            for n in edge_shifts(ut):
-                d = n - ut
-                ws.append(1.0 / torch.sqrt(torch.sum(d * d, -1) + eps2_s))
-            wsum = ws[0] + ws[1] + ws[2] + ws[3]
-            s = alpha2 * wsum * 0.25
+            profiling.count("irls_steps")
+            with profiling.span("flow.irls", h=h, w=w, batch=nb, sweeps=inner):
+                du = ut - u_w
+                ws = []
+                for n in edge_shifts(ut):
+                    d = n - ut
+                    ws.append(1.0 / torch.sqrt(torch.sum(d * d, -1) + eps2_s))
+                wsum = ws[0] + ws[1] + ws[2] + ws[3]
+                s = alpha2 * wsum * 0.25
 
-            r2_sum = torch.zeros_like(s)
-            for it_c, gy_c, gx_c, cw in chans:
-                r = it_c + gy_c * du[..., 0] + gx_c * du[..., 1]
-                r2_sum = r2_sum + cw * r * r
-            w_pix = 1.0 / torch.sqrt(r2_sum + eps2)
+                r2_sum = torch.zeros_like(s)
+                for it_c, gy_c, gx_c, cw in chans:
+                    r = it_c + gy_c * du[..., 0] + gx_c * du[..., 1]
+                    r2_sum = r2_sum + cw * r * r
+                w_pix = 1.0 / torch.sqrt(r2_sum + eps2)
 
-            a11 = s
-            a12 = torch.zeros_like(s)
-            a22 = s
-            b1 = torch.zeros_like(s)
-            b2 = torch.zeros_like(s)
-            for it_c, gy_c, gx_c, cw in chans:
-                wc = cw * w_pix
-                a11 = a11 + wc * gy_c * gy_c
-                a12 = a12 + wc * gy_c * gx_c
-                a22 = a22 + wc * gx_c * gx_c
-                c = it_c - gy_c * u_w[..., 0] - gx_c * u_w[..., 1]
-                b1 = b1 - wc * gy_c * c
-                b2 = b2 - wc * gx_c * c
-            det = a11 * a22 - a12 * a12
+                a11 = s
+                a12 = torch.zeros_like(s)
+                a22 = s
+                b1 = torch.zeros_like(s)
+                b2 = torch.zeros_like(s)
+                for it_c, gy_c, gx_c, cw in chans:
+                    wc = cw * w_pix
+                    a11 = a11 + wc * gy_c * gy_c
+                    a12 = a12 + wc * gy_c * gx_c
+                    a22 = a22 + wc * gx_c * gx_c
+                    c = it_c - gy_c * u_w[..., 0] - gx_c * u_w[..., 1]
+                    b1 = b1 - wc * gy_c * c
+                    b2 = b2 - wc * gx_c * c
+                det = a11 * a22 - a12 * a12
 
-            for _ in range(inner):
-                un_u, un_d, un_l, un_r = edge_shifts(ut)
-                ua = (
-                    ws[0][..., None] * un_u + ws[1][..., None] * un_d
-                    + ws[2][..., None] * un_l + ws[3][..., None] * un_r
-                ) / wsum[..., None]
-                r1 = s * ua[..., 0] + b1
-                r2 = s * ua[..., 1] + b2
-                uy = (a22 * r1 - a12 * r2) / det
-                ux = (a11 * r2 - a12 * r1) / det
-                ut = 0.5 * ut + 0.5 * torch.stack([uy, ux], -1)
+                for _ in range(inner):
+                    un_u, un_d, un_l, un_r = edge_shifts(ut)
+                    ua = (
+                        ws[0][..., None] * un_u + ws[1][..., None] * un_d
+                        + ws[2][..., None] * un_l + ws[3][..., None] * un_r
+                    ) / wsum[..., None]
+                    r1 = s * ua[..., 0] + b1
+                    r2 = s * ua[..., 1] + b2
+                    uy = (a22 * r1 - a12 * r2) / det
+                    ux = (a11 * r2 - a12 * r1) / det
+                    ut = 0.5 * ut + 0.5 * torch.stack([uy, ux], -1)
         u = u_w + torch.clamp(ut - u_w, -vp.flow_clamp, vp.flow_clamp)
     return u
 
