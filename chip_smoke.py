@@ -170,13 +170,25 @@ Phases:
      eager operations, one launch a sweep and each ``flow.level`` span's
      ``fused_sweeps`` its sweeps, both walls; only the ``clip_flows`` runs
      count launches.
+ 24. the robust flow's IRLS step (``irls_steps``): kernels 6 and 7
+     (``kernels.flow.irls_setup``, ``irls_sweep``) bitwise their plain
+     versions on the card, the set-up, one sweep and 8 sweeps chained
+     through two buffers, at ``IRLS_SHAPES`` (stressor30's four robust
+     flow levels with its 58 problems, and ragged shapes); each kernel's
+     device time at the finest level beside its bound (88 and 52 bytes a
+     site over 3.35 TB/s) and the plain version's call time; then the
+     robust ``clip_flows`` of a 30 x 480 x 854 stressor take bitwise a run
+     with every IRLS step in eager operations, one launch of kernel 6 a
+     step and of kernel 7 a sweep, each ``flow.level`` span's
+     ``fused_irls_steps`` its ``irls_steps``, both walls; only the
+     ``clip_flows`` runs count launches.
 
 A repeated-device mesh runs its blocks one after another on the card: a
 correctness path, not a speed-up. Any failure raises and exits non-zero.
 The card's name and power limit, then one JSON object with a record per
 kernel, the bf16 forms and the wide strip's launches of kernels 1, 2, 1s
 and 2s (``<name>_wide``, timed at window 17) as records of their own
-(launches summed over the paths of phases 3-5, 7, 8 and 10-23;
+(launches summed over the paths of phases 3-5, 7, 8 and 10-24;
 ``ms`` and ``library_ms`` device times, ``plain_ms`` a call time), are the
 lines before the last; the last line is ``{"ok": true, "device":
 {...}}``. With no CUDA device it exits 1 and prints no result.
@@ -209,7 +221,8 @@ def wide_name(name: str) -> str:
 # the kernel numbering of PERF.md and ROADMAP.md: 1 sweep_grad (shard form
 # sweep_grad_shard), 2 sweep_energy (sweep_energy_shard), 3 halfway_warp (its
 # row-offset form halfway_warp_rows), 4 bilinear_sample (and its batched form),
-# 5 hs_sweep (the flows' Jacobi sweep);
+# 5 hs_sweep (the flows' Jacobi sweep), 6 irls_setup and 7 irls_sweep (the
+# robust flow's IRLS step: its weights and normal matrix; a sweep);
 # a name ending in _bf16 is the bf16 form of kernels 1-3 (pack_dtype =
 # "bfloat16"), counted under launches_bf16 of the same wrapper
 KERNELS = {
@@ -222,6 +235,10 @@ KERNELS = {
     "sweep_grad_shard": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:936"),
     "sweep_energy_shard": ("videomorphing_tpu_torch/csrc/sweep.cu", "videomorphing_tpu/pallas/sweep.py:959"),
     "hs_sweep": ("videomorphing_tpu_torch/csrc/flow.cu", "none: videomorphing_tpu/video/flow.py _hs_level is jnp"),
+    "irls_setup": ("videomorphing_tpu_torch/csrc/flow.cu",
+                   "none: videomorphing_tpu/video/flow.py _robust_level is jnp"),
+    "irls_sweep": ("videomorphing_tpu_torch/csrc/flow.cu",
+                   "none: videomorphing_tpu/video/flow.py _robust_level is jnp"),
 }
 BF16_FORMS = ("halfway_warp", "halfway_warp_rows", "sweep_grad", "sweep_energy", "sweep_grad_shard",
               "sweep_energy_shard")
@@ -313,6 +330,15 @@ FLOW_SWEEP_SHAPES = ((540, 960, 58), (270, 480, 58), (135, 240, 58), (68, 120, 5
 FLOW_SWEEP_BYTES = 40       # a site: ut and u_w (8 each), it, ix, iy, denom (4 each), the new ut (8)
 FLOW_SWEEP_OPS = 15         # a site: the average (4 + 4), the residual (5), the update (4); ~2 more
 FLOW_SWEEP_MIN_SHARE = 0.6  # of its bound at the timed shape
+# phase 24's shapes (h, w, batch): stressor30's four robust flow levels (240 x
+# 427 down, 2 x 29 frame pairs a clip), then ragged ones; the first is timed
+IRLS_SHAPES = ((240, 427, 58), (120, 214, 58), (60, 107, 58), (30, 54, 58), (17, 31, 3), (1, 5, 1))
+IRLS_THW = (30, 480, 854)  # the stressor take whose robust flows phase 24 holds to the eager IRLS steps
+IRLS_SETUP_BYTES = 88  # a site: ut and u_w (8 each), the nine maps (36), the nine coefficients written (36)
+IRLS_SETUP_OPS = 114   # a site: 4 weights (8 each), wsum and s (5), du (2), 3 residuals (7 each), w_pix (3), 3 x 17
+IRLS_SWEEP_BYTES = 52  # a site: ut (8), the nine coefficients (36), the new ut (8)
+IRLS_SWEEP_OPS = 42    # a site: wsum, s, det (8), the average (16), r1, r2 (4), the solve (8), the update (6)
+IRLS_MIN_SHARE = 0.6  # of its bound at the timed shape, for kernels 6 and 7 each
 BASE = ("halfway_warp", "bilinear_sample", "bilinear_sample_batched", "sweep_grad", "sweep_energy")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -2852,6 +2878,54 @@ def flow_sweep_inputs(h: int, w: int, nb: int, dev, seed: int) -> dict:
                 denom=alpha2 + ix * ix + iy * iy)
 
 
+def clip_flows_against_eager(clip, vp, swaps: dict, fused_counter: str, expected, n_levels: int) -> tuple:
+    """``clip_flows(clip, vp)`` on the main path, once under
+    ``profiling.record_phases`` (every ``flow.level`` span's
+    ``fused_counter`` must equal ``expected(span)``, above 0) and once
+    timed; the launch counters, reset before, are read right after these
+    two runs. Then two more runs with the ``kernels.flow`` wrappers named in
+    ``swaps`` replaced by their eager stand-ins, the last timed: the flows
+    must be bitwise the main path's. Returns the two main-path runs'
+    launches and the walls of the timed runs (main path, eager)."""
+    import torch
+
+    from videomorphing_tpu_torch.kernels import flow as kf
+    from videomorphing_tpu_torch.utils import profiling
+    from videomorphing_tpu_torch.video import flow as tf
+
+    def timed_flows():
+        sync(clip.device)
+        t0 = time.perf_counter()
+        fwd, bwd = tf.clip_flows(clip, vp)
+        sync(clip.device)
+        return fwd, bwd, time.perf_counter() - t0
+
+    counters = reset_counters()
+    profiling.clear()
+    with profiling.record_phases():
+        tf.clip_flows(clip, vp)  # warm-up
+    levels = [s for s in profiling.spans() if s.name == "flow.level"]
+    profiling.clear()
+    require(len(levels) == n_levels and all(s.counts.get(fused_counter) == expected(s) > 0 for s in levels),
+            f"{len(levels)} flow.level spans for {n_levels} levels, or a span whose {fused_counter} is not its "
+            "count: " + str([(s.attrs["h"], expected(s), s.counts.get(fused_counter)) for s in levels]))
+    fwd, bwd, wall = timed_flows()
+    launches = read_counters(counters)
+    fused = {name: getattr(kf, name) for name in swaps}
+    for name, eager in swaps.items():
+        eager.launches = 0
+        setattr(kf, name, eager)
+    try:
+        tf.clip_flows(clip, vp)
+        e_fwd, e_bwd, e_wall = timed_flows()
+    finally:
+        for name, fn in fused.items():
+            setattr(kf, name, fn)
+    require(torch.equal(fwd, e_fwd) and torch.equal(bwd, e_bwd),
+            f"clip_flows differs from its run with eager {', '.join(swaps)} by {float((fwd - e_fwd).abs().max())} px")
+    return launches, wall, e_wall
+
+
 def flow_sweeps(dev, card: str) -> tuple:
     """Phase 23: kernel 5 against its plain version, bitwise, at
     ``FLOW_SWEEP_SHAPES``, timed at the first; then ``clip_flows`` of phase
@@ -2905,44 +2979,120 @@ def flow_sweeps(dev, card: str) -> tuple:
     def eager_sweep(ut, u_w, it, ix, iy, denom, out):
         return out.copy_(kf.hs_sweep_plain(ut, u_w, it, ix, iy, denom))
 
-    eager_sweep.launches = 0
-    fused_sweep = kf.hs_sweep
-
-    def timed_flows():
-        sync(dev)
-        t0 = time.perf_counter()
-        fwd, bwd = tf.clip_flows(clip, vp)
-        sync(dev)
-        return fwd, bwd, time.perf_counter() - t0
-
-    counters = reset_counters()
-    profiling.clear()
-    with profiling.record_phases():
-        tf.clip_flows(clip, vp)  # warm-up
-    levels = [s for s in profiling.spans() if s.name == "flow.level"]
-    profiling.clear()
-    require(levels and all(s.counts.get("fused_sweeps") == s.attrs["sweeps"] for s in levels),
-            "flow.level spans without one fused_sweeps count a sweep: "
-            + str([(s.attrs["h"], s.attrs["sweeps"], s.counts.get("fused_sweeps")) for s in levels]))
-    before = kf.hs_sweep.launches
-    fwd, bwd, wall = timed_flows()
     n_levels = len(tf._gray_pyramid(clip[:1].permute(1, 2, 0, 3), vp))
-    fused = kf.hs_sweep.launches - before
-    require(fused == n_levels * vp.flow_warps * vp.flow_iters, f"{fused} sweep launches for {n_levels} levels")
-    kf.hs_sweep = eager_sweep
-    try:
-        tf.clip_flows(clip, vp)
-        e_fwd, e_bwd, e_wall = timed_flows()
-    finally:
-        kf.hs_sweep = fused_sweep
-    require(torch.equal(fwd, e_fwd) and torch.equal(bwd, e_bwd),
-            f"clip_flows differs from its eager sweeps by {float((fwd - e_fwd).abs().max())} px")
-    log(f"  clip_flows {t_len}x{h}x{w}: bitwise the eager sweeps; {fused} sweep launches ({n_levels} levels, "
+    launches, wall, e_wall = clip_flows_against_eager(
+        clip, vp, {"hs_sweep": eager_sweep}, "fused_sweeps", lambda s: s.attrs["sweeps"], n_levels)
+    fused = launches["hs_sweep"] // 2
+    require(launches["hs_sweep"] == 2 * n_levels * vp.flow_warps * vp.flow_iters,
+            f"{launches['hs_sweep']} sweep launches in two runs for {n_levels} levels")
+    log(f"  clip_flows {t_len}x{h}x{w}: bitwise the eager sweeps; {fused} sweep launches a run ({n_levels} levels, "
         f"each level's fused_sweeps its sweeps), wall {wall:.3f} s, eager sweeps {e_wall:.3f} s, on {card}")
-    launches = read_counters(counters)
-    del clip, fwd, bwd, e_fwd, e_bwd
+    del clip
     torch.cuda.empty_cache()
     return launches, rec
+
+
+def irls_step_inputs(h: int, w: int, nb: int, dev, seed: int) -> tuple:
+    """Kernels 6 and 7's inputs at (h, w, nb) on ``dev``: a flow and its
+    warp's start of a few pixels, and the nine channel maps at the scale of
+    grey images in [0, 255] and their derivatives."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g).to(dev)
+    scale = torch.tensor([30.0, 20.0, 20.0] * 3).view(9, 1, 1, 1).to(dev)
+    return 3.0 * r(h, w, nb, 2), 3.0 * r(h, w, nb, 2), (scale * r(9, h, w, nb)).contiguous()
+
+
+def irls_steps(dev, card: str) -> tuple:
+    """Phase 24: kernels 6 and 7 against their plain versions, bitwise, at
+    ``IRLS_SHAPES``, timed at the first; then the robust ``clip_flows`` of a
+    stressor take against the same flows with every IRLS step eager, each
+    level's ``fused_irls_steps`` counter read. Returns the launches of the
+    ``clip_flows`` runs (the checks and the timing left out) and the two
+    kernels' records."""
+    import torch
+
+    from videomorphing_tpu_torch.config import VideoParams
+    from videomorphing_tpu_torch.kernels import flow as kf
+    from videomorphing_tpu_torch.utils import profiling
+    from videomorphing_tpu_torch.utils.stressor import make_stressor
+    from videomorphing_tpu_torch.video import flow as tf
+
+    vp = VideoParams(flow_robust=True)
+    consts = (vp.flow_alpha_robust ** 2, vp.flow_eps ** 2, vp.flow_eps_s ** 2, vp.flow_gamma)
+    alpha2 = consts[0]
+    inner = max(vp.flow_iters // vp.flow_irls, 1)
+    recs = {name: {"max_abs_err": 0.0, "library_ms": None} for name in ("irls_setup", "irls_sweep")}
+    timed = None
+    for k, (h, w, nb) in enumerate(IRLS_SHAPES):
+        ut, u_w, maps = irls_step_inputs(h, w, nb, dev, seed=100 + k)
+        coef = kf.irls_setup(ut, u_w, maps, *consts, torch.empty_like(maps))
+        ref_coef = kf.irls_setup_plain(ut, u_w, maps, *consts)
+        require(torch.equal(coef, ref_coef), f"irls_setup {h}x{w}x{nb} differs by {float((coef - ref_coef).abs().max())}")
+        bufs = (torch.empty_like(ut), torch.empty_like(ut))
+        one = kf.irls_sweep(ut, coef, alpha2, bufs[0])
+        require(torch.equal(one, kf.irls_sweep_plain(ut, coef, alpha2)), f"irls_sweep {h}x{w}x{nb}: one sweep differs")
+        got, ref = ut, ut
+        for i in range(inner):
+            got = kf.irls_sweep(got, coef, alpha2, bufs[i % 2])
+            ref = kf.irls_sweep_plain(ref, ref_coef, alpha2)
+        err = float((got - ref).abs().max())
+        log(f"  irls {h}x{w}x{nb}: the set-up, one sweep and {inner} chained bitwise the plain versions "
+            f"(max |ut| {float(got.abs().max()):.3f} px)")
+        require(torch.equal(got, ref), f"irls_sweep {h}x{w}x{nb}: {inner} sweeps differ by {err}")
+        if k == 0:
+            timed = (h, w, nb, ut, u_w, maps, coef, bufs)
+        else:
+            del ut, u_w, maps, coef, bufs
+        del ref_coef, one, got, ref
+    torch.cuda.empty_cache()
+
+    t_len, h, w = IRLS_THW
+    clip = make_stressor(t_len, h, w, seed=0, device=dev).clip_a
+
+    def eager_setup(ut, u_w, maps, a2, e2, e2s, gamma, out):
+        return out.copy_(kf.irls_setup_plain(ut, u_w, maps, a2, e2, e2s, gamma))
+
+    def eager_sweep(ut, coef, a2, out):
+        return out.copy_(kf.irls_sweep_plain(ut, coef, a2))
+
+    n_levels = len(tf._gray_pyramid(clip[:1].permute(1, 2, 0, 3), vp))
+    launches, wall, e_wall = clip_flows_against_eager(
+        clip, vp, {"irls_setup": eager_setup, "irls_sweep": eager_sweep}, "fused_irls_steps",
+        lambda s: s.counts.get("irls_steps"), n_levels)
+    steps, sweeps = launches["irls_setup"] // 2, launches["irls_sweep"] // 2
+    require(launches["irls_setup"] == 2 * n_levels * vp.flow_warps * vp.flow_irls
+            and launches["irls_sweep"] == launches["irls_setup"] * inner,
+            f"{launches['irls_setup']} set-up and {launches['irls_sweep']} sweep launches in two runs "
+            f"for {n_levels} levels")
+    log(f"  robust clip_flows {t_len}x{h}x{w}: bitwise the eager IRLS steps; {steps} set-up and {sweeps} sweep "
+        f"launches a run ({n_levels} levels, each level's fused_irls_steps its irls_steps), wall {wall:.3f} s, "
+        f"eager IRLS steps {e_wall:.3f} s, on {card}")
+    del clip
+    torch.cuda.empty_cache()
+
+    h, w, nb, ut, u_w, maps, coef, bufs = timed
+    n = h * w * nb
+    cases = (
+        ("irls_setup", IRLS_SETUP_BYTES, IRLS_SETUP_OPS,
+         lambda: kf.irls_setup(ut, u_w, maps, *consts, coef), lambda: kf.irls_setup_plain(ut, u_w, maps, *consts)),
+        ("irls_sweep", IRLS_SWEEP_BYTES, IRLS_SWEEP_OPS,
+         lambda: kf.irls_sweep(ut, coef, alpha2, bufs[0]), lambda: kf.irls_sweep_plain(ut, coef, alpha2)),
+    )
+    for name, n_bytes, n_ops, kern, plain in cases:
+        rec = recs[name]
+        rec["bound"] = bound(n_bytes * n, n_ops * n)
+        rec["ms"], rec["plain_ms"], (k1, k2, pl1, pl2), call = timed_pair(kern, plain)
+        b_ms, b_by = rec["bound"]
+        share = b_ms / rec["ms"]
+        log(f"  {name} {h}x{w}x{nb} time: kernel {k1:.4f}/{k2:.4f} ms (device), {call:.4f} ms (call), "
+            f"plain {pl1:.4f}/{pl2:.4f} ms; bound {b_ms:.4f} ms ({b_by}), {100 * share:.1f} % of it, "
+            f"{n_bytes * n / (rec['ms'] * 1e-3) / 1e12:.3f} TB/s on {card}")
+        require(share >= IRLS_MIN_SHARE, f"{name} at {100 * share:.1f} % of its bound, under {100 * IRLS_MIN_SHARE:.0f} %")
+    del timed, ut, u_w, maps, coef, bufs
+    torch.cuda.empty_cache()
+    return launches, recs
 
 
 def main(argv) -> int:
@@ -3057,11 +3207,16 @@ def main(argv) -> int:
     log("phase 23: flow sweeps (kernels.flow.hs_sweep against its plain version at clip30's levels, timed at "
         "540x960x58; clip_flows against its eager sweeps)")
     flow_launches, rec["hs_sweep"] = flow_sweeps(dev, card)
+    log("phase 24: IRLS steps (kernels.flow.irls_setup and irls_sweep against their plain versions at "
+        "stressor30's levels, timed at {}x{}x{}; robust clip_flows against its eager IRLS steps)".format(
+            *IRLS_SHAPES[0]))
+    irls_launches, irls_recs = irls_steps(dev, card)
+    rec.update(irls_recs)
 
     paths = (launches, golden_launches, video_launches, layered_launches, layered_video_launches, spatial_launches,
              mesh_launches, manifest_launches, stream_launches, stressor_launches, edit_launches, rows_launches,
              examples_launches, wide_launches, bf16_launches, bench_launches, graph_launches,
-             solver_graph_launches, flow_launches)
+             solver_graph_launches, flow_launches, irls_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]

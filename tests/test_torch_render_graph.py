@@ -284,7 +284,7 @@ def test_counted_lists_every_counting_kernel_wrapper():
     from videomorphing_tpu_torch import kernels
 
     wrappers = {fn for mod in (ks, kw, kf) for fn in vars(mod).values() if callable(fn) and hasattr(fn, "launches")}
-    assert set(kernels.COUNTED) == wrappers and len(kernels.COUNTED) == len(wrappers) == 9
+    assert set(kernels.COUNTED) == wrappers and len(kernels.COUNTED) == len(wrappers) == 11
 
 
 def test_one_confidence_alone_is_ignored_as_before():

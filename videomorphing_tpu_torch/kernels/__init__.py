@@ -11,7 +11,10 @@ PyTorch version on CPU tensors:
 - kernel 4, the bilinear sampler: ``bilinear_sample`` and
   ``bilinear_sample_batched``;
 - kernel 5, the flows' Horn-Schunck Jacobi sweep (``kernels.flow``):
-  ``hs_sweep``, which has no counterpart in the reference's kernel layer.
+  ``hs_sweep``, and kernels 6 and 7, the robust flow's IRLS step:
+  ``irls_setup`` (its weights and normal matrix) and ``irls_sweep`` (a
+  damped-Jacobi sweep); none has a counterpart in the reference's kernel
+  layer.
 
 Each wrapper counts its launches in its ``launches*`` attributes;
 ``COUNTED`` lists the wrappers, for the CUDA graphs' capture and replay
@@ -23,7 +26,7 @@ names maps to the port function that computes the same thing, as a dotted
 path, or to the reason the port has none (ROADMAP "Not ported").
 """
 
-from videomorphing_tpu_torch.kernels.flow import hs_sweep
+from videomorphing_tpu_torch.kernels.flow import hs_sweep, irls_setup, irls_sweep
 from videomorphing_tpu_torch.kernels.sweep import (
     combine_parts,
     shard_reach,
@@ -51,12 +54,14 @@ __all__ = [
     "bilinear_sample",
     "bilinear_sample_batched",
     "hs_sweep",
+    "irls_setup",
+    "irls_sweep",
     "REFERENCE_COUNTERPARTS",
 ]
 
 # the wrappers that count their launches
 COUNTED = (sweep_grad, sweep_energy, sweep_grad_shard, sweep_energy_shard, halfway_warp, halfway_warp_rows,
-           bilinear_sample, bilinear_sample_batched, hs_sweep)
+           bilinear_sample, bilinear_sample_batched, hs_sweep, irls_setup, irls_sweep)
 
 _PORT = "videomorphing_tpu_torch."
 _PACKING = ("not ported: the TPU packing (sweep._pack's column groups for Mosaic's 128-lane DMA); "

@@ -104,11 +104,13 @@ def build() -> Path:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     sigs = {
         "vm_halfway_warp": [P, P, P, P, I, I, I, I, I, I, P],
         "vm_bilinear_sample": [P, P, P, I, I, I, I, L, I, P],
         "vm_hs_sweep": [P] * 7 + [I, I, I, P],
+        "vm_irls_setup": [P] * 4 + [I, I, I, F, F, F, F, P],
+        "vm_irls_sweep": [P] * 3 + [I, I, I, F, P],
         "vm_sweep_grad": [P] * 10 + [I, P, L] + [P] * 3,
         "vm_sweep_energy": [P] * 8 + [I, P, L] + [P] * 3,
         "vm_sweep_grad_bf16": [P] * 10 + [I, P, L] + [P] * 3,

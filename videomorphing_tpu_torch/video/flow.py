@@ -19,10 +19,14 @@ under 128 px on the plain gather (``flow.py:63-66``): the values are the
 same, only the launch counts differ. ``VideoParams.fused_flow`` is ignored.
 Every Horn-Schunck Jacobi sweep runs through kernel 5
 (``kernels.flow.hs_sweep``: one launch a sweep on the card, the plain
-version on the CPU, the same bits). Each level opens a ``flow.level`` span
+version on the CPU, the same bits). Every IRLS step of the robust flow
+runs through kernel 6 (``kernels.flow.irls_setup``: one launch for its
+weights and normal matrix) and kernel 7 (``irls_sweep``: one launch a
+damped-Jacobi sweep), the same way. Each level opens a ``flow.level`` span
 (``h``, ``w``, ``batch``, ``sweeps``); ``_hs_level`` counts kernel 5's
 launches there as ``fused_sweeps``, ``_robust_level`` its IRLS steps as
-``irls_steps``, each inside a ``flow.irls`` span of its own.
+``irls_steps``, each inside a ``flow.irls`` span of its own, and kernel
+6's launches as ``fused_irls_steps``.
 """
 
 from __future__ import annotations
@@ -122,78 +126,45 @@ def _robust_level(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor, vp: VideoPa
     residuals and TV-like smoothness, as lagged IRLS weights around damped
     Jacobi sweeps that solve each pixel's 2x2 normal matrix in closed form.
     ``flow_iters`` splits as ``max(flow_iters // flow_irls, 1)`` sweeps per
-    IRLS step. Each IRLS step (its weights, its normal matrix, its sweeps)
-    opens a ``flow.irls`` span (``h``, ``w``, ``batch``, ``sweeps``: its
-    inner count) and adds one to the open span's ``irls_steps`` counter."""
+    IRLS step. Each IRLS step is one launch of kernel 6 (its weights and
+    normal matrix, ``kernels.flow.irls_setup``) and one of kernel 7 a sweep
+    (``irls_sweep``) on the card, their plain versions on the CPU. It opens
+    a ``flow.irls`` span (``h``, ``w``, ``batch``, ``sweeps``: its inner
+    count) and adds one to the open span's ``irls_steps`` counter; the
+    steps that launched kernel 6 add to its ``fused_irls_steps``."""
     h, w = a.shape[0], a.shape[1]
     nb = a.shape[2] if a.dim() > 2 else 1
     g = _grid_like(h, w, u)
     alpha2 = vp.flow_alpha_robust * vp.flow_alpha_robust
     eps2 = vp.flow_eps * vp.flow_eps
     eps2_s = vp.flow_eps_s * vp.flow_eps_s
-    gamma = vp.flow_gamma
     ay, ax = _deriv(a)
+    n_irls = vp.flow_irls
+    inner = max(vp.flow_iters // n_irls, 1)
+
+    u = u.contiguous()
+    coef = u.new_empty((kflow.IRLS_MAPS,) + tuple(a.shape))  # each step's weights and normal matrix
+    bufs = (torch.empty_like(u), torch.empty_like(u))  # the sweeps write these in turn
+    n_sweeps = 0
+    launched = kflow.irls_setup.launches
 
     for _ in range(vp.flow_warps):
         u_w = u
-        bw = _warp_gray(b, g + u_w, vp)
+        bw = _warp_gray(b, g + u_w, vp).contiguous()
         bwy, bwx = _deriv(bw)
-        byy, byx = _deriv(bwy)
-        bxy, bxx = _deriv(bwx)
-        # (temporal residual at u_w, d/dy, d/dx, weight) per data channel
-        chans = (
-            (bw - a, bwy, bwx, 1.0),
-            (bwy - ay, byy, byx, gamma),
-            (bwx - ax, bxy, bxx, gamma),
-        )
-        n_irls = vp.flow_irls
-        inner = max(vp.flow_iters // n_irls, 1)
-
+        maps = kflow.irls_maps((bw - a, bwy, bwx), (bwy - ay, *_deriv(bwy)), (bwx - ax, *_deriv(bwx)))
         ut = u_w
         for _ in range(n_irls):
             profiling.count("irls_steps")
             with profiling.span("flow.irls", h=h, w=w, batch=nb, sweeps=inner):
-                du = ut - u_w
-                ws = []
-                for n in edge_shifts(ut):
-                    d = n - ut
-                    ws.append(1.0 / torch.sqrt(torch.sum(d * d, -1) + eps2_s))
-                wsum = ws[0] + ws[1] + ws[2] + ws[3]
-                s = alpha2 * wsum * 0.25
-
-                r2_sum = torch.zeros_like(s)
-                for it_c, gy_c, gx_c, cw in chans:
-                    r = it_c + gy_c * du[..., 0] + gx_c * du[..., 1]
-                    r2_sum = r2_sum + cw * r * r
-                w_pix = 1.0 / torch.sqrt(r2_sum + eps2)
-
-                a11 = s
-                a12 = torch.zeros_like(s)
-                a22 = s
-                b1 = torch.zeros_like(s)
-                b2 = torch.zeros_like(s)
-                for it_c, gy_c, gx_c, cw in chans:
-                    wc = cw * w_pix
-                    a11 = a11 + wc * gy_c * gy_c
-                    a12 = a12 + wc * gy_c * gx_c
-                    a22 = a22 + wc * gx_c * gx_c
-                    c = it_c - gy_c * u_w[..., 0] - gx_c * u_w[..., 1]
-                    b1 = b1 - wc * gy_c * c
-                    b2 = b2 - wc * gx_c * c
-                det = a11 * a22 - a12 * a12
-
+                kflow.irls_setup(ut, u_w, maps, alpha2, eps2, eps2_s, vp.flow_gamma, coef)
                 for _ in range(inner):
-                    un_u, un_d, un_l, un_r = edge_shifts(ut)
-                    ua = (
-                        ws[0][..., None] * un_u + ws[1][..., None] * un_d
-                        + ws[2][..., None] * un_l + ws[3][..., None] * un_r
-                    ) / wsum[..., None]
-                    r1 = s * ua[..., 0] + b1
-                    r2 = s * ua[..., 1] + b2
-                    uy = (a22 * r1 - a12 * r2) / det
-                    ux = (a11 * r2 - a12 * r1) / det
-                    ut = 0.5 * ut + 0.5 * torch.stack([uy, ux], -1)
+                    ut = kflow.irls_sweep(ut, coef, alpha2, bufs[n_sweeps % 2])
+                    n_sweeps += 1
         u = u_w + torch.clamp(ut - u_w, -vp.flow_clamp, vp.flow_clamp)
+    fused = kflow.irls_setup.launches - launched
+    if fused:
+        profiling.count("fused_irls_steps", fused)
     return u
 
 
