@@ -367,8 +367,9 @@ def test_extended_block_clamp_is_the_frame_clamp_at_its_rows(n_blocks):
 @pytest.mark.parametrize("case", ["jnp_colors2", "backtracks"])
 def test_spatial_solve_opens_one_level_span(pair, monkeypatch, case):
     """A row-sharded solve is one ``solve.level`` span of ``descent.descend``:
-    ``h``, ``w``, ``n_iters``, ``iters`` its ``LevelStats.iters``, and
-    ``armijo_trials`` its kernel-2 shard calls over the blocks."""
+    ``h``, ``w``, ``n_iters``, ``radius`` (window 5's 2), ``iters`` its
+    ``LevelStats.iters``, and ``armijo_trials`` its kernel-2 shard calls
+    over the blocks."""
     kw_ = dict(init_step=1e4, max_backtracks=2, backend="jnp") if case == "backtracks" else SOLVER_CASES[case]
     calls = {"n": 0}
     shard = spatial.sweep_energy_shard
@@ -387,7 +388,7 @@ def test_spatial_solve_opens_one_level_span(pair, monkeypatch, case):
     profiling.clear()
     assert len(levels) == 1
     span = levels[0]
-    assert span.attrs == {"h": H, "w": W, "n_iters": 6, "iters": st.iters} and st.iters > 0
+    assert span.attrs == {"h": H, "w": W, "n_iters": 6, "radius": 2, "iters": st.iters} and st.iters > 0
     assert span.counts["armijo_trials"] * N_DEV == calls["n"]
     assert span.counts["armijo_trials"] >= st.iters + (case == "backtracks")
 

@@ -133,6 +133,16 @@ def wide_strip(with_grad: bool, radius: int) -> bool:
     return not tiled(with_grad, radius) and 0 <= radius <= _geometry()["WIDE_MAX_RADIUS"]
 
 
+def strip(with_grad: bool, radius: int) -> bool:
+    """Whether window radius R runs the strip form of the gradient kernel
+    (``with_grad``; ``sweep_grad_strip_kernel<R>``, R = ``STRIP_MIN_RADIUS``
+    .. ``STRIP_MAX_RADIUS``) or of the energy kernel
+    (``sweep_energy_strip_kernel<R>``, R = ``ENERGY_STRIP_MIN_RADIUS`` ..
+    ``ENERGY_STRIP_MAX_RADIUS``)."""
+    g = _geometry()
+    return tiled(with_grad, radius) and radius >= g["STRIP_MIN_RADIUS" if with_grad else "ENERGY_STRIP_MIN_RADIUS"]
+
+
 def kernel_name(with_grad: bool, radius: int) -> str:
     """The kernel of ``csrc/sweep.cu`` that runs at window radius
     ``radius``: ``sweep_grad_kernel<R>`` (the gradient's tile),
@@ -145,8 +155,7 @@ def kernel_name(with_grad: bool, radius: int) -> str:
     if not tiled(with_grad, radius):
         return f"per-pixel chain ({what})"
     kind = "grad" if with_grad else "energy"
-    strip = radius >= _geometry()["STRIP_MIN_RADIUS" if with_grad else "ENERGY_STRIP_MIN_RADIUS"]
-    return f"sweep_{kind}{'_strip' if strip else ''}_kernel<{radius}>"
+    return f"sweep_{kind}{'_strip' if strip(with_grad, radius) else ''}_kernel<{radius}>"
 
 
 def sweep_tile(with_grad: bool, radius: int = 1) -> tuple[int, int]:
@@ -166,11 +175,9 @@ def sweep_tile(with_grad: bool, radius: int = 1) -> tuple[int, int]:
         return g["WIDE_STRIP_ROWS" if with_grad else "WIDE_ENERGY_STRIP_ROWS"], g["WIDE_STRIP_COLS"]
     if not tiled(with_grad, radius):
         return g["CHAIN_TILE_ROWS"], g["CHAIN_TILE_COLS"]
-    if with_grad and radius >= g["STRIP_MIN_RADIUS"]:
-        return g["STRIP_ROWS"], g["STRIP_COLS"]
     if with_grad:
-        return g["TILE_ROWS"], g["TILE_COLS"]
-    if radius >= g["ENERGY_STRIP_MIN_RADIUS"]:
+        return (g["STRIP_ROWS"], g["STRIP_COLS"]) if strip(True, radius) else (g["TILE_ROWS"], g["TILE_COLS"])
+    if strip(False, radius):
         return g["ENERGY_STRIP_ROWS"], g["ENERGY_STRIP_WARPS"] * (32 - 2 * radius)
     return g["ENERGY_TILE_ROWS"], g["ENERGY_TILE_COLS"]
 

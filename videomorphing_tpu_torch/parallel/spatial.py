@@ -93,7 +93,8 @@ class _RowBlocks:
     as owned row blocks ``v_blks``, each block's halo exchange and shard
     kernels, the values gathered in one transfer and summed in block
     order. ``states``: per block (the warp planes, v_lin) of the last
-    re-warp; ``v_try``: the extended blocks of the last trial."""
+    re-warp; ``v_try``: the extended blocks of the last trial; ``on_card``:
+    every block's sweeps launch the card's kernels."""
 
     def __init__(self, p: MorphParams, devs, v: torch.Tensor, data: LevelData, dt: torch.dtype):
         self.p, self.dt, self.home = p, dt, v.device
@@ -113,6 +114,7 @@ class _RowBlocks:
                                       bmask[rows].to(dev, copy=True),  # a block holds only its rows
                                       tuple(m[rows].to(dev, copy=True) for m in cmasks)))
         self.v_blks = [v[k * bh:(k + 1) * bh].to(b.dev).contiguous() for k, b in enumerate(self.blocks)]
+        self.on_card = all(vb.is_cuda for vb in self.v_blks)
 
     def _gather(self, vals) -> np.ndarray:
         """Per-block device vectors -> (n_dev, k) float32, one transfer."""

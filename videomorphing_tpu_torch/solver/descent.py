@@ -41,7 +41,7 @@ import torch
 from videomorphing_tpu_torch.config import MorphParams
 from videomorphing_tpu_torch.graphs import LRU, Captured, capture, replayable
 from videomorphing_tpu_torch.kernels import COUNTED
-from videomorphing_tpu_torch.kernels.sweep import pack_dtype, pack_maps, quantize_v_lin, sweep_energy, sweep_grad
+from videomorphing_tpu_torch.kernels.sweep import pack_dtype, pack_maps, quantize_v_lin, strip, sweep_energy, sweep_grad
 from videomorphing_tpu_torch.kernels.warp import bundle_from_planes, halfway_warp
 from videomorphing_tpu_torch.ops.ssim import dssim_grad_bundle, dssim_map
 from videomorphing_tpu_torch.ops.windows import gaussian_taps, median3x3, separable_filter
@@ -353,10 +353,12 @@ class _OneDevice:
     """A level's operations for :func:`descend` on one device: ``go(name)``
     runs a step of :func:`_steps` on the buffers ``s``, as a graph replay
     where ``graphed`` (each iteration then counts as ``graph_iters``) or
-    eagerly; ``field()`` is what the solve returns."""
+    eagerly; ``field()`` is what the solve returns. ``on_card``: the sweeps
+    launch the card's kernels."""
 
     def __init__(self, s: _Level, p: MorphParams, go, field, graphed: bool):
         self.s, self.p, self.go, self.field, self.graphed = s, p, go, field, graphed
+        self.on_card = s.v.is_cuda
 
     def relin(self, median: bool) -> None:
         if median:
@@ -386,8 +388,13 @@ class _OneDevice:
 def descend(open_level, p: MorphParams, n_iters: int, h: int, w: int):
     """The level loop of both level solvers: ``(v', LevelStats)`` of the
     level that ``open_level()`` makes, inside a ``solve.level`` span
-    (``h``, ``w``, ``n_iters``, on exit ``iters``) that counts
-    ``armijo_trials`` (the first trial and each backtrack).
+    (``h``, ``w``, ``n_iters``, ``radius`` the sweep kernels' window radius
+    R, on exit ``iters``) that counts ``armijo_trials`` (the first trial and
+    each backtrack). Where the level's ``on_card`` says its sweeps launch
+    the card's kernels, it also counts ``strip_iters``, the iterations whose
+    gradient pass ran kernel 1's strip form, and ``strip_trials``, the
+    trials whose energy pass ran kernel 2's strip form
+    (:func:`~videomorphing_tpu_torch.kernels.sweep.strip`).
 
     The level does the device work and the reads: ``relin(median)`` (the
     field's 3x3 median where ``median``, then the re-warp),
@@ -406,8 +413,11 @@ def descend(open_level, p: MorphParams, n_iters: int, h: int, w: int):
     def cond():
         return it < n_iters and stall <= p.n_colors and step > min_step
 
-    with profiling.span("solve.level", h=h, w=w, n_iters=n_iters) as span:
+    radius = int(p.ssim_window) // 2
+    with profiling.span("solve.level", h=h, w=w, n_iters=n_iters, radius=radius) as span:
         level = open_level()
+        strip_iter = level.on_card and strip(True, radius)
+        strip_trial = level.on_card and strip(False, radius)
         if n_iters <= 0:
             level.relin(False)
             e0 = e = level.energy()
@@ -419,6 +429,10 @@ def descend(open_level, p: MorphParams, n_iters: int, h: int, w: int):
                 alpha = step
                 e_cur, gd, e_try = level.iterate(it % p.n_colors, alpha)
                 profiling.count("armijo_trials")
+                if strip_iter:
+                    profiling.count("strip_iters")
+                if strip_trial:
+                    profiling.count("strip_trials")
                 if it == 0:
                     e0 = e_cur
                 tries = 0
@@ -427,6 +441,8 @@ def descend(open_level, p: MorphParams, n_iters: int, h: int, w: int):
                     alpha = alpha * shrink
                     e_try = level.backtrack(alpha)
                     profiling.count("armijo_trials")
+                    if strip_trial:
+                        profiling.count("strip_trials")
                     tries += 1
                 accepted = e_try <= e_cur + armijo_c * alpha * gd
                 if accepted:
